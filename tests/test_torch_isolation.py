@@ -21,7 +21,9 @@ from vfa_tpu_torch.model.vfanet import VFANet, init_weights
 from vfa_tpu_torch.ops.rig import build_rig, pyramid_feat_shapes
 from vfa_tpu_torch.ops.rig_cuda import rig_window_fwd
 from vfa_tpu_torch.codec import ObjectEncoder
-from vfa_tpu_torch import convert, kernels, predict
+from vfa_tpu_torch import convert, kernels, losses, predict, rig_cli, train, train_lib
+from vfa_tpu_torch.data.synthetic_loader import SyntheticSceneLoader
+from vfa_tpu_torch.ops.rig_cuda import rig_window_bwd
 
 cfg = tiny_config(get_config("MultiviewC"))
 scene = make_scene(cfg, seed=0, num_objects=2)
@@ -34,7 +36,11 @@ L, W = cfg.grid_shape
 assert pred["heatmap"].shape == (1, 1, L, W)
 assert torch.isfinite(pred["rotation"]).all()
 ObjectEncoder(cfg, dim_mean=[145.0, 120.0, 255.0]).batch_decode(pred, 0.5)
-assert rig_window_fwd.launches == 0
+out = train.main(["--data", "Wildtrack", "--synthetic", "--tiny", "-e", "1",
+                  "--synthetic_frames", "2", "--pretrained", "0", "--no_augment",
+                  "--device", "cpu"])
+assert all(np.isfinite(d["loss"]) for d in out["losses"])
+assert rig_window_fwd.launches == 0 and rig_window_bwd.launches == 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "vfa_tpu")
        and sys.modules[m] is not None]
 assert not bad, bad

@@ -1,9 +1,18 @@
-"""Detection decode (port of the decode half of `vfa_tpu/codec.py`).
+"""Detection target codec (port of `vfa_tpu/codec.py`).
 
-Reference: `vfa/data/encoder.py:230-333`. sigmoid -> 5x5 maxpool-equality
-NMS -> top-k -> threshold -> invert the offset / dimension / CSL
-encodings. Fixed-shape (B, K) outputs with a `valid` mask, batched over
-scenes, all on the model's device.
+Reference: `vfa/data/encoder.py:24-333`, `vfa/data/smooth_label.py:4-9`.
+
+Encode: each object's center picks a grid cell (Wildtrack's index order is
+swapped), and the cell gets fractional location offsets, log(dim /
+class_mean) dimension offsets and a 360-bin Circular-Smooth-Label rotation
+target. Batched over scenes on the objects' device, no loop over cells;
+two objects on one cell resolve last-writer-wins through the `owner` mask
+of `object_cells`, so every cell is written once and the result does not
+depend on the order in which a device applies a scatter.
+
+Decode: sigmoid -> 5x5 maxpool-equality NMS -> top-k -> threshold ->
+invert the offset / dimension / CSL encodings. Fixed-shape (B, K) outputs
+with a `valid` mask, batched over scenes, all on the model's device.
 """
 
 from __future__ import annotations
@@ -16,6 +25,112 @@ import torch.nn.functional as F
 
 from vfa_tpu_torch.config import DatasetConfig
 from vfa_tpu_torch.utils import Obj2D, Obj3D
+
+
+def gaussian_csl_labels(angles_deg: torch.Tensor, num_class: int = 360,
+                        sigma: float = 6.0) -> torch.Tensor:
+    """Circular smooth labels for integer angles in degrees (truncated
+    toward zero, may be negative): a gaussian centered on the angle bin,
+    wrapped over `num_class` bins (`vfa/data/smooth_label.py:4-9`).
+    Returns (..., num_class)."""
+    label = torch.trunc(angles_deg).to(torch.int64)
+    half = num_class // 2
+    dev = angles_deg.device
+    x = torch.arange(-half, num_class - half, dtype=torch.float32, device=dev)
+    y = torch.exp(-(x ** 2) / (2.0 * sigma ** 2))
+    bins = torch.arange(num_class, device=dev)
+    idx = torch.remainder(bins - (label[..., None] - half), num_class)
+    return y[idx]
+
+
+def _normalized_locations(location: torch.Tensor, world_size, grid_shape):
+    """location (..., >=2) -> continuous grid coords, reference formula
+    `encoder.py:155`: loc / world_size * grid_shape."""
+    ws = torch.tensor(world_size, dtype=torch.float32, device=location.device)
+    gs = torch.tensor(grid_shape, dtype=torch.float32, device=location.device)
+    return location[..., :2] / ws * gs
+
+
+def object_cells(objects: Dict[str, torch.Tensor], cfg: DatasetConfig):
+    """Grid cell (row, col) of each padded object and its `owner` mask.
+
+    objects: 'location' (..., M, 3), 'valid' (..., M). `owner` marks objects
+    that are valid, land inside the grid, and are not followed by a later
+    valid object on the same cell: exactly the cells where a
+    last-writer-wins scatter leaves that object's targets. Rows and cols
+    are clipped into the grid."""
+    L, W = cfg.grid_shape
+    loc = _normalized_locations(objects["location"], cfg.world_size,
+                                cfg.grid_shape)
+    cx = torch.floor(loc[..., 0]).to(torch.int64)
+    cy = torch.floor(loc[..., 1]).to(torch.int64)
+    row, col = (cx, cy) if cfg.name == "Wildtrack" else (cy, cx)
+    inside = (row >= 0) & (row < L) & (col >= 0) & (col < W)
+    valid = (objects["valid"] > 0) & inside
+    key = row * W + col
+    M = key.shape[-1]
+    later = torch.ones((M, M), dtype=torch.bool, device=key.device).triu(1)
+    same_later = ((key[..., None, :] == key[..., :, None])
+                  & valid[..., None, :] & later)
+    owner = valid & ~same_later.any(-1)
+    return row.clamp(0, L - 1), col.clamp(0, W - 1), owner
+
+
+def encode_frame(objects: Dict[str, torch.Tensor], heatmap: torch.Tensor,
+                 cfg: DatasetConfig, dim_mean=None, angle_range: int = 360,
+                 angle_radius: float = 6.0,
+                 dense_rotation: bool = True) -> Dict[str, torch.Tensor]:
+    """Encode padded gt objects into dense targets, batched over scenes.
+
+    objects: 'location' (B, M, 3), 'valid' (B, M) and, in 3D mode,
+    'dimension' (B, M, 3), 'rotation' (B, M) (see `utils.pad_objects`);
+    heatmap (B, L, W). One frame may be given without the leading B and is
+    encoded as a batch of one. Returns mask (B, 1, L, W), heatmap
+    (B, 1, L, W), loc_offset (B, L, W, 2) and, in 3D mode, dim_offset
+    (B, L, W, 3) and (with dense_rotation) rotation (B, L, W, angle_range).
+    Objects that are padded or fall outside the grid are dropped; an empty
+    frame encodes to all-zero targets."""
+    if objects["location"].dim() == 2:
+        objects = {k: v[None] for k, v in objects.items()}
+        heatmap = heatmap[None]
+    L, W = cfg.grid_shape
+    location = objects["location"].float()
+    B, M = location.shape[:2]
+    dev = location.device
+    row, col, owner = object_cells(objects, cfg)
+    # every owner writes its own cell; all others go to one spare slot
+    flat = (torch.arange(B, device=dev)[:, None] * L + row) * W + col
+    flat = torch.where(owner, flat, torch.full_like(flat, B * L * W)).reshape(-1)
+
+    def scatter(values: torch.Tensor) -> torch.Tensor:
+        """values (B, M, D) -> (B, L, W, D), zeros off the owners' cells."""
+        D = values.shape[-1]
+        buf = torch.zeros((B * L * W + 1, D), dtype=torch.float32, device=dev)
+        buf[flat] = values.reshape(B * M, D).float()
+        return buf[:-1].reshape(B, L, W, D)
+
+    loc = _normalized_locations(location, cfg.world_size, cfg.grid_shape)
+    out = {
+        "mask": scatter(torch.ones((B, M, 1), device=dev)).permute(0, 3, 1, 2),
+        "heatmap": heatmap.float()[:, None],
+        "loc_offset": scatter(loc - torch.floor(loc)),
+    }
+    if cfg.mode == "3D":
+        if dim_mean is None:
+            raise ValueError("3D encode needs dim_mean")
+        mean = torch.as_tensor(np.asarray(dim_mean, np.float32), device=dev)
+        valid = objects["valid"] > 0
+        dim_off = torch.log(objects["dimension"].float() / mean)
+        out["dim_offset"] = scatter(
+            torch.where(valid[..., None], dim_off, torch.zeros_like(dim_off)))
+        # dense_rotation=False skips the (L, W, angle_range) CSL map: the
+        # train step evaluates the angle loss at the object cells instead
+        # (losses.csl_angle_focal_loss_cells)
+        if dense_rotation:
+            out["rotation"] = scatter(gaussian_csl_labels(
+                torch.rad2deg(objects["rotation"].float()), angle_range,
+                angle_radius))
+    return out
 
 
 def nms_heatmap(heatmap: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Dataset configuration (port of `vfa_tpu/config.py`).
+"""Dataset and training configuration (port of `vfa_tpu/config.py`).
 
-The three per-dataset configs keep the reference's field names
+The three per-dataset configs and `TrainConfig` keep the reference's field names
 (`vfa/config.py:5-90`); all are frozen dataclasses.
 """
 
@@ -55,6 +55,41 @@ class DatasetConfig:
             self.world_size[0] // self.cube_size[0],
             self.world_size[1] // self.cube_size[1],
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-recipe flags (reference `train.py:21-138` defaults)."""
+
+    epochs: int = 40
+    batch_size: int = 1
+    lr: float = 0.02
+    weight_decay: float = 5e-4
+    momentum: float = 0.5
+    angle_range: int = 360
+    pretrained: bool = True
+    heatmap: str = "GK"          # 'GK' or 'RGK' gt heatmap flavor
+    seed: int = 1
+    savedir: str = "experiments"
+    print_iter: int = 1
+    vis_iter: int = 50
+    cls_thresh: float = 0.8
+    topk: int = 50
+    base: str = "resnet18"
+    # Reference quirk: OneCycleLR is configured with steps_per_epoch*epochs
+    # total steps but stepped once per epoch (`train.py:257-258,274`), so the
+    # LR trajectory only traverses the first `epochs` steps of the cycle.
+    # True replicates that behavior; False steps per iteration as configured.
+    scheduler_step_per_epoch: bool = True
+    # Reference quirk: torch OneCycleLR defaults to cycle_momentum=True and
+    # overwrites SGD's configured momentum (0.5) with a 0.95->0.85->0.95
+    # cosine cycle every scheduler step (`train.py:256-258`). True replicates
+    # that (the `momentum` field is then inert, as in the reference); False
+    # uses the constant `momentum` value.
+    cycle_momentum: bool = True
+    # Numerics: 'float32', or 'bfloat16' (accepted here, refused by the
+    # train step until the bf16 kernels are ported).
+    compute_dtype: str = "float32"
 
 
 MC_OPTS = DatasetConfig(

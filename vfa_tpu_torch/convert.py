@@ -62,3 +62,12 @@ def params_from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Te
         sd[f"{mod}.{names[path[-1]]}"] = torch.from_numpy(np.ascontiguousarray(v))
         sd[f"{mod}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return sd
+
+
+def named_jax_leaves(params: Mapping, batch_stats: Mapping = None) -> Dict[str, np.ndarray]:
+    """A JAX params (and batch_stats) tree laid out under the port's names
+    and layouts, as numpy arrays: what the model's `named_parameters()` and
+    BatchNorm running buffers are compared with after a train step."""
+    return {k: v.numpy() for k, v in
+            params_from_jax(params, batch_stats or {}).items()
+            if not k.endswith("num_batches_tracked")}

@@ -1,14 +1,16 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each `csrc/<name>.cu` exposes a plain C interface. It is compiled with nvcc
-for Hopper (`sm_90a`) into `_build/lib<name>.so` at first use and bound
-with ctypes; nothing is built when this module is imported. A failed build
-or a missing nvcc raises: there is no fallback.
+Each `csrc/<name>.cu` exposes a plain C interface (shared device code is in
+`csrc/*.cuh`). It is compiled with nvcc for Hopper (`sm_90a`) into
+`_build/lib<name>.so` at first use and bound with ctypes; nothing is built
+when this module is imported. A failed build or a missing nvcc raises:
+there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -26,6 +28,9 @@ P, I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "rig_window_fwd": {
         "rig_window_fwd_f32": [P] * 6 + [I] * 13 + [P],
+    },
+    "rig_window_bwd": {
+        "rig_window_bwd_f32": [P] * 8 + [I] * 13 + [P],
     },
 }
 
@@ -52,7 +57,9 @@ class KernelLibrary:
 
     def _stale(self, name: str) -> bool:
         src, so = self._paths(name)
-        return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src)
+        deps = [src, *glob.glob(os.path.join(CSRC, "*.cuh"))]
+        return (not os.path.exists(so)
+                or os.path.getmtime(so) < max(map(os.path.getmtime, deps)))
 
     def build(self, names: List[str]) -> None:
         """Compile the named sources that are out of date, one nvcc process

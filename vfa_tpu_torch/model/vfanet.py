@@ -5,8 +5,10 @@ In-graph ImageNet normalization, ResNet-GN pyramid, per-scale 1x1 laterals
 (128/256/512 -> 256) + GN + ReLU, per-scale rig sampling fused with the
 collapse Linear(256*nl -> 256) and summed over cameras and scales in fp32,
 a fuse block (3x3 conv + BN + ReLU, dilated-2 3x3 conv + BN + ReLU), and
-CenterNet-style heads. Module names follow the reference `.pth` keys
-(`vfa/model/vfanet.py:14-149`). The public edge keeps the JAX layouts:
+CenterNet-style heads. In training mode the two BatchNorms normalize with
+batch statistics and update their running buffers as flax does. Module
+names follow the reference `.pth` keys (`vfa/model/vfanet.py:14-149`).
+The public edge keeps the JAX layouts:
 images (B, N, H, W, 3); outputs as at `vfa_tpu/model/vfanet.py:321-331`.
 """
 
@@ -16,6 +18,7 @@ import math
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from vfa_tpu_torch.config import DatasetConfig
@@ -35,6 +38,25 @@ class VFACollapse(nn.Module):
     def __init__(self, nl: int, channels: int = 256):
         super().__init__()
         self.collapse = nn.Linear(channels * nl, channels)
+
+
+class BatchNorm2dBiased(nn.BatchNorm2d):
+    """BatchNorm2d whose running variance is updated with the biased batch
+    variance, as flax `nn.BatchNorm` does (`nn.BatchNorm2d` uses the
+    unbiased one), so a train step leaves the same running statistics as
+    the JAX model. flax momentum 0.9 is `momentum=0.1` here. Same
+    parameters and buffers as `nn.BatchNorm2d`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
 
 
 class VFANet(nn.Module):
@@ -66,10 +88,10 @@ class VFANet(nn.Module):
         self.vfa16 = VFACollapse(nl)
         self.vfa32 = VFACollapse(nl)
         self.fuse = nn.Sequential(
-            nn.Conv2d(256, 256, 3, padding=1), nn.BatchNorm2d(256, eps=1e-5),
-            nn.ReLU(),
+            nn.Conv2d(256, 256, 3, padding=1),
+            BatchNorm2dBiased(256, eps=1e-5, momentum=0.1), nn.ReLU(),
             nn.Conv2d(256, 256, 3, padding=2, dilation=2),
-            nn.BatchNorm2d(256, eps=1e-5), nn.ReLU())
+            BatchNorm2dBiased(256, eps=1e-5, momentum=0.1), nn.ReLU())
         self.map_classifier = nn.Sequential(
             nn.Conv2d(256, 1, 3, padding=4, dilation=4, bias=False))
         self.tytx_pred = nn.Sequential(

@@ -13,7 +13,8 @@ The host builder below is numpy and reproduces the JAX build byte for byte
 (same A, starts, inv_perm, window_hw), including its TPU-derived constants:
 `default_tile_v`, the band cap of `_build_scale_window`, and the 8/16
 window alignment. `rig_sample_scale` is the plain PyTorch version of the
-hand-written window kernel (`ops/rig_cuda.py`) plus the shared epilogue.
+hand-written window kernel (`ops/rig_cuda.py`) plus the shared epilogue;
+`window_tiles_bwd` is the plain version of the backward kernel.
 """
 
 from __future__ import annotations
@@ -458,6 +459,28 @@ def collapse_per_layer(collapse_kernel: torch.Tensor, C: int, nl: int,
             .to(dtype).contiguous())
 
 
+def _window_pixels(starts_b: torch.Tensor, N: int, T: int, Hp: int, Wp: int,
+                   window) -> torch.Tensor:
+    """(N, T, wh*ww) row indices of every window's pixels in the padded
+    features flattened to (N*Hp*Wp, B*C)."""
+    wh, ww = window
+    dev = starts_b.device
+    st = starts_b.reshape(N, T, 2).long()
+    dy = torch.arange(wh, device=dev).repeat_interleave(ww)
+    dx = torch.arange(ww, device=dev).repeat(wh)
+    pix = (st[..., :1] + dy) * Wp + st[..., 1:] + dx          # (N, T, K)
+    return pix + (torch.arange(N, device=dev) * (Hp * Wp))[:, None, None]
+
+
+def _window_vox(ii, A_b, pix):
+    """vox = A @ window in fp32 for one bucket: (N, T, R, B*C)."""
+    N, B, Hp, Wp, C = ii.shape
+    T, _, K = A_b.shape[1:]
+    flat = ii.permute(0, 2, 3, 1, 4).reshape(N * Hp * Wp, B * C)
+    windows = flat.index_select(0, pix.reshape(-1)).reshape(N, T, K, B * C)
+    return torch.matmul(A_b.float(), windows.float())
+
+
 def window_tiles(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
                  Kr: torch.Tensor, window, tile_v: int) -> torch.Tensor:
     """Plain PyTorch version of the window kernel for one bucket.
@@ -467,21 +490,43 @@ def window_tiles(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
     (N, B, T*tile_v, n_out) in ii's dtype: vox = A @ window accumulated in
     fp32, then sum_l vox_l @ Kr_l in fp32."""
     N, B, Hp, Wp, C = ii.shape
-    T, R, K = A_b.shape[1:]
+    T = A_b.shape[1]
     nl, _, n_out = Kr.shape
-    wh, ww = window
-    dev = ii.device
-    st = starts_b.reshape(N, T, 2).long()
-    dy = torch.arange(wh, device=dev).repeat_interleave(ww)
-    dx = torch.arange(ww, device=dev).repeat(wh)
-    pix = (st[..., :1] + dy) * Wp + st[..., 1:] + dx          # (N, T, K)
-    pix = pix + (torch.arange(N, device=dev) * (Hp * Wp))[:, None, None]
-    flat = ii.permute(0, 2, 3, 1, 4).reshape(N * Hp * Wp, B * C)
-    windows = flat.index_select(0, pix.reshape(-1)).reshape(N, T, K, B * C)
-    vox = torch.matmul(A_b.float(), windows.float())          # (N, T, R, B*C)
+    vox = _window_vox(ii, A_b, _window_pixels(starts_b, N, T, Hp, Wp, window))
     vox = vox.to(Kr.dtype).reshape(N, T, nl, tile_v, B, C)
     out = torch.einsum("ntlvbc,lco->nbtvo", vox.float(), Kr.float())
     return out.reshape(N, B, T * tile_v, n_out).to(ii.dtype)
+
+
+def window_tiles_bwd(ii: torch.Tensor, A_b: torch.Tensor,
+                     starts_b: torch.Tensor, Kr: torch.Tensor,
+                     g_b: torch.Tensor, window, tile_v: int, dII=None):
+    """Plain PyTorch version of the window backward kernel for one bucket,
+    written out (no autograd).
+
+    Inputs as `window_tiles`, plus g_b (N, B, T*tile_v, n_out), the
+    cotangent of the bucket's tiles. Returns (dII, dKr), both fp32: dII
+    (N, B, Hp, Wp, C) is the given accumulator with this bucket's windows
+    added (a new zero-filled one if None), dKr (nl, C, n_out) is this
+    bucket's contribution."""
+    N, B, Hp, Wp, C = ii.shape
+    T, R, K = A_b.shape[1:]
+    nl, _, n_out = Kr.shape
+    pix = _window_pixels(starts_b, N, T, Hp, Wp, window)
+    A = A_b.float()
+    vox = _window_vox(ii, A_b, pix).reshape(N, T, nl, tile_v, B, C)
+    g = g_b.float().reshape(N, B, T, tile_v, n_out)
+    dKr = torch.einsum("ntlvbc,nbtvo->lco", vox, g)
+    dvox = torch.einsum("nbtvo,lco->ntlvbc", g, Kr.float())
+    dwin = torch.matmul(A.transpose(-1, -2), dvox.reshape(N, T, R, B * C))
+    dflat = torch.zeros((N * Hp * Wp, B * C), dtype=torch.float32,
+                        device=ii.device)
+    dflat.index_add_(0, pix.reshape(-1), dwin.reshape(N * T * K, B * C))
+    add = dflat.reshape(N, Hp, Wp, B, C).permute(0, 3, 1, 2, 4)
+    if dII is None:
+        return add.contiguous(), dKr
+    dII += add
+    return dII, dKr
 
 
 def rig_epilogue(tiles: torch.Tensor, inv_perm: torch.Tensor,

@@ -18,8 +18,6 @@ import time
 import numpy as np
 import torch
 
-INFERENCE_BUCKETS = 12
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -42,15 +40,16 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None) -> dict:
-    """Run the CLI; returns the predictions and timings for callers."""
+def main(argv=None, rig=None) -> dict:
+    """Run the CLI; returns the predictions and timings for callers. `rig`
+    is an already built CameraRig for this configuration (built here when
+    None)."""
     args = parse_args(argv)
     from vfa_tpu_torch.codec import ObjectEncoder
     from vfa_tpu_torch.config import get_config
     from vfa_tpu_torch.data.synthetic import make_scene, tiny_config
-    from vfa_tpu_torch.geometry import make_grid
     from vfa_tpu_torch.model.vfanet import VFANet, init_weights
-    from vfa_tpu_torch.ops.rig import build_rig, default_tile_v, pyramid_feat_shapes
+    from vfa_tpu_torch.rig_cli import build_cli_rig
 
     if not args.synthetic:
         raise NotImplementedError(
@@ -65,16 +64,8 @@ def main(argv=None) -> dict:
     scenes = [make_scene(cfg, seed=args.seed + i, num_objects=6)
               for i in range(args.scenes)]
 
-    t0 = time.perf_counter()
-    tile_v = default_tile_v(cfg.num_layers, torch.float32)
-    rig = build_rig(scenes[0].calibs, cfg,
-                    make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name),
-                    pyramid_feat_shapes(cfg.resize_size), tile_v=tile_v,
-                    dtype=torch.float32, band_buckets=INFERENCE_BUCKETS,
-                    layout="window", device=device)
-    rig_s = time.perf_counter() - t0
-    print(f"compiled rig: {INFERENCE_BUCKETS} buckets, tile_v {tile_v}, "
-          f"fp32, built in {rig_s:.1f} s")
+    if rig is None:
+        rig = build_cli_rig(cfg, scenes[0].calibs, device)
 
     gen = torch.Generator().manual_seed(args.seed)
     model = init_weights(VFANet(cfg, rig_impl=args.rig_impl), gen)

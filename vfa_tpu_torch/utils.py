@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from collections import namedtuple
+from collections import defaultdict, namedtuple
 
 import numpy as np
 
@@ -10,6 +10,24 @@ import numpy as np
 Obj3D = namedtuple("Obj3D", ["classname", "dimension", "location", "rotation", "conf"])
 # for MultiviewX / Wildtrack 2D detection (`vfa/utils.py:13-14`)
 Obj2D = namedtuple("Obj2D", ["classname", "location", "conf"])
+
+
+class MetricDict(defaultdict):
+    """Running means of scalar metrics (`vfa/utils.py:61-73`)."""
+
+    def __init__(self):
+        super().__init__(float)
+        self.count = defaultdict(int)
+
+    def __add__(self, other):
+        for key, value in other.items():
+            self[key] += value
+            self.count[key] += 1
+        return self
+
+    @property
+    def mean(self):
+        return {key: self[key] / self.count[key] for key in self.keys()}
 
 
 def pad_objects(objects, max_objects: int, mode: str):
