@@ -7,20 +7,25 @@ result line):
   1. build every hand-written kernel from csrc/ with nvcc (one process per
      source, all started together) and print ptxas' register / shared
      memory / spill lines;
-  2. hold each kernel against its plain PyTorch version on the full
-     MultiviewC fp32 rig (7 x 720x1280 cameras, 156x156 BEV, nl 5), all 3
-     scales, at B = 1 and B = 2: the forward kernel on every bucket of the
-     12-bucket (serving) rig, the backward kernel (dII and dKr, all buckets
-     of a scale through one dII) on the 8-bucket (training) rig;
+  2. hold each kernel against its plain PyTorch version at B = 1 and B = 2
+     on the full MultiviewC fp32 rigs (7 x 720x1280 cameras, 156x156 BEV,
+     nl 5), all 3 scales, every bucket: the window forward on the 12-bucket
+     (serving) rig, the window backward (dII and dKr, all buckets of a scale
+     through one dII) on the 8-bucket (training) rig, the flat forward and
+     backward on the 8-bucket flat rig (tile_v 160) and once on a small
+     16-tap rig (cumsum'd features); and the two stem backward kernels at
+     (14, 64, 360, 640), also on an integer-valued input where ties decide;
   3. drive the serving path, `python -m vfa_tpu_torch.predict` at full
-     width with random seeded weights, with every kernel's launch count set
-     to 0 just before and read just after; then the same requests through
-     the plain rig version, and compare heatmaps and decoded detections;
+     width with random seeded weights, once per rig layout, with every
+     kernel's launch count set to 0 just before and read just after; then
+     the same requests through the plain rig version, and compare heatmaps
+     and decoded detections;
   4. drive the training path, `python -m vfa_tpu_torch.train` at full width
-     (batch 2, 3 optimizer steps, then the validation loss), counts set to
-     0 before and read after; then the same run through the plain versions
-     under autograd, and compare per-step losses and final parameters;
-     then one step at batch 1;
+     (batch 2, 3 optimizer steps, then the validation loss), once through
+     the window kernels and once through the flat kernels with the fused
+     stem on, counts set to 0 before and read after; then the same run
+     through the plain versions under autograd (unfused stem), and compare
+     per-step losses and final parameters; then one step at batch 1;
   5. time each kernel (CUDA events, warmed up) beside its bound and its
      plain version, and print peak memory, the card's name and power limit,
      the `kernels` JSON line and, last, the `ok` JSON line.
@@ -30,6 +35,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -57,6 +63,32 @@ TRAIN_FRAMES = 6       # 3 optimizer steps at batch 2
 # can be held to the stated tolerances; the batch-1 step runs at the
 # recipe's own lr.
 TRAIN_LR = "0.0001"
+# dscale / dbias of the stem: sums over 14 x 360 x 640 terms per channel, taken
+# in another order than autograd's
+STEM_PARAM_TOL = 1e-3
+STEM_SHAPE = (7 * BATCH, 64, 360, 640)   # conv1's output at batch 2
+
+
+def counters():
+    """name -> wrapper of every kernel of the port; each wrapper counts its
+    launches in `.launches`."""
+    from vfa_tpu_torch.ops import rig_cuda, stem
+
+    return {"rig_window_fwd": rig_cuda.rig_window_fwd,
+            "rig_window_bwd": rig_cuda.rig_window_bwd,
+            "rig_flat_fwd": rig_cuda.rig_flat_fwd,
+            "rig_flat_bwd": rig_cuda.rig_flat_bwd,
+            "stem_bwd_stats": stem.stem_bwd_stats,
+            "stem_bwd_dx": stem.stem_bwd_dx}
+
+
+def reset_launches() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
 
 
 def log(msg: str) -> None:
@@ -90,7 +122,7 @@ def phase_build():
     log(f"phase 1 build: {names} in {time.perf_counter() - t0:.1f} s")
 
 
-def full_rig(device, training: bool):
+def full_rig(device, training: bool, layout: str = "window"):
     """The full MultiviewC fp32 rig under the serving (12 buckets) or the
     training (8 buckets) policy, built once and handed to the CLIs."""
     from vfa_tpu_torch.config import get_config
@@ -98,137 +130,244 @@ def full_rig(device, training: bool):
     from vfa_tpu_torch.rig_cli import build_cli_rig
 
     cfg = get_config("MultiviewC")
-    rig = build_cli_rig(cfg, make_calibrations(cfg), device, training=training)
+    t0 = time.perf_counter()
+    rig = build_cli_rig(cfg, make_calibrations(cfg), device, training=training,
+                        layout=layout)
     a_bytes = sum(a.numel() * 4 for s in rig.scales for a in s.A)
-    log(f"full MultiviewC fp32 {'training' if training else 'serving'} rig: "
-        f"{[len(s.A) for s in rig.scales]} buckets, "
-        f"tile_v {rig.scales[0].tile_v}, A {a_bytes / 1e9:.3f} GB")
+    log(f"full MultiviewC fp32 {layout} {'training' if training else 'serving'} "
+        f"rig: {[len(s.A) for s in rig.scales]} buckets, "
+        f"tile_v {rig.scales[0].tile_v}, A {a_bytes} bytes "
+        f"({a_bytes / 1e9:.3f} GB), built in {time.perf_counter() - t0:.1f} s")
     return rig
+
+
+def small_taps_rig(device):
+    """A small flat rig in the 16-tap integral-image form (one bucket)."""
+    from vfa_tpu_torch.config import get_config
+    from vfa_tpu_torch.data.synthetic import make_calibrations, tiny_config
+    from vfa_tpu_torch.geometry import make_grid
+    from vfa_tpu_torch.ops.rig import build_rig, pyramid_feat_shapes
+
+    cfg = tiny_config(get_config("MultiviewC"), factor=4)
+    return build_rig(make_calibrations(cfg), cfg,
+                     make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name),
+                     pyramid_feat_shapes(cfg.resize_size), tile_v=16,
+                     layout="flat", fold_prefix=False, device=device)
+
+
+def layout_of(rig) -> str:
+    return "window" if rig.scales[0].window_hw else "flat"
 
 
 def scale_inputs(sr, B, seed, device):
     g = torch.Generator().manual_seed(seed)
     fh, fw = sr.feat_hw
     N = sr.A[0].shape[0]
-    lat = torch.rand((B, N, fh, fw, 256), generator=g).to(device)
+    lat = torch.rand((B, N, fh, fw, 256), generator=g)
+    if not sr.on_raw:
+        lat = lat / (fh * fw)      # keeps the 2D cumsum O(1)
     bound = 1.0 / np.sqrt(256 * sr.nl)
     k = ((torch.rand((256 * sr.nl, 256), generator=g) * 2 - 1) * bound).to(device)
-    return lat, k
+    return lat.to(device), k
 
 
 def plain_tiles(lat, sr, k):
-    from vfa_tpu_torch.ops.rig import collapse_per_layer, pad_features, window_tiles
+    from vfa_tpu_torch.ops.rig import collapse_per_layer, scale_features, scale_tiles
 
-    ii = pad_features(lat)
-    Kr = collapse_per_layer(k, lat.shape[-1], sr.nl, lat.dtype)
-    return torch.cat([window_tiles(ii, A_b, s_b, Kr, win, sr.tile_v)
-                      for A_b, s_b, win in zip(sr.A, sr.starts, sr.window_hw)], 2)
+    return scale_tiles(scale_features(lat, sr), sr,
+                       collapse_per_layer(k, lat.shape[-1], sr.nl, lat.dtype))
 
 
-def phase_kernel_vs_plain(rig, device):
+def check_close(what, got, want, tol=KERNEL_TOL):
+    """(max abs err, max err / max |want|); raises past `tol`."""
+    err = float((got - want).abs().max())
+    rel = err / max(float(want.abs().max()), 1e-30)
+    log(f"  {what}: max abs err {err:.3e}, max rel err {rel:.3e} "
+        f"(tolerance {tol:.0e} of the plain result's max)")
+    if not np.isfinite(rel) or rel > tol:
+        raise AssertionError(f"{what} disagrees with its plain version: rel {rel:.3e}")
+    return err, rel
+
+
+def worst_of(errs):
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def phase_kernel_vs_plain(rig, device, batches=(1, 2)):
     from vfa_tpu_torch.ops.rig_cuda import rig_tiles_cuda
 
-    worst_abs, worst_rel = 0.0, 0.0
-    for B in (1, 2):
+    name = f"rig_{layout_of(rig)}_fwd"
+    errs = []
+    for B in batches:
         for si, sr in enumerate(rig.scales):
             lat, k = scale_inputs(sr, B, 100 * B + si, device)
             got = rig_tiles_cuda(lat, sr, k)
             torch.cuda.synchronize()
             want = plain_tiles(lat, sr, k)
-            err = float((got - want).abs().max())
-            rel = err / float(want.abs().max())
-            worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-            log(f"  rig_window_fwd B={B} scale {si} ({len(sr.A)} buckets, "
-                f"{sum(a.shape[1] for a in sr.A)} tiles): max abs err {err:.3e}, "
-                f"max rel err {rel:.3e} (tolerance {KERNEL_TOL:.0e} rel)")
-            if not np.isfinite(rel) or rel > KERNEL_TOL:
-                raise AssertionError(f"rig_window_fwd disagrees with its plain "
-                                     f"version at B={B}, scale {si}: rel {rel:.3e}")
+            errs.append(check_close(
+                f"{name} B={B} scale {si} ({len(sr.A)} buckets, "
+                f"{sum(a.shape[1] for a in sr.A)} tiles, bands "
+                f"{[a.shape[-1] for a in sr.A]})", got, want))
             del got, want
-    log("phase 2 forward kernel vs plain: ok")
-    return worst_abs, worst_rel
+    log(f"phase 2 {name} vs plain: ok")
+    return worst_of(errs)
 
 
 def grad_inputs(sr, B, seed, device):
     """Seeded padded features, per-layer collapse weight and cotangent of a
     scale's tiles."""
-    from vfa_tpu_torch.ops.rig import collapse_per_layer, pad_features
+    from vfa_tpu_torch.ops.rig import collapse_per_layer, scale_features
 
     lat, k = scale_inputs(sr, B, seed, device)
     rows = sum(a.shape[1] for a in sr.A) * sr.tile_v
     g = torch.randn((sr.A[0].shape[0], B, rows, 256),
                     generator=torch.Generator().manual_seed(seed + 1)).to(device)
-    return pad_features(lat), collapse_per_layer(k, 256, sr.nl, lat.dtype), g
+    return scale_features(lat, sr), collapse_per_layer(k, 256, sr.nl, lat.dtype), g
 
 
 def plain_scale_bwd(ii, sr, Kr, g):
-    from vfa_tpu_torch.ops.rig import window_tiles_bwd
+    from vfa_tpu_torch.ops.rig import flat_tiles_bwd, window_tiles_bwd
 
     dII, dKr, off = None, torch.zeros_like(Kr), 0
-    for A_b, s_b, win in zip(sr.A, sr.starts, sr.window_hw):
+    for bi, (A_b, s_b) in enumerate(zip(sr.A, sr.starts)):
         rows = A_b.shape[1] * sr.tile_v
-        dII, d = window_tiles_bwd(ii, A_b, s_b, Kr, g[:, :, off:off + rows],
-                                  win, sr.tile_v, dII=dII)
+        g_b = g[:, :, off:off + rows]
+        if sr.window_hw:
+            dII, d = window_tiles_bwd(ii, A_b, s_b, Kr, g_b, sr.window_hw[bi],
+                                      sr.tile_v, dII=dII)
+        else:
+            dII, d = flat_tiles_bwd(ii, A_b, s_b, Kr, g_b, sr.tile_v, dII=dII)
         dKr += d
         off += rows
     return dII, dKr
 
 
-def phase_bwd_kernel_vs_plain(rig, device):
+def phase_bwd_kernel_vs_plain(rig, device, batches=(1, 2)):
     from vfa_tpu_torch.ops.rig_cuda import rig_scale_bwd
 
-    worst_abs, worst_rel = 0.0, 0.0
-    for B in (1, 2):
+    name = f"rig_{layout_of(rig)}_bwd"
+    errs = []
+    for B in batches:
         for si, sr in enumerate(rig.scales):
             ii, Kr, g = grad_inputs(sr, B, 300 * B + si, device)
             got = rig_scale_bwd(ii, sr, Kr, g)
             torch.cuda.synchronize()
             want = plain_scale_bwd(ii, sr, Kr, g)
-            for name, a, b in zip(("dII", "dKr"), got, want):
-                err = float((a - b).abs().max())
-                rel = err / float(b.abs().max())
-                worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-                log(f"  rig_window_bwd B={B} scale {si} ({len(sr.A)} buckets) "
-                    f"{name}: max abs err {err:.3e}, max rel err {rel:.3e} "
-                    f"(tolerance {KERNEL_TOL:.0e} rel)")
-                if not np.isfinite(rel) or rel > KERNEL_TOL:
-                    raise AssertionError(
-                        f"rig_window_bwd {name} disagrees with its plain "
-                        f"version at B={B}, scale {si}: rel {rel:.3e}")
+            for part, a, b in zip(("dII", "dKr"), got, want):
+                errs.append(check_close(
+                    f"{name} B={B} scale {si} ({len(sr.A)} buckets) {part}", a, b))
             del got, want, ii, Kr, g
-    log("phase 2 backward kernel vs plain: ok")
-    return worst_abs, worst_rel
+    log(f"phase 2 {name} vs plain: ok")
+    return worst_of(errs)
 
 
-def phase_train_path(rig, device):
-    """The training path through both kernels, then through their plain
-    versions from the same seed, then one step at batch 1."""
+def stem_inputs(device, integers: bool, shape=STEM_SHAPE):
+    """Seeded x, scale, bias, dy of the stem tail and the forward's
+    GroupNorm statistics. `integers`: integer-valued x with scale 1, bias 0,
+    so that ReLU zeros and equal maxima are everywhere."""
+    from vfa_tpu_torch.ops.stem import group_norm_stats
+
+    g = torch.Generator().manual_seed(11 + integers)
+    M, C, H, W = shape
+    x = torch.randn(shape, generator=g)
+    scale, bias = torch.rand(C, generator=g) + 0.5, torch.rand(C, generator=g) - 0.5
+    if integers:
+        x, scale, bias = x.round(), torch.ones(C), torch.zeros(C)
+    dy = torch.randn((M, C, (H + 1) // 2, (W + 1) // 2), generator=g)
+    x, scale, bias, dy = (t.to(device) for t in (x, scale, bias, dy))
+    _, mu, rstd = group_norm_stats(x, scale, bias, 16, 1e-5)
+    return x, scale, bias, dy, mu, rstd
+
+
+def phase_stem_vs_plain(device):
+    """K6 and K7 against their plain versions on the same parameters, the
+    whole backward against autograd of the unfused chain, and the identical
+    zero pattern of dx on the integer-valued input."""
+    from vfa_tpu_torch.ops import stem
+
+    errs = {"stem_bwd_stats": [], "stem_bwd_dx": []}
+    for integers in (False, True):
+        x, scale, bias, dy, mu, rstd = stem_inputs(device, integers)
+        tag = f"{tuple(x.shape)}{' integer-valued' if integers else ''}"
+        params = stem.plane_params(mu, rstd, scale, bias)
+        acc = stem.stem_bwd_stats(x, dy, params)
+        torch.cuda.synchronize()
+        errs["stem_bwd_stats"].append(check_close(
+            f"stem_bwd_stats {tag}", acc, stem.stem_bwd_stats_plain(x, dy, params)))
+        c = torch.randn(mu.shape, generator=torch.Generator().manual_seed(5)).to(device) * 1e-3
+        params = stem.plane_params(mu, rstd, scale, bias, c, -c)
+        dx = stem.stem_bwd_dx(x, dy, params)
+        torch.cuda.synchronize()
+        errs["stem_bwd_dx"].append(check_close(
+            f"stem_bwd_dx {tag}", dx, stem.stem_bwd_dx_plain(x, dy, params)))
+        del acc, dx, params
+        got = stem.gn_relu_pool_bwd(x, scale, bias, dy, mu, rstd)
+        want = stem.gn_relu_pool_bwd_plain(x, scale, bias, dy)
+        check_close(f"stem backward dx vs autograd of the chain {tag}", got[0], want[0])
+        for part, a, b in zip(("dscale", "dbias"), got[1:], want[1:]):
+            check_close(f"stem backward {part} vs autograd of the chain {tag}",
+                        a, b, STEM_PARAM_TOL)
+        if integers:
+            # the routing itself: with c1 = c2 = 0 the dx kernel gives
+            # rstd * scale * dz, zero exactly where dz is; the reference is
+            # autograd of relu + max_pool2d on the forward's own z
+            z = torch.nn.functional.group_norm(x, 16, scale, bias, 1e-5).requires_grad_()
+            with torch.enable_grad():
+                y = torch.nn.functional.max_pool2d(torch.relu(z), 3, 2, 1)
+            (dz_ref,) = torch.autograd.grad(y, z, dy)
+            dz = stem.stem_bwd_dx(x, dy, stem.plane_params(mu, rstd, scale, bias))
+            differ = int(((dz == 0) != (dz_ref == 0)).sum())
+            differ += int(((got[0] == 0) != (want[0] == 0)).sum())
+            log(f"  stem backward {tag}: zero patterns of dz and dx differ at "
+                f"{differ} of {dz.numel()} pixels ({int((dz_ref == 0).sum())} "
+                f"zeros in dz)")
+            if differ:
+                raise AssertionError("the stem kernels route a tied maximum to "
+                                     "another pixel than max_pool2d's backward")
+            del z, y, dz, dz_ref
+        del got, want, x, dy
+    log("phase 2 stem kernels vs plain: ok")
+    return {k: worst_of(v) for k, v in errs.items()}
+
+
+def phase_train_path(rig, device, fused_stem: bool):
+    """The training path through the kernels of the rig's layout (and, with
+    `fused_stem`, the stem kernels), then through the plain versions from
+    the same seed (plain rig route, unfused stem), then one step at
+    batch 1."""
     from vfa_tpu_torch import train
-    from vfa_tpu_torch.ops.rig_cuda import rig_window_bwd, rig_window_fwd
 
+    layout = layout_of(rig)
+    fwd, bwd = f"rig_{layout}_fwd", f"rig_{layout}_bwd"
+    tag = f"{layout}{' + fused stem' if fused_stem else ''}"
     common = ["--data", "MultiviewC", "--synthetic", "-e", "1", "--pretrained",
-              "0", "--no_augment", "--seed", "0", "--device", "cuda"]
+              "0", "--no_augment", "--seed", "0", "--device", "cuda",
+              "--rig_layout", layout]
     argv = common + ["--synthetic_frames", str(TRAIN_FRAMES), "-b", str(BATCH),
                      "--lr", TRAIN_LR]
+    os.environ["VFA_FUSED_STEM"] = "1" if fused_stem else "0"
     torch.cuda.reset_peak_memory_stats()
-    rig_window_fwd.launches = rig_window_bwd.launches = 0
+    reset_launches()
     res = train.main(argv, rig=rig)
-    launches = {"rig_window_fwd": rig_window_fwd.launches,
-                "rig_window_bwd": rig_window_bwd.launches}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     steps = len(res["losses"])
     buckets = sum(len(s.A) for s in rig.scales)
-    log(f"training path launches: {launches} ({steps} steps, {buckets} "
+    log(f"training path ({tag}) launches: {launches} ({steps} steps, {buckets} "
         f"buckets over the 3 scales)")
-    if launches["rig_window_fwd"] <= 0:
-        raise AssertionError("the training path never launched rig_window_fwd")
-    if steps != TRAIN_FRAMES // BATCH or launches["rig_window_bwd"] != steps * buckets:
-        raise AssertionError(
-            f"rig_window_bwd launched {launches['rig_window_bwd']} times, "
-            f"expected {steps} steps x {buckets} buckets")
+    stem_steps = steps if fused_stem else 0
+    want = {fwd: None, bwd: steps * buckets, "stem_bwd_stats": stem_steps,
+            "stem_bwd_dx": stem_steps}
+    if steps != TRAIN_FRAMES // BATCH or launches[fwd] <= 0:
+        raise AssertionError(f"the training path never launched {fwd}")
+    for name, n in launches.items():
+        if want.get(name, 0) is not None and n != want.get(name, 0):
+            raise AssertionError(
+                f"{name} launched {n} times on the {tag} training path, "
+                f"expected {want.get(name, 0)} ({steps} steps, {buckets} buckets)")
+    os.environ["VFA_FUSED_STEM"] = "0"
     ref = train.main(argv + ["--rig_impl", "plain"], rig=rig)
-    if launches != {"rig_window_fwd": rig_window_fwd.launches,
-                    "rig_window_bwd": rig_window_bwd.launches}:
+    if launches != read_launches():
         raise AssertionError("the plain route launched a kernel")
 
     for i, (a, b) in enumerate(zip(res["losses"] + res["val_losses"],
@@ -271,36 +410,43 @@ def phase_train_path(rig, device):
     if not worst_upd <= UPDATE_TOL:
         raise AssertionError(f"the 3-step update differs from the plain "
                              f"route's by {worst_upd:.3e} of its norm")
+    ref_p50 = float(np.median(ref["ms"]))
     del ref, ref_sd, init_sd
 
+    os.environ["VFA_FUSED_STEM"] = "1" if fused_stem else "0"
     one = train.main(common + ["--synthetic_frames", "1", "-b", "1"], rig=rig)
+    del os.environ["VFA_FUSED_STEM"]
     if len(one["losses"]) != 1 or not np.isfinite(one["losses"][0]["loss"]):
         raise AssertionError("the batch-1 step gave no finite loss")
-    log(f"phase 4 training path: {steps} steps at batch {BATCH}, losses and "
-        f"parameters equal to the plain route (max abs parameter diff "
+    log(f"phase 4 training path ({tag}): {steps} steps at batch {BATCH}, losses "
+        f"and parameters equal to the plain route (max abs parameter diff "
         f"{worst:.3e}, at most {worst_share:.2f} of rtol {PARAM_RTOL} / atol "
         f"{PARAM_ATOL}; update "
         f"diff {worst_upd:.3e} of the update's norm, tolerance {UPDATE_TOL}); p50 "
-        f"{np.median(res['ms']):.2f} ms/step; one step at batch 1, loss "
+        f"{np.median(res['ms']):.2f} ms/step, plain route {ref_p50:.2f}; one "
+        f"step at batch 1, loss "
         f"{one['losses'][0]['loss']:.6f}; peak memory {peak / 2**30:.2f} GiB")
     return launches, res, peak
 
 
-def phase_main_path(rig, device):
+def phase_main_path(rig, device, scenes: int):
     from vfa_tpu_torch import predict
-    from vfa_tpu_torch.ops.rig_cuda import rig_window_bwd, rig_window_fwd
 
-    argv = ["--data", "MultiviewC", "--synthetic", "--scenes", "6",
+    layout = layout_of(rig)
+    fwd = f"rig_{layout}_fwd"
+    argv = ["--data", "MultiviewC", "--synthetic", "--scenes", str(scenes),
             "--batch", str(BATCH), "--seed", "0", "--cls_thresh", "0.5",
-            "--device", "cuda"]
+            "--device", "cuda", "--rig_layout", layout]
     torch.cuda.reset_peak_memory_stats()
-    rig_window_fwd.launches = rig_window_bwd.launches = 0
+    reset_launches()
     res = predict.main(argv, rig=rig)
-    launches = {"rig_window_fwd": rig_window_fwd.launches}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    log(f"serving path launches: {launches}")
-    if launches["rig_window_fwd"] <= 0:
-        raise AssertionError("the serving path never launched rig_window_fwd")
+    log(f"serving path ({layout}) launches: {launches}")
+    if launches[fwd] <= 0:
+        raise AssertionError(f"the serving path never launched {fwd}")
+    if any(n for name, n in launches.items() if name != fwd):
+        raise AssertionError("the serving path launched another kernel")
     ref = predict.main(argv + ["--rig_impl", "plain"], rig=rig)
 
     for i, (h, hr) in enumerate(zip(res["heatmaps"], ref["heatmaps"])):
@@ -321,9 +467,10 @@ def phase_main_path(rig, device):
             np.testing.assert_allclose(o.location, orf.location, rtol=1e-4, atol=0.5)
             np.testing.assert_allclose(o.conf, orf.conf, rtol=1e-3, atol=1e-4)
         n_det += len(d)
-    log(f"phase 3 serving path: {len(res['ms'])} requests, {n_det} detections "
-        f"(conf > 0.5), equal to the plain route; p50 {np.median(res['ms']):.2f} "
-        f"ms/request (batch {BATCH}); peak memory {peak / 2**30:.2f} GiB")
+    log(f"phase 3 serving path ({layout}): {len(res['ms'])} requests, {n_det} "
+        f"detections (conf > 0.5), equal to the plain route; p50 "
+        f"{np.median(res['ms']):.2f} ms/request (batch {BATCH}), plain route "
+        f"{np.median(ref['ms']):.2f}; peak memory {peak / 2**30:.2f} GiB")
     return launches, res, peak
 
 
@@ -343,45 +490,80 @@ def kernel_work(rig, B, backward: bool):
     for sr in rig.scales:
         fh, fw = sr.feat_hw
         N = sr.A[0].shape[0]
-        hp, wp = -(-fh // 8) * 8, -(-fw // 16) * 16
+        if sr.window_hw:
+            pixels = (-(-fh // 8) * 8) * (-(-fw // 16) * 16)
+        else:
+            pixels = fh * fw + max(a.shape[-1] for a in sr.A)
         rows = sum(a.shape[1] for a in sr.A) * sr.tile_v
         nbytes += sum(a.numel() * 4 + s.numel() * 4 for a, s in zip(sr.A, sr.starts))
-        nbytes += (3 if backward else 1) * N * B * hp * wp * 256 * 4   # ii (+ dII)
+        nbytes += (3 if backward else 1) * N * B * pixels * 256 * 4    # ii (+ dII)
         nbytes += (2 if backward else 1) * sr.nl * 256 * 256 * 4       # Kr (+ dKr)
         nbytes += N * B * rows * 256 * 4                               # tiles or g
     return flops, nbytes
 
 
-def phase_numbers(rig, device, backward: bool):
-    """(ms, plain_ms, bound_ms, bound_by) of one kernel over the rig's three
-    scales at batch BATCH: best of two interleaved rounds of kernel and
-    plain version."""
+def bound_ms(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_numbers(rig, device, backward: bool, rounds: int = 2):
+    """(ms, plain_ms, bound_ms, bound_by) of one rig kernel over the rig's
+    three scales at batch BATCH: best of `rounds` interleaved rounds of
+    kernel and plain version."""
     from vfa_tpu_torch.ops.rig_cuda import rig_scale_bwd, rig_tiles_cuda
 
+    name = f"rig_{layout_of(rig)}_{'bwd' if backward else 'fwd'}"
     if backward:
-        name, inputs, kernel, plain = ("rig_window_bwd", grad_inputs,
-                                       rig_scale_bwd, plain_scale_bwd)
+        inputs, kernel, plain = grad_inputs, rig_scale_bwd, plain_scale_bwd
     else:
-        name, inputs, kernel, plain = ("rig_window_fwd", scale_inputs,
-                                       rig_tiles_cuda, plain_tiles)
+        inputs, kernel, plain = scale_inputs, rig_tiles_cuda, plain_tiles
     ms = plain_ms = 0.0
     for si, sr in enumerate(rig.scales):
         first, *rest = inputs(sr, BATCH, 7 + si, device)
-        k_ms = cuda_time_ms(lambda: kernel(first, sr, *rest), reps=5)
-        p_ms = cuda_time_ms(lambda: plain(first, sr, *rest), reps=3)
-        k2_ms = cuda_time_ms(lambda: kernel(first, sr, *rest), reps=5)
-        p2_ms = cuda_time_ms(lambda: plain(first, sr, *rest), reps=3)
+        k_ms, p_ms = [], []
+        for _ in range(rounds):
+            k_ms.append(cuda_time_ms(lambda: kernel(first, sr, *rest), reps=5))
+            p_ms.append(cuda_time_ms(lambda: plain(first, sr, *rest), reps=3))
         f, b = kernel_work(type(rig)([sr], rig.grid_shape), BATCH, backward)
-        bound = max(f / PEAK_FP32_FLOPS, b / PEAK_BYTES_PER_S) * 1e3
-        log(f"  scale {si} B={BATCH}: {name} {k_ms:.3f} / {k2_ms:.3f} ms, "
-            f"plain {p_ms:.3f} / {p2_ms:.3f} ms, bound {bound:.3f} ms "
+        log(f"  scale {si} B={BATCH}: {name} "
+            + " / ".join(f"{t:.3f}" for t in k_ms) + " ms, plain "
+            + " / ".join(f"{t:.3f}" for t in p_ms)
+            + f" ms, bound {bound_ms(f, b)[0]:.3f} ms "
             f"({f / 1e9:.1f} GFLOP, {b / 1e9:.3f} GB)")
-        ms += min(k_ms, k2_ms)
-        plain_ms += min(p_ms, p2_ms)
+        ms += min(k_ms)
+        plain_ms += min(p_ms)
         del first, rest
-    flops, nbytes = kernel_work(rig, BATCH, backward)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    return ms, plain_ms, max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return (ms, plain_ms, *bound_ms(*kernel_work(rig, BATCH, backward)))
+
+
+def phase_stem_numbers(device):
+    """name -> (ms, plain_ms, bound_ms, bound_by) of the two stem kernels at
+    STEM_SHAPE. Neither is a matrix product: a few tens of comparisons and
+    ~10 flops per pixel. Bytes: x and dy read and the (M*C, 8) parameters,
+    acc (stats) or dx (dx) written."""
+    from vfa_tpu_torch.ops import stem
+
+    x, scale, bias, dy, mu, rstd = stem_inputs(device, integers=False)
+    params = stem.plane_params(mu, rstd, scale, bias, mu * 1e-3, rstd * 1e-3)
+    out = {}
+    for name, kernel, plain, written in (
+            ("stem_bwd_stats", stem.stem_bwd_stats, stem.stem_bwd_stats_plain,
+             x.shape[0] * 4 * x.shape[1]),
+            ("stem_bwd_dx", stem.stem_bwd_dx, stem.stem_bwd_dx_plain, x.numel())):
+        k_ms, p_ms = [], []
+        for _ in range(2):
+            k_ms.append(cuda_time_ms(lambda: kernel(x, dy, params), reps=10))
+            p_ms.append(cuda_time_ms(lambda: plain(x, dy, params), reps=3))
+        nbytes = 4 * (x.numel() + dy.numel() + params.numel() + written)
+        flops = 50 * x.numel()
+        b_ms, by = bound_ms(flops, nbytes)
+        log(f"  {name} {tuple(x.shape)}: " + " / ".join(f"{t:.3f}" for t in k_ms)
+            + " ms, plain " + " / ".join(f"{t:.3f}" for t in p_ms)
+            + f" ms, bound {b_ms:.3f} ms by {by} ({nbytes / 1e9:.3f} GB, "
+            f"~{flops / 1e9:.1f} GFLOP)")
+        out[name] = (min(k_ms), min(p_ms), b_ms, by)
+    return out
 
 
 def main() -> int:
@@ -394,47 +576,89 @@ def main() -> int:
     t_start = time.perf_counter()
 
     phase_build()
+    err, num = {}, {}
+
+    # the stem kernels alone
+    err.update(phase_stem_vs_plain(device))
+    num.update(phase_stem_numbers(device))
+    torch.cuda.empty_cache()
+
+    # window layout, serving
     rig = full_rig(device, training=False)
-    fwd_err = phase_kernel_vs_plain(rig, device)
-    serve_launches, res, peak = phase_main_path(rig, device)
-    fwd = phase_numbers(rig, device, backward=False)
+    err["rig_window_fwd"] = phase_kernel_vs_plain(rig, device)
+    serve_launches, res, peak = phase_main_path(rig, device, scenes=6)
+    num["rig_window_fwd"] = phase_numbers(rig, device, backward=False)
     del rig
     torch.cuda.empty_cache()
 
+    # window layout, training
     train_rig = full_rig(device, training=True)
-    bwd_err = phase_bwd_kernel_vs_plain(train_rig, device)
-    train_launches, train_res, train_peak = phase_train_path(train_rig, device)
+    err["rig_window_bwd"] = phase_bwd_kernel_vs_plain(train_rig, device)
+    train_launches, train_res, train_peak = phase_train_path(
+        train_rig, device, fused_stem=False)
     del train_res["model"]
     torch.cuda.empty_cache()
-    bwd = phase_numbers(train_rig, device, backward=True)
+    num["rig_window_bwd"] = phase_numbers(train_rig, device, backward=True)
+    del train_rig
+    torch.cuda.empty_cache()
+
+    # flat layout: one rig (the 8-bucket training policy) serves both runs
+    taps_rig = small_taps_rig(device)
+    phase_kernel_vs_plain(taps_rig, device, batches=(2,))
+    phase_bwd_kernel_vs_plain(taps_rig, device, batches=(2,))
+    del taps_rig
+    flat_rig = full_rig(device, training=True, layout="flat")
+    err["rig_flat_fwd"] = phase_kernel_vs_plain(flat_rig, device)
+    err["rig_flat_bwd"] = phase_bwd_kernel_vs_plain(flat_rig, device)
+    torch.cuda.empty_cache()
+    flat_serve_launches, flat_res, flat_peak = phase_main_path(
+        flat_rig, device, scenes=6)
+    flat_train_launches, flat_train_res, flat_train_peak = phase_train_path(
+        flat_rig, device, fused_stem=True)
+    del flat_train_res["model"]
+    torch.cuda.empty_cache()
+    num["rig_flat_fwd"] = phase_numbers(flat_rig, device, backward=False)
+    num["rig_flat_bwd"] = phase_numbers(flat_rig, device, backward=True)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    log(f"p50 ms per request (batch {BATCH}): {float(np.median(res['ms'])):.3f}; "
-        f"max_memory_allocated {peak} bytes")
-    log(f"p50 ms per training step (batch {BATCH}): "
-        f"{float(np.median(train_res['ms'])):.3f} (steps "
-        + " ".join(f"{t:.1f}" for t in train_res["ms"])
-        + f"); max_memory_allocated {train_peak} bytes; "
-        f"total {time.perf_counter() - t_start:.1f} s")
+    for tag, r, pk in (("window", res, peak), ("flat", flat_res, flat_peak)):
+        log(f"p50 ms per request ({tag} rig, batch {BATCH}): "
+            f"{float(np.median(r['ms'])):.3f}; max_memory_allocated {pk} bytes")
+    for tag, r, pk in (("window", train_res, train_peak),
+                       ("flat + fused stem", flat_train_res, flat_train_peak)):
+        log(f"p50 ms per training step ({tag}, batch {BATCH}): "
+            f"{float(np.median(r['ms'])):.3f} (steps "
+            + " ".join(f"{t:.1f}" for t in r["ms"])
+            + f"); max_memory_allocated {pk} bytes")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card.splitlines()[0]}")
 
-    def entry(name, replaces, launches, err, numbers, **extra):
-        ms, plain_ms, bound_ms, bound_by = numbers
+    def entry(name, source, replaces, launches, **extra):
+        ms, plain_ms, b_ms, by = num[name]
         return {"name": name, "route": "cuda",
-                "source": f"vfa_tpu_torch/csrc/{name}.cu", "replaces": replaces,
-                "launches": launches, "max_abs_err": err[0],
-                "max_rel_err": err[1], "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None, **extra}
+                "source": f"vfa_tpu_torch/csrc/{source}.cu", "replaces": replaces,
+                "launches": launches, "max_abs_err": err[name][0],
+                "max_rel_err": err[name][1], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": by, "library_ms": None, **extra}
 
     print(json.dumps({"kernels": [
-        entry("rig_window_fwd", "vfa_tpu/ops/rig_pallas.py:89",
-              serve_launches["rig_window_fwd"], fwd_err, fwd,
+        entry("rig_window_fwd", "rig_window_fwd", "vfa_tpu/ops/rig_pallas.py:89",
+              serve_launches["rig_window_fwd"],
               launches_train=train_launches["rig_window_fwd"]),
-        entry("rig_window_bwd", "vfa_tpu/ops/rig_pallas.py:194,355",
-              train_launches["rig_window_bwd"], bwd_err, bwd),
+        entry("rig_window_bwd", "rig_window_bwd",
+              "vfa_tpu/ops/rig_pallas.py:194,355",
+              train_launches["rig_window_bwd"]),
+        entry("rig_flat_fwd", "rig_flat_fwd", "vfa_tpu/ops/rig_pallas.py:31",
+              flat_serve_launches["rig_flat_fwd"],
+              launches_train=flat_train_launches["rig_flat_fwd"]),
+        entry("rig_flat_bwd", "rig_flat_bwd", "vfa_tpu/ops/rig_pallas.py:434",
+              flat_train_launches["rig_flat_bwd"]),
+        entry("stem_bwd_stats", "stem_bwd", "vfa_tpu/ops/stem.py:223",
+              flat_train_launches["stem_bwd_stats"]),
+        entry("stem_bwd_dx", "stem_bwd", "vfa_tpu/ops/stem.py:253",
+              flat_train_launches["stem_bwd_dx"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

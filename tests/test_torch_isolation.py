@@ -1,7 +1,10 @@
-"""The port stands alone: it imports neither JAX/flax nor vfa_tpu."""
+"""The port stands alone: it imports neither JAX/flax nor vfa_tpu, and its
+kernel loader knows every CUDA source."""
 
 import ast
+import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -23,7 +26,9 @@ from vfa_tpu_torch.ops.rig_cuda import rig_window_fwd
 from vfa_tpu_torch.codec import ObjectEncoder
 from vfa_tpu_torch import convert, kernels, losses, predict, rig_cli, train, train_lib
 from vfa_tpu_torch.data.synthetic_loader import SyntheticSceneLoader
-from vfa_tpu_torch.ops.rig_cuda import rig_window_bwd
+from vfa_tpu_torch.ops.rig_cuda import rig_window_bwd, rig_flat_fwd, rig_flat_bwd
+from vfa_tpu_torch.ops import stem
+from vfa_tpu_torch import prof_train
 
 cfg = tiny_config(get_config("MultiviewC"))
 scene = make_scene(cfg, seed=0, num_objects=2)
@@ -41,6 +46,15 @@ out = train.main(["--data", "Wildtrack", "--synthetic", "--tiny", "-e", "1",
                   "--device", "cpu"])
 assert all(np.isfinite(d["loss"]) for d in out["losses"])
 assert rig_window_fwd.launches == 0 and rig_window_bwd.launches == 0
+import os
+os.environ["VFA_FUSED_STEM"] = "1"
+out = train.main(["--data", "MultiviewC", "--synthetic", "--tiny", "-e", "1",
+                  "--synthetic_frames", "2", "--pretrained", "0", "--no_augment",
+                  "--device", "cpu", "--rig_layout", "flat"])
+assert all(np.isfinite(d["loss"]) for d in out["losses"])
+assert out["model"].base.fused_stem_on() and not out["rig"].scales[0].window_hw
+assert rig_flat_fwd.launches == 0 and rig_flat_bwd.launches == 0
+assert stem.stem_bwd_stats.launches == 0 and stem.stem_bwd_dx.launches == 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "vfa_tpu")
        and sys.modules[m] is not None]
 assert not bad, bad
@@ -77,3 +91,20 @@ def test_no_jax_or_vfa_tpu_import_in_package():
                 offenders += [f"{path}:{node.lineno}: {m}" for m in mods
                               if m.split(".")[0] in banned]
     assert not offenders, offenders
+
+
+def test_every_cuda_source_is_known_to_the_loader():
+    """Each csrc/*.cu has its entry in `kernels.SIGNATURES`, and each
+    declared C function takes as many arguments as its argtypes say."""
+    from vfa_tpu_torch.kernels import CSRC, SIGNATURES
+
+    sources = {os.path.basename(p)[:-3] for p in glob.glob(os.path.join(CSRC, "*.cu"))}
+    assert sources == set(SIGNATURES)
+    for name, fns in SIGNATURES.items():
+        with open(os.path.join(CSRC, f"{name}.cu"), encoding="utf-8") as fh:
+            text = fh.read()
+        assert "Replaces vfa_tpu/ops/" in text and "What bounds it" in text, name
+        declared = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text))
+        assert set(declared) == set(fns), name
+        for fn, argtypes in fns.items():
+            assert len(declared[fn].split(",")) == len(argtypes), fn

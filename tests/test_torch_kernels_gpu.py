@@ -3,9 +3,9 @@ versions, on the card. Needs a CUDA device and nvcc; skips without a card.
 Run on an H100 with:  python -m pytest tests/test_torch_kernels_gpu.py -m gpu
 
 Tolerance: rtol 1e-4 / atol 1e-4 relative to the output scale. Both sides
-are fp32 (TF32 off); they sum the K = wh*ww window products and the
-nl*C collapse terms in different orders, and the backward kernel adds
-overlapping windows with atomics."""
+are fp32 (TF32 off); they sum the band products and the nl*C collapse
+terms in different orders, and the backward kernels add overlapping bands
+with atomics. The stem kernels' tolerance is stated at their tests."""
 
 import numpy as np
 import pytest
@@ -15,9 +15,10 @@ from vfa_tpu_torch.config import get_config
 from vfa_tpu_torch.data.synthetic import make_calibrations, tiny_config
 from vfa_tpu_torch.geometry import make_grid
 from vfa_tpu_torch.ops import rig as trig
+from vfa_tpu_torch.ops import stem as tstem
 from vfa_tpu_torch.ops.rig_cuda import (
-    rig_sample_scale_cuda, rig_scale_bwd, rig_tiles_cuda, rig_window_bwd,
-    rig_window_fwd,
+    rig_flat_bwd, rig_flat_fwd, rig_sample_scale_cuda, rig_scale_bwd,
+    rig_tiles_cuda, rig_window_bwd, rig_window_fwd,
 )
 
 pytestmark = pytest.mark.gpu
@@ -151,3 +152,171 @@ def test_window_kernel_rejects_bad_inputs(cuda):
         rig_window_bwd(ii, sr.A[0], sr.starts[0], Kr, g.double(),
                        torch.zeros_like(ii), torch.zeros_like(Kr), off_t=0,
                        tile_v=sr.tile_v, window=sr.window_hw[0])
+
+
+def _plain_scale(lat, sr, k):
+    return trig.scale_tiles(trig.scale_features(lat, sr),
+                            sr, trig.collapse_per_layer(k, 256, sr.nl, torch.float32))
+
+
+@pytest.mark.parametrize("tile_v,buckets,fold_prefix",
+                         [(16, 1, True), (16, 3, True), (160, 3, True),
+                          (16, 1, False)],
+                         ids=["tv16-b1", "tv16-b3", "tv160-b3", "taps"])
+@pytest.mark.parametrize("B", [1, 2, 8])
+def test_flat_kernels_match_plain(cuda, tile_v, buckets, fold_prefix, B):
+    """K4 and K5 on every bucket of a flat rig against `flat_tiles` /
+    `flat_tiles_bwd`, and the autograd function against autograd of the
+    plain forward (which, for the 16-tap rig, includes the cumsum). The
+    tiny rigs hold bands with band % 16 == 8 (checked below for tv16-b3)."""
+    cfg = tiny_config(get_config("MultiviewC"), factor=4)
+    calibs = make_calibrations(cfg)
+    grid = make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name)
+    rig = trig.build_rig(calibs, cfg, grid, trig.pyramid_feat_shapes(cfg.resize_size),
+                         tile_v=tile_v, band_buckets=buckets, layout="flat",
+                         fold_prefix=fold_prefix, device=cuda)
+    bands = [a.shape[-1] for sr in rig.scales for a in sr.A]
+    if (tile_v, buckets) == (16, 3):
+        assert any(b % 16 == 8 for b in bands), bands
+    gen = torch.Generator(device="cpu").manual_seed(20 + B)
+    N = calibs.shape[0]
+    for sr in rig.scales:
+        fh, fw = sr.feat_hw
+        # the cumsum of a 16-tap rig grows with the image: keep it O(1)
+        lat = torch.rand((B, N, fh, fw, 256), generator=gen).to(cuda)
+        if not fold_prefix:
+            lat = lat / (fh * fw)
+        k = (torch.randn((256 * sr.nl, 256), generator=gen) * 0.05).to(cuda)
+        rows = sum(a.shape[1] for a in sr.A) * sr.tile_v
+        g = torch.randn((N, B, rows, 256), generator=gen).to(cuda)
+        f0, b0 = rig_flat_fwd.launches, rig_flat_bwd.launches
+        got = rig_tiles_cuda(lat, sr, k)
+        torch.cuda.synchronize()
+        want = _plain_scale(lat, sr, k)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+        ii = trig.scale_features(lat, sr)
+        Kr = trig.collapse_per_layer(k, 256, sr.nl, torch.float32)
+        dII, dKr = rig_scale_bwd(ii, sr, Kr, g)
+        torch.cuda.synchronize()
+        assert (rig_flat_fwd.launches, rig_flat_bwd.launches) == (
+            f0 + len(sr.A), b0 + len(sr.A))
+        want_dII, want_dKr, off = None, torch.zeros_like(Kr), 0
+        for A_b, s_b in zip(sr.A, sr.starts):
+            r = A_b.shape[1] * tile_v
+            want_dII, d = trig.flat_tiles_bwd(ii, A_b, s_b, Kr, g[:, :, off:off + r],
+                                              tile_v, dII=want_dII)
+            want_dKr += d
+            off += r
+        for a, b in ((dII, want_dII), (dKr, want_dKr)):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+        grads = []
+        for fn in (rig_tiles_cuda, _plain_scale):
+            la, ka = lat.clone().requires_grad_(), k.clone().requires_grad_()
+            fn(la, sr, ka).backward(g)
+            grads.append((la.grad, ka.grad))
+        for a, b in zip(*grads):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
+def test_flat_kernel_rejects_bad_inputs(cuda):
+    cfg = tiny_config(get_config("MultiviewC"))
+    rig = trig.build_rig(make_calibrations(cfg), cfg,
+                         make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name),
+                         trig.pyramid_feat_shapes(cfg.resize_size), tile_v=16,
+                         layout="flat", device=cuda)
+    sr = rig.scales[0]
+    lat = torch.zeros((1, 2, *sr.feat_hw, 256), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        rig_tiles_cuda(lat.half(), sr, torch.zeros((256 * sr.nl, 256), device=cuda))
+    with pytest.raises(ValueError, match="C = n_out = 256"):
+        rig_tiles_cuda(lat[..., :8], sr, torch.zeros((8 * sr.nl, 256), device=cuda))
+
+
+def _stem_inputs(shape, seed, quantised, device):
+    rng = np.random.default_rng(seed)
+    M, C, H, W = shape
+    x = rng.normal(size=shape).astype(np.float32)
+    if quantised:
+        x = np.round(x)
+    scale = rng.uniform(0.5, 1.5, C).astype(np.float32)
+    bias = rng.uniform(-0.5, 0.5, C).astype(np.float32)
+    if quantised:
+        scale, bias = np.ones(C, np.float32), np.zeros(C, np.float32)
+    g = rng.normal(size=(M, C, (H + 1) // 2, (W + 1) // 2)).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (x, scale, bias, g)]
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 24, 32), (3, 64, 23, 37), (1, 32, 7, 10),
+                                   (1, 64, 256, 48), (2, 64, 90, 130), (1, 16, 1, 5)],
+                         ids=str)
+def test_stem_kernels_match_plain(cuda, shape):
+    """K6 and K7 against their plain versions on the same per-plane
+    parameters, and the whole backward against autograd of the unfused
+    chain. Tolerance: acc sums H*W terms in another order (1e-4 of the
+    max); dx 1e-5 of the max (z is recomputed bit for bit, so no gradient
+    moves to another pixel; the moment terms c1, c2 carry acc's rounding)."""
+    x, scale, bias, g = _stem_inputs(shape, 3, False, cuda)
+    groups = 16
+    _, mu, rstd = tstem.group_norm_stats(x, scale, bias, groups, 1e-5)
+    params = tstem.plane_params(mu, rstd, scale, bias)
+    n0, n1 = tstem.stem_bwd_stats.launches, tstem.stem_bwd_dx.launches
+    acc = tstem.stem_bwd_stats(x, g, params)
+    torch.cuda.synchronize()
+    want = tstem.stem_bwd_stats_plain(x, g, params)
+    np.testing.assert_allclose(acc.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+    c = torch.randn(mu.shape, generator=torch.Generator().manual_seed(1)).to(cuda) * 0.1
+    params2 = tstem.plane_params(mu, rstd, scale, bias, c, -c)
+    dx = tstem.stem_bwd_dx(x, g, params2)
+    torch.cuda.synchronize()
+    assert (tstem.stem_bwd_stats.launches, tstem.stem_bwd_dx.launches) == (n0 + 1, n1 + 1)
+    want = tstem.stem_bwd_dx_plain(x, g, params2)
+    np.testing.assert_allclose(dx.cpu().numpy(), want.cpu().numpy(), rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    got = tstem.gn_relu_pool_bwd(x, scale, bias, g, mu, rstd)
+    ref = tstem.gn_relu_pool_bwd_plain(x, scale, bias, g, groups)
+    np.testing.assert_allclose(got[0].cpu().numpy(), ref[0].cpu().numpy(), rtol=1e-5,
+                               atol=1e-5 * float(ref[0].abs().max()))
+    for a, b in zip(got[1:], ref[1:]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-3,
+                                   atol=1e-3 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 16, 16), (1, 64, 33, 47)], ids=str)
+def test_stem_kernels_tie_positions_exact(cuda, shape):
+    """Integer inputs, scale 1, bias 0: many ReLU zeros and equal maxima.
+    The zero pattern of dx must be identical to the plain backward's."""
+    x, scale, bias, g = _stem_inputs(shape, 3, True, cuda)
+    _, mu, rstd = tstem.group_norm_stats(x, scale, bias, 16, 1e-5)
+    got = tstem.gn_relu_pool_bwd(x, scale, bias, g, mu, rstd)[0]
+    want = tstem.gn_relu_pool_bwd_plain(x, scale, bias, g)[0]
+    assert torch.equal(got == 0, want == 0)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    # through the autograd function, as the backbone calls it
+    xa = x.clone().requires_grad_()
+    tstem.gn_relu_pool(xa, scale, bias).backward(g)
+    assert torch.equal(xa.grad == 0, want == 0)
+    # the routing itself: with c1 = c2 = 0 the dx kernel gives rstd*scale*dz,
+    # zero exactly where dz is; against autograd on the forward's own z
+    z = torch.nn.functional.group_norm(x, 16, scale, bias, 1e-5).requires_grad_()
+    y = torch.nn.functional.max_pool2d(torch.relu(z), 3, 2, 1)
+    (dz_ref,) = torch.autograd.grad(y, z, g)
+    dz = tstem.stem_bwd_dx(x, g, tstem.plane_params(mu, rstd, scale, bias))
+    assert 0.5 < float((dz_ref == 0).float().mean()) < 1.0
+    assert torch.equal(dz == 0, dz_ref == 0)
+
+
+def test_stem_kernel_rejects_bad_inputs(cuda):
+    x, scale, bias, g = _stem_inputs((1, 64, 8, 8), 0, False, cuda)
+    _, mu, rstd = tstem.group_norm_stats(x, scale, bias, 16, 1e-5)
+    params = tstem.plane_params(mu, rstd, scale, bias)
+    with pytest.raises(TypeError, match="float32"):
+        tstem.stem_bwd_stats(x.double(), g, params)
+    with pytest.raises(ValueError, match="shape"):
+        tstem.stem_bwd_dx(x, g[:, :, :3], params)
+    with pytest.raises(ValueError, match="contiguous"):
+        tstem.stem_bwd_dx(x.transpose(2, 3), g, params)

@@ -62,9 +62,9 @@ def test_rig_helpers_match_jax():
                 nl, "pallas", "window", dtype=jdt)
     jr, tr = _both_rigs(mc_opts, 3)
     assert trig.rig_matmul_flops(tr) == jrig.rig_matmul_flops(jr)
-    with pytest.raises(NotImplementedError, match="K4/K5"):
+    with pytest.raises(ValueError, match="unknown rig layout"):
         trig.build_rig(np.zeros((1, 3, 4)), mc_opts, np.zeros((2, 2, 3)),
-                       [(8, 8)], layout="flat", device="cpu")
+                       [(8, 8)], layout="banded", device="cpu")
 
 
 @pytest.mark.parametrize("camera_sum", [False, True])

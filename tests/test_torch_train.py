@@ -25,7 +25,10 @@ from vfa_tpu_torch.data.synthetic import tiny_config as t_tiny_config
 from vfa_tpu_torch.data.synthetic_loader import SyntheticSceneLoader
 from vfa_tpu_torch.model.vfanet import VFANet
 from vfa_tpu_torch.ops.rig import build_rig
-from vfa_tpu_torch.ops.rig_cuda import rig_window_bwd, rig_window_fwd
+from vfa_tpu_torch.ops.rig_cuda import (
+    rig_flat_bwd, rig_flat_fwd, rig_window_bwd, rig_window_fwd,
+)
+from vfa_tpu_torch.ops.stem import stem_bwd_dx, stem_bwd_stats
 
 
 def test_train_config_matches_jax():
@@ -80,10 +83,17 @@ def test_sgd_update_matches_jax_optimizer():
                                    rtol=1e-5, atol=1e-7)
 
 
-def _train_against_jax(cfg, steps):
+def _launches():
+    return tuple(fn.launches for fn in (
+        rig_window_fwd, rig_window_bwd, rig_flat_fwd, rig_flat_bwd,
+        stem_bwd_stats, stem_bwd_dx))
+
+
+def _train_against_jax(cfg, steps, layout="window"):
     """`steps` train steps then one eval step, both packages, same weights
     and batches. JAX samples with rig_impl='pallas' (the Pallas kernels and
-    their hand-written VJP, interpreted on the CPU)."""
+    their hand-written VJP, interpreted on the CPU). Both packages read
+    VFA_FUSED_STEM when they build the stem."""
     jc = tiny_config(cfg)
     tc = t_tiny_config(get_config(cfg.name))
     # the recipe's lr 0.02 over 40 epochs, stepped per iteration so that lr
@@ -102,7 +112,7 @@ def _train_against_jax(cfg, steps):
     jb0 = {k: jnp.asarray(v) for k, v in batches[0].items()}
     state, tx = jtl.init_state(jmodel, jc, jtcfg, jax.random.PRNGKey(0), steps, jb0)
     jrig = jax_build_rig(calibs, jc, grid, shapes, tile_v=16, dtype=jnp.float32,
-                         band_buckets=3, layout="window")
+                         band_buckets=3, layout=layout)
     jstep = jtl.make_train_step(jmodel, tx, jc, jtcfg, dim_mean=loader.dim_mean)
     jeval = jtl.make_eval_step(jmodel, jc, dim_mean=loader.dim_mean)
 
@@ -111,7 +121,7 @@ def _train_against_jax(cfg, steps):
         jax.tree_util.tree_map(np.array, state.params),
         jax.tree_util.tree_map(np.array, state.batch_stats)), strict=True)
     trig = build_rig(calibs, tc, grid, shapes, tile_v=16, dtype=torch.float32,
-                     band_buckets=3, device="cpu")
+                     band_buckets=3, layout=layout, device="cpu")
     opt = ttl.make_optimizer(model, ttcfg, steps)
     tstep = ttl.make_train_step(model, opt, tc, ttcfg, dim_mean=loader.dim_mean)
     teval = ttl.make_eval_step(model, tc, dim_mean=loader.dim_mean)
@@ -121,7 +131,7 @@ def _train_against_jax(cfg, steps):
             jax.tree_util.tree_map(np.array, state.params),
             jax.tree_util.tree_map(np.array, state.batch_stats))
 
-    launches = (rig_window_fwd.launches, rig_window_bwd.launches)
+    launches = _launches()
     for b in batches:
         before_j = jax_named(state)
         before_t = {k: v.detach().numpy().copy() for k, v in model.named_parameters()}
@@ -139,7 +149,7 @@ def _train_against_jax(cfg, steps):
         assert set(tld) == set(jld)
         for k in jld:
             assert float(tld[k]) == pytest.approx(float(jld[k]), rel=1e-4, abs=1e-6), k
-    assert (rig_window_fwd.launches, rig_window_bwd.launches) == launches
+    assert _launches() == launches
     assert opt.count == steps and model.training
 
     want = jax_named(state)
@@ -165,6 +175,23 @@ def _train_against_jax(cfg, steps):
 @pytest.mark.medium
 def test_two_train_steps_match_jax_multiviewc_3d():
     pred = _train_against_jax(mc_opts, steps=2)
+    assert set(pred) == {"heatmap", "loc_offset", "dim_offset", "rotation"}
+
+
+@pytest.mark.medium
+def test_two_train_steps_match_jax_flat_rig_fused_stem(monkeypatch):
+    """The slice as a whole: flat rig layout and the fused stem on both
+    sides (JAX: the Pallas flat kernels and the stem's custom VJP; the port:
+    `RigScaleTiles` on the flat rig and `gn_relu_pool`, plain versions on
+    the CPU). Loss rel 1e-4, parameters rtol 5e-3 / atol 1e-5."""
+    monkeypatch.setenv("VFA_FUSED_STEM", "1")
+    from vfa_tpu_torch.ops import stem
+
+    calls = []
+    monkeypatch.setattr(stem, "gn_relu_pool_bwd",
+                        lambda *a, _f=stem.gn_relu_pool_bwd: calls.append(1) or _f(*a))
+    pred = _train_against_jax(mc_opts, steps=2, layout="flat")
+    assert len(calls) == 2          # the fused stem's backward ran each step
     assert set(pred) == {"heatmap", "loc_offset", "dim_offset", "rotation"}
 
 
@@ -205,6 +232,26 @@ def test_batchnorm_running_variance_is_biased_like_flax():
 
 TINY = ["--data", "MultiviewC", "--synthetic", "--tiny", "-e", "1",
         "--pretrained", "0", "--no_augment", "--device", "cpu"]
+
+
+def test_train_cli_flat_rig_fused_stem_tiny_cpu(capsys, monkeypatch):
+    """`--rig_layout flat` with VFA_FUSED_STEM=1 trains on the CPU and gives
+    the window layout's losses with the unfused stem (same seed; the layouts
+    regroup the same weights, the fused stem is the same function)."""
+    argv = TINY + ["--synthetic_frames", "4", "-b", "2"]
+    monkeypatch.setenv("VFA_FUSED_STEM", "0")
+    want = train_cli.main(argv)
+    capsys.readouterr()
+    monkeypatch.setenv("VFA_FUSED_STEM", "1")
+    launches = _launches()
+    got = train_cli.main(argv + ["--rig_layout", "flat"])
+    text = capsys.readouterr().out
+    assert "flat layout" in text and "tile_v 160" in text and "fused stem on" in text
+    assert _launches() == launches
+    assert not got["rig"].scales[0].window_hw and want["rig"].scales[0].window_hw
+    for a, b in zip(got["losses"] + got["val_losses"],
+                    want["losses"] + want["val_losses"]):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-4)
 
 
 def test_train_cli_tiny_cpu(capsys):

@@ -1,6 +1,8 @@
-// Shared pieces of the window-rig kernels (rig_window_fwd.cu,
-// rig_window_bwd.cu): a register-tiled fp32 SGEMM CTA tile and the
-// A-product pass vox = A[n, t] @ window that both directions run.
+// Shared pieces of the compiled-rig kernels (rig_window_fwd.cu,
+// rig_flat_fwd.cu and, through rig_bwd.cuh, rig_window_bwd.cu and
+// rig_flat_bwd.cu): a register-tiled fp32 SGEMM CTA tile, the A-product
+// pass vox = A[n, t] @ band that both directions and both band layouts run,
+// and the forward's collapse pass.
 //
 // One 128-thread CTA computes a 64 x 128 output tile, each thread 8 x 8 of
 // it, from 16-deep slices of both operands double-buffered through shared
@@ -20,9 +22,10 @@ constexpr int THREADS = 128;  // 8 row groups x 16 column groups
 constexpr int AS_LD = BM + 4; // padded row of the transposed A slice
 constexpr int CH = 256;       // channels: C == n_out == 256
 
-// One CTA's 64 x 128 tile of  D = Aop @ Bop  over K (K % BK == 0).
-// A_KMAJOR false: a_row(m, k0) points to Aop[m0 + m][k0 .. k0 + 15]
-//   (16-byte aligned), or is nullptr for a row outside the problem (zeros).
+// One CTA's 64 x 128 tile of  D = Aop @ Bop  over K (the last slice may be
+// ragged: the operands' accessors return nullptr past K).
+// A_KMAJOR false: a_row(m, k) points to Aop[m0 + m][k .. k + 3], k % 4 == 0
+//   (16-byte aligned), or is nullptr outside the problem (zeros).
 // A_KMAJOR true: Aop is stored depth-major; a_row(k, q) points to
 //   Aop[m0 + 4q .. m0 + 4q + 3][k] as 4 consecutive floats (16-byte
 //   aligned), or is nullptr (zeros).
@@ -53,8 +56,7 @@ __device__ __forceinline__ void gemm_tile(int K, ARow a_row, BRow b_row,
       if constexpr (A_KMAJOR) {
         src = a_row(k0 + idx / 16, idx % 16);  // 16 depths x 16 quads
       } else {
-        src = a_row(idx / 4, k0);              // 64 rows x 4 quads
-        if (src) src += (idx % 4) * 4;
+        src = a_row(idx / 4, k0 + (idx % 4) * 4);  // 64 rows x 4 quads
       }
       ra[p] = src ? *reinterpret_cast<const float4*>(src)
                   : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -95,7 +97,7 @@ __device__ __forceinline__ void gemm_tile(int K, ARow a_row, BRow b_row,
     }
   };
 
-  const int nk = K / BK;
+  const int nk = (K + BK - 1) / BK;
   load(0);
   store(0);
   __syncthreads();
@@ -137,38 +139,105 @@ __device__ __forceinline__ void store_tile(const float (&acc)[8][8],
   }
 }
 
-// The A-product pass: vox[n, b, t] = A[n, t] @ window(n, b, t), fp32.
+// The A-product pass: vox[n, b, t] = A[n, t] @ band(n, b, t), fp32.
 // grid (ceil(R/BM) * CH/BN, T, N*B). The A operand is A's rows, the B
-// operand the window's pixels, gathered by (ry + k / ww, rx + k % ww).
+// operand the band's pixels out of the (n, b) image of `pixels` rows:
+//   WINDOW: pixel k of the (wh, ww) window at (ry, rx) = starts[2i], [2i+1]
+//           is row (ry + k / ww) * Wp + rx + k % ww; K = wh*ww, K % BK == 0;
+//   flat:   pixel k of the band at start = starts[i] is row start + k;
+//           K = band, a multiple of 8, so the last slice may be half empty.
+template <bool WINDOW>
 __global__ void __launch_bounds__(THREADS)
 rig_vox_kernel(const float* __restrict__ ii, const float* __restrict__ A,
                const int* __restrict__ starts, float* __restrict__ vox,
-               int B, int Hp, int Wp, int T, int R, int wh, int ww) {
+               int B, int pixels, int Wp, int T, int R, int K, int ww) {
   const int mb = blockIdx.x / (CH / BN);
   const int nb = blockIdx.x % (CH / BN);
   const int t = blockIdx.y;
   const int n = blockIdx.z / B;
-  const int K = wh * ww;
-  const int ry = starts[2 * (n * T + t)];
-  const int rx = starts[2 * (n * T + t) + 1];
-  const float* A_t = A + (size_t)(n * T + t) * R * K;
-  const float* img = ii + (size_t)blockIdx.z * Hp * Wp * CH + nb * BN;
+  const int i = n * T + t;
+  const int s0 = WINDOW ? starts[2 * i] : starts[i];
+  const int s1 = WINDOW ? starts[2 * i + 1] : 0;
+  const float* A_t = A + (size_t)i * R * K;
+  const float* img = ii + (size_t)blockIdx.z * pixels * CH + nb * BN;
   const int m0 = mb * BM;
 
   float acc[8][8];
-  gemm_tile<false, false>(
+  gemm_tile<false, !WINDOW>(
       K,
-      [&](int m, int k0) -> const float* {
-        return m0 + m < R ? A_t + (size_t)(m0 + m) * K + k0 : nullptr;
+      [&](int m, int k) -> const float* {
+        return m0 + m < R && k < K ? A_t + (size_t)(m0 + m) * K + k : nullptr;
       },
       [&](int k) -> const float* {
-        return img + ((size_t)(ry + k / ww) * Wp + rx + k % ww) * CH;
+        if constexpr (WINDOW) {
+          return img + ((size_t)(s0 + k / ww) * Wp + s1 + k % ww) * CH;
+        } else {
+          return k < K ? img + (size_t)(s0 + k) * CH : nullptr;
+        }
       },
       acc);
   float* dst0 = vox + ((size_t)blockIdx.z * T + t) * R * CH + nb * BN;
   store_tile(acc, [&](int m) -> float* {
     return m0 + m < R ? dst0 + (size_t)(m0 + m) * CH : nullptr;
   });
+}
+
+// The forward's collapse pass: out = vox2 @ Kr2 with vox2[(t, v), l*C + c]
+// = vox[t][l*tile_v + v][c] and Kr2 = Kr as (nl*C, n_out), one GEMM over
+// all cells of the bucket, written at tile offset off_t of the scale's
+// (N, B, rows_total, n_out) tiles. grid (ceil(T*tile_v/BM), n_out/BN, N*B).
+__global__ void __launch_bounds__(THREADS)
+rig_collapse_kernel(const float* __restrict__ vox, const float* __restrict__ Kr,
+                    float* __restrict__ out, int T, int nl, int tile_v,
+                    int off_t, int rows_total) {
+  const int cells = T * tile_v;
+  const int r0 = blockIdx.x * BM;
+  const int nb = blockIdx.y;
+  const size_t R = (size_t)nl * tile_v;
+  const float* vox_nb = vox + (size_t)blockIdx.z * T * R * CH;
+
+  float acc[8][8];
+  gemm_tile<false, false>(
+      nl * CH,
+      [&](int m, int k) -> const float* {
+        const int rr = r0 + m;
+        if (rr >= cells) return nullptr;
+        const int t = rr / tile_v;
+        const int v = rr % tile_v;
+        const int l = k / CH;
+        return vox_nb + ((size_t)t * R + (size_t)l * tile_v + v) * CH + k % CH;
+      },
+      [&](int k) -> const float* { return Kr + (size_t)k * CH + nb * BN; },
+      acc);
+  float* dst0 = out + ((size_t)blockIdx.z * rows_total + (size_t)off_t * tile_v) * CH
+                + nb * BN;
+  store_tile(acc, [&](int m) -> float* {
+    return r0 + m < cells ? dst0 + (size_t)(r0 + m) * CH : nullptr;
+  });
+}
+
+// Both passes of a forward launch. pixels = rows of one (n, b) image;
+// WINDOW: K = wh*ww, Wp and ww as above; flat: K = band, Wp = ww = 0.
+template <bool WINDOW>
+inline int rig_fwd_launch(const float* ii, const float* A, const int* starts,
+                          const float* Kr, float* vox, float* out, int N,
+                          int B, int pixels, int Wp, int C, int T, int nl,
+                          int tile_v, int K, int ww, int n_out, int off_t,
+                          int rows_total, void* stream) {
+  const int R = nl * tile_v;
+  if (C != CH || n_out != CH || K < 1 || K % (WINDOW ? BK : 8) != 0 || T < 1 ||
+      T > 65535 || N * B > 65535 || R < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 g1((R + BM - 1) / BM * (CH / BN), T, N * B);
+  rig_vox_kernel<WINDOW><<<g1, THREADS, 0, s>>>(ii, A, starts, vox, B, pixels,
+                                                Wp, T, R, K, ww);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dim3 g2((T * tile_v + BM - 1) / BM, CH / BN, N * B);
+  rig_collapse_kernel<<<g2, THREADS, 0, s>>>(vox, Kr, out, T, nl, tile_v,
+                                             off_t, rows_total);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

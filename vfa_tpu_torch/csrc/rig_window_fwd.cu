@@ -25,14 +25,15 @@
 // SGEMMs at the FMA rate. Every CTA is independent (the TPU grid's
 // cross-step DMA pipeline, scene packing and VMEM budgets are not carried
 // over). The CTA tile (64 x 128 outputs from 16-deep double-buffered
-// slices) and pass 1 live in rig_gemm.cuh, shared with the backward.
+// slices) and both passes live in rig_gemm.cuh, shared with the backward
+// and with the flat layout's kernels (rig_flat_fwd.cu).
 //   pass 1 (rig_vox_kernel, rig_gemm.cuh): vox = A[n,t] @ window for every
 //          (n, t, b); the A operand is A's rows, the B operand the window's
 //          pixels, gathered by (ry + k / ww, rx + k % ww).
-//   pass 2 (rig_collapse_kernel): out = vox2 @ Kr2 with vox2[(t, v),
-//          l*C + c] = vox[t][l*tile_v + v][c] and Kr2 = Kr as (nl*C, n_out),
-//          one GEMM over all cells of the bucket, so Kr is read once per
-//          64 cells.
+//   pass 2 (rig_collapse_kernel, rig_gemm.cuh): out = vox2 @ Kr2 with
+//          vox2[(t, v), l*C + c] = vox[t][l*tile_v + v][c] and Kr2 = Kr as
+//          (nl*C, n_out), one GEMM over all cells of the bucket, so Kr is
+//          read once per 64 cells.
 // vox goes through a device scratch buffer (N, B, T, nl*tile_v, C): at the
 // full rig and batch 2 that is 1.75 GB per scale written and read once,
 // about 1 ms at 3.35 TB/s against ~7 ms of fp32 work per scale.
@@ -40,41 +41,6 @@
 // later work.
 
 #include "rig_gemm.cuh"
-
-namespace {
-
-// Pass 2. grid (ceil(T*tile_v/BM), n_out/BN, N*B).
-__global__ void __launch_bounds__(THREADS)
-rig_collapse_kernel(const float* __restrict__ vox, const float* __restrict__ Kr,
-                    float* __restrict__ out, int T, int nl, int tile_v,
-                    int off_t, int rows_total) {
-  const int cells = T * tile_v;
-  const int r0 = blockIdx.x * BM;
-  const int nb = blockIdx.y;
-  const size_t R = (size_t)nl * tile_v;
-  const float* vox_nb = vox + (size_t)blockIdx.z * T * R * CH;
-
-  float acc[8][8];
-  gemm_tile<false, false>(
-      nl * CH,
-      [&](int m, int k0) -> const float* {
-        const int rr = r0 + m;
-        if (rr >= cells) return nullptr;
-        const int t = rr / tile_v;
-        const int v = rr % tile_v;
-        const int l = k0 / CH;
-        return vox_nb + ((size_t)t * R + (size_t)l * tile_v + v) * CH + k0 % CH;
-      },
-      [&](int k) -> const float* { return Kr + (size_t)k * CH + nb * BN; },
-      acc);
-  float* dst0 = out + ((size_t)blockIdx.z * rows_total + (size_t)off_t * tile_v) * CH
-                + nb * BN;
-  store_tile(acc, [&](int m) -> float* {
-    return r0 + m < cells ? dst0 + (size_t)(r0 + m) * CH : nullptr;
-  });
-}
-
-}  // namespace
 
 // ii (N, B, Hp, Wp, C) fp32; A (N, T, nl*tile_v, wh*ww) fp32; starts
 // (N*T*2) int32; Kr (nl, C, n_out) fp32; vox scratch (N, B, T,
@@ -86,18 +52,7 @@ extern "C" int rig_window_fwd_f32(const float* ii, const float* A,
                                   int Hp, int Wp, int C, int T, int nl,
                                   int tile_v, int wh, int ww, int n_out,
                                   int off_t, int rows_total, void* stream) {
-  const int R = nl * tile_v;
-  if (C != CH || n_out != CH || (wh * ww) % BK != 0 || T < 1 || T > 65535 ||
-      N * B > 65535 || R < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 g1((R + BM - 1) / BM * (CH / BN), T, N * B);
-  rig_vox_kernel<<<g1, THREADS, 0, s>>>(ii, A, starts, vox, B, Hp, Wp, T, R,
-                                        wh, ww);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 g2((T * tile_v + BM - 1) / BM, CH / BN, N * B);
-  rig_collapse_kernel<<<g2, THREADS, 0, s>>>(vox, Kr, out, T, nl, tile_v,
-                                             off_t, rows_total);
-  return (int)cudaGetLastError();
+  return rig_fwd_launch<true>(ii, A, starts, Kr, vox, out, N, B, Hp * Wp, Wp,
+                              C, T, nl, tile_v, wh * ww, ww, n_out, off_t,
+                              rows_total, stream);
 }

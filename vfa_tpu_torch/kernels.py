@@ -32,6 +32,16 @@ SIGNATURES = {
     "rig_window_bwd": {
         "rig_window_bwd_f32": [P] * 8 + [I] * 13 + [P],
     },
+    "rig_flat_fwd": {
+        "rig_flat_fwd_f32": [P] * 6 + [I] * 11 + [P],
+    },
+    "rig_flat_bwd": {
+        "rig_flat_bwd_f32": [P] * 8 + [I] * 11 + [P],
+    },
+    "stem_bwd": {
+        "stem_bwd_stats_f32": [P] * 5 + [I] * 4 + [P],
+        "stem_bwd_dx_f32": [P] * 4 + [I] * 4 + [P],
+    },
 }
 
 
@@ -105,7 +115,15 @@ class KernelLibrary:
 LIBRARY = KernelLibrary()
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a C entry point returned a CUDA error."""
+def launch(name: str, fn: str, device, *args) -> None:
+    """Call the C entry point `fn` of kernel library `name` (built and
+    loaded at first use) on `device` and PyTorch's current stream, which is
+    passed as the last argument; raise if the launch was refused."""
+    import torch
+
+    lib = LIBRARY.load(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(*args, stream)
     if err != 0:
-        raise RuntimeError(f"{what} failed with cudaError_t {err}")
+        raise RuntimeError(f"{name}.{fn} launch failed with cudaError_t {err}")

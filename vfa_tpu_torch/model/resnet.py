@@ -8,6 +8,7 @@ module names follow the reference state-dict keys (`base.layerX.Y.*`).
 
 from __future__ import annotations
 
+import os
 from typing import Sequence, Tuple
 
 import torch
@@ -45,10 +46,17 @@ class BasicBlock(nn.Module):
 
 class ResNetGN(nn.Module):
     """ResNet trunk returning (feats8, feats16, feats32), NCHW.
-    `layers` is (2, 2, 2, 2) for resnet18, (3, 4, 6, 3) for resnet34."""
+    `layers` is (2, 2, 2, 2) for resnet18, (3, 4, 6, 3) for resnet34.
+    `fused_stem` runs the stem's GN + ReLU + max-pool through
+    `ops.stem.gn_relu_pool` (same forward, the hand-written backward that
+    keeps only conv1's output); the parameters stay under `bn1`, so the
+    state dict is the same. VFA_FUSED_STEM=1/0 overrides the attribute, as
+    in the JAX package."""
 
-    def __init__(self, layers: Sequence[int] = (2, 2, 2, 2)):
+    def __init__(self, layers: Sequence[int] = (2, 2, 2, 2),
+                 fused_stem: bool = False):
         super().__init__()
+        self.fused_stem = fused_stem
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = group_norm(64)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
@@ -64,8 +72,19 @@ class ResNetGN(nn.Module):
                 inplanes = planes
             setattr(self, f"layer{stage}", nn.Sequential(*mods))
 
+    def fused_stem_on(self) -> bool:
+        env = os.environ.get("VFA_FUSED_STEM")
+        return env != "0" if env is not None else self.fused_stem
+
     def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
+        x = self.conv1(x)
+        if self.fused_stem_on():
+            from vfa_tpu_torch.ops.stem import gn_relu_pool
+
+            x = gn_relu_pool(x, self.bn1.weight, self.bn1.bias,
+                             self.bn1.num_groups, self.bn1.eps)
+        else:
+            x = self.maxpool(torch.relu(self.bn1(x)))
         x = self.layer1(x)
         f8 = self.layer2(x)
         f16 = self.layer3(f8)

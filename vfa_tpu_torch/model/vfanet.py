@@ -60,9 +60,11 @@ class BatchNorm2dBiased(nn.BatchNorm2d):
 
 
 class VFANet(nn.Module):
-    """rig_impl: 'cuda' samples through the hand-written window kernel
-    (`ops/rig_cuda.py`; the plain version for CPU tensors), 'plain' through
-    the plain PyTorch version (`ops/rig.py`)."""
+    """rig_impl: 'cuda' samples through the hand-written rig kernels
+    (`ops/rig_cuda.py`; the plain versions for CPU tensors), 'plain' through
+    the plain PyTorch versions (`ops/rig.py`). The fused stem is switched
+    on as in the JAX package: VFA_FUSED_STEM=1, or `ResNetGN(fused_stem=
+    True)` (see `model/resnet.py`)."""
 
     def __init__(self, cfg: DatasetConfig, base: str = "resnet18",
                  angle_range: int = 360, rig_impl: str = "cuda"):

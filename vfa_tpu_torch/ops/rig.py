@@ -1,20 +1,27 @@
-"""Compiled camera rig, window layout (port of `vfa_tpu/ops/rig.py`).
+"""Compiled camera rig, window and flat layouts (port of
+`vfa_tpu/ops/rig.py`).
 
 Calibrations are rig constants on every supported dataset, so voxel
-sampling is a static linear map vox = A @ features. With BEV cells
-Hilbert-ordered by projected box center, each tile of `tile_v` cells reads
-one compact 2D image window, and sampling becomes, per (camera, tile):
+sampling is a static linear map vox = A @ features. Sampling is, per
+(camera, tile of `tile_v` BEV cells):
 
-    window = lat[ry : ry + wh, rx : rx + ww]          # (wh*ww, C)
-    vox    = A_tile @ window                          # (nl*tile_v, C)
-    out    = sum_l vox[l] @ Kr[l]                     # collapse -> n_out
+    band = the tile's pixels of the features             # (K, C)
+    vox  = A_tile @ band                                 # (nl*tile_v, C)
+    out  = sum_l vox[l] @ Kr[l]                          # collapse -> n_out
+
+Two band layouts. Window: cells are Hilbert-ordered by projected box
+center and a band is one compact 2D image window lat[ry : ry + wh,
+rx : rx + ww]. Flat: cells are ordered by mean tap position and a band is
+`band_b` contiguous rows of the features flattened to (fh*fw, C), i.e.
+whole image rows; with `fold_prefix=False` A holds the 16 integral-image
+taps instead and applies to 2D-cumsum'd features.
 
 The host builder below is numpy and reproduces the JAX build byte for byte
 (same A, starts, inv_perm, window_hw), including its TPU-derived constants:
-`default_tile_v`, the band cap of `_build_scale_window`, and the 8/16
-window alignment. `rig_sample_scale` is the plain PyTorch version of the
-hand-written window kernel (`ops/rig_cuda.py`) plus the shared epilogue;
-`window_tiles_bwd` is the plain version of the backward kernel.
+`default_tile_v`, the band caps, and the 8/16 alignments.
+`rig_sample_scale` is the plain PyTorch version of the hand-written
+kernels (`ops/rig_cuda.py`) plus the shared epilogue; `window_tiles_bwd`
+and `flat_tiles_bwd` are the plain versions of the backward kernels.
 """
 
 from __future__ import annotations
@@ -35,11 +42,18 @@ from vfa_tpu_torch.ops.voxel import (
 class ScaleRig:
     """Static sampling structure for one feature scale, all cameras.
 
-    A[b]: (N, T_b, nl*tile_v, wh_b*ww_b) prefix-folded soft box weights on
-    raw features; row = l*tile_v + v (layer-major). starts[b]: (N, T_b, 2)
-    int32 (row, col) window origins inside the image padded to (fh up to
-    a multiple of 8, fw up to 16). inv_perm: (N, V2d) int64, BEV cell ->
-    row of the scale's concatenated tiles."""
+    A[b]: (N, T_b, nl*tile_v, band_b) soft box weights; row = l*tile_v + v
+    (layer-major). inv_perm: (N, V2d) int64, BEV cell -> row of the scale's
+    concatenated tiles. on_raw: A has the 2D prefix sum folded in and
+    applies to raw features; False keeps the 16-tap integral-image form
+    (applies to cumsum'd features, flat layout only).
+
+    Window layout (window_hw[b] == (wh_b, ww_b)): band_b = wh_b*ww_b and
+    starts[b] is (N, T_b, 2) int32 (row, col) window origins inside the
+    image padded to (fh up to a multiple of 8, fw up to 16).
+    Flat layout (window_hw == ()): starts[b] is (N, T_b) int32 band starts
+    in the features flattened to (fh*fw, C); starts and band_b are
+    multiples of 8, and the features are padded by max band_b zero rows."""
 
     A: tuple
     starts: tuple
@@ -47,7 +61,8 @@ class ScaleRig:
     feat_hw: Tuple[int, int]
     nl: int
     tile_v: int
-    window_hw: tuple        # per bucket (wh_b, ww_b)
+    on_raw: bool = True
+    window_hw: tuple = ()   # per bucket (wh_b, ww_b); () = flat layout
 
 
 @dataclasses.dataclass
@@ -60,10 +75,12 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def default_tile_v(nl: int, dtype=torch.float32) -> int:
-    """BEV cells per tile, as the JAX window builder picks it
+def default_tile_v(nl: int, dtype=torch.float32, layout: str = "window") -> int:
+    """BEV cells per tile, as the JAX package picks it for its kernel route
     (`vfa_tpu/ops/rig.py:81`). The values come from the TPU kernels' VMEM
     budget; they are kept so the rig matches the JAX build exactly."""
+    if layout != "window":
+        return 160
     fp32 = dtype.itemsize >= 4
     if nl > 5:
         return 24 if fp32 else 64
@@ -83,11 +100,12 @@ def pyramid_feat_shapes(resize_size) -> List[Tuple[int, int]]:
     return [(h8, w8), (h16, w16), (h32, w32)]
 
 
-def _np_box_profiles(calib, cfg: DatasetConfig, grid, feat_hw, crange):
-    """Per-voxel fractional box bounds in pixel coords + 1/area scale.
+def _np_norm_boxes(calib, cfg: DatasetConfig, grid, feat_hw, crange):
+    """Per-voxel projected box in normalized [-1, 1] image coords.
 
-    Returns (xl, xr, yt, yb) each (nl, V2d) float64 (grid_sample
-    align_corners=False convention) and scale (nl, V2d) = visible/area."""
+    Returns (l, t, r, b, area, visible), each (nl, V2d): the box bounds
+    (float64), its area in feature pixels + EPSILON, and the visibility
+    mask of `ops/voxel.py`."""
     fh, fw = feat_hw
     z_off = z_layer_offsets(cfg.grid_h, cfg.cube_size[2]).astype(np.float64)
     c_off = cube_corner_offsets(cfg.cube_size).astype(np.float64)
@@ -109,10 +127,49 @@ def _np_box_profiles(calib, cfg: DatasetConfig, grid, feat_hw, crange):
     r, b = norm[..., 0].max(-1), norm[..., 1].max(-1)
     area = (r - l) * (b - t) * (fh * fw) + EPSILON
     visible = (area > EPSILON) & (area < fh * fw * MAXIMUM_AREA_RATIO)
+    return l, t, r, b, area, visible
+
+
+def _np_box_profiles(calib, cfg: DatasetConfig, grid, feat_hw, crange):
+    """Per-voxel fractional box bounds in pixel coords + 1/area scale.
+
+    Returns (xl, xr, yt, yb) each (nl, V2d) float64 (grid_sample
+    align_corners=False convention) and scale (nl, V2d) = visible/area."""
+    fh, fw = feat_hw
+    l, t, r, b, area, visible = _np_norm_boxes(calib, cfg, grid, feat_hw, crange)
     scale = visible / area
     unx = lambda v: ((v + 1.0) * fw - 1.0) * 0.5
     uny = lambda v: ((v + 1.0) * fh - 1.0) * 0.5
     return unx(l), unx(r), uny(t), uny(b), scale
+
+
+def _np_taps(calib, cfg: DatasetConfig, grid, feat_hw, crange):
+    """The 16 merged bilinear / integral-image taps per voxel: idx
+    (nl, V2d, 16) int64 flat pixel indices and w (nl, V2d, 16) float64
+    weights (4 box corners with signs +, +, -, -, 4 bilinear taps each,
+    scaled by visible/area)."""
+    fh, fw = feat_hw
+    l, t, r, b, area, visible = _np_norm_boxes(calib, cfg, grid, feat_hw, crange)
+    pts_x = np.stack([l, r, r, l], axis=2)                # (nl, V2d, 4)
+    pts_y = np.stack([t, b, t, b], axis=2)
+    signs = np.array([1.0, 1.0, -1.0, -1.0])
+    x = ((pts_x + 1.0) * fw - 1.0) * 0.5
+    y = ((pts_y + 1.0) * fh - 1.0) * 0.5
+    x0, y0 = np.floor(x), np.floor(y)
+    wx1, wy1 = x - x0, y - y0
+    tap_idx, tap_w = [], []
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        xi, yi = x0 + dx, y0 + dy
+        wxt = wx1 if dx else 1.0 - wx1
+        wyt = wy1 if dy else 1.0 - wy1
+        inb = (xi >= 0) & (xi <= fw - 1) & (yi >= 0) & (yi <= fh - 1)
+        xi_c = np.clip(xi, 0, fw - 1).astype(np.int64)
+        yi_c = np.clip(yi, 0, fh - 1).astype(np.int64)
+        tap_idx.append(yi_c * fw + xi_c)
+        tap_w.append(wxt * wyt * inb * signs)
+    idx = np.concatenate(tap_idx, axis=-1)
+    w = np.concatenate(tap_w, axis=-1)
+    return idx, w * (visible / area)[..., None]
 
 
 def _axis_params(lo, hi, size):
@@ -342,13 +399,7 @@ def _build_scale_window(calibs, cfg, grid, feat_hw, crange, tile_v,
     for cam in range(num_cam):
         order, ry, rx, wh, ww = per_cam[cam]
         tperm = tperms[cam]
-        padded = np.full(n_tiles * tile_v, -1, np.int64)
-        padded[:V2d] = order
-        padded2 = np.concatenate([
-            padded[t * tile_v:(t + 1) * tile_v] for t in tperm])
-        pos = np.empty(V2d, np.int64)
-        valid_slots = padded2 >= 0
-        pos[padded2[valid_slots]] = np.nonzero(valid_slots)[0]
+        pos = _tile_order(order, tperm, tile_v, n_tiles, V2d)
         inv_perm[cam] = pos
         t_of_cell = pos // tile_v
         vi_of_cell = pos % tile_v
@@ -386,6 +437,150 @@ def _build_scale_window(calibs, cfg, grid, feat_hw, crange, tile_v,
     return A_buckets, starts_buckets, list(zip(wh_b, ww_b)), inv_perm, nl
 
 
+def _tile_order(order, tperm, tile_v, n_tiles, V2d):
+    """Cell positions after the tiles of `order` are reordered by `tperm`
+    (pad slots kept, so tile boundaries stay aligned): pos (V2d,) int64,
+    BEV cell -> row of the concatenated tiles."""
+    padded = np.full(n_tiles * tile_v, -1, np.int64)
+    padded[:V2d] = order
+    padded2 = np.concatenate([
+        padded[t * tile_v:(t + 1) * tile_v] for t in tperm])
+    pos = np.empty(V2d, np.int64)
+    valid_slots = padded2 >= 0
+    pos[padded2[valid_slots]] = np.nonzero(valid_slots)[0]
+    return pos
+
+
+def _build_scale_flat(calibs, cfg, grid, feat_hw, crange, tile_v,
+                      band_buckets, fold_prefix, finish):
+    """Flat-layout build for one feature scale.
+
+    Returns (A list, starts list of (N, T_b) int32, inv_perm (N, V2d)
+    int32, nl). Each A bucket is built on the host in fp32 and handed to
+    `finish` (which places it on the device) before the next one is
+    allocated, so the host never holds the whole A."""
+    fh, fw = feat_hw
+    P = fh * fw
+    num_cam = calibs.shape[0]
+    V2d = grid.shape[0] * grid.shape[1]
+    n_tiles = _round_up(V2d, tile_v) // tile_v
+    per_cam = [_np_taps(calibs[cam], cfg, grid, feat_hw, crange)
+               for cam in range(num_cam)]
+    nl = per_cam[0][0].shape[0]
+
+    # sort cells by mean visible tap position; per-tile support span
+    orders, tile_starts_all = [], []
+    for cam, (idx, w) in enumerate(per_cam):
+        m = np.abs(w) > 0
+        any_vis = m.any(axis=(0, 2))
+        mean_tap = np.where(
+            any_vis,
+            np.where(m, idx, 0).sum((0, 2)) / np.maximum(m.sum((0, 2)), 1),
+            P + 1)
+        order = np.argsort(mean_tap, kind="stable")
+        orders.append(order)
+        pos = np.empty(V2d, np.int64)
+        pos[order] = np.arange(V2d)
+        t_of_cell = pos // tile_v
+        lo = np.full(n_tiles, np.iinfo(np.int64).max)
+        hi = np.full(n_tiles, -1)
+        if fold_prefix:
+            # support = rasterized box extents (includes the rare
+            # zeros-padding deficit spans, see _axis_params)
+            xl, xr, yt, yb, scl = _np_box_profiles(
+                calibs[cam], cfg, grid, feat_hw, crange)
+            px = _axis_params(xl.ravel(), xr.ravel(), fw)
+            py = _axis_params(yt.ravel(), yb.ravel(), fh)
+            vis = (scl.ravel() > 0) & (px[9] > 0) & (py[9] > 0)
+            flat_lo = py[8] * fw + px[8]
+            flat_hi = (py[8] + py[9] - 1) * fw + (px[8] + px[9] - 1)
+            t_flat = t_of_cell[np.tile(np.arange(V2d), nl)][vis]
+            np.minimum.at(lo, t_flat, flat_lo[vis])
+            np.maximum.at(hi, t_flat, flat_hi[vis])
+        else:
+            t_flat = np.broadcast_to(t_of_cell[None, :, None], idx.shape)[m]
+            np.minimum.at(lo, t_flat, idx[m])
+            np.maximum.at(hi, t_flat, idx[m])
+        # starts aligned down to 8 (the JAX build's DMA alignment, kept so
+        # the rig is the same)
+        starts = np.where(hi >= 0, (lo // 8) * 8, 0)
+        spans = np.where(hi >= 0, hi - starts + 1, 1)
+        tile_starts_all.append((starts, spans))
+
+    # band buckets: per camera, tiles ascending by span; bucket b covers
+    # the same sorted-tile range in every camera, padded to the max span
+    # within the bucket; DP-optimal edges
+    nb = max(1, min(band_buckets, n_tiles))
+    tperms = []
+    spans_sorted = np.zeros((num_cam, n_tiles), np.int64)
+    for cam in range(num_cam):
+        tperm = np.argsort(tile_starts_all[cam][1], kind="stable")
+        tperms.append(tperm)
+        spans_sorted[cam] = tile_starts_all[cam][1][tperm]
+    # the JAX build's band cap (a TPU VMEM budget, `vfa_tpu/ops/rig.py:750`),
+    # kept as is so buckets and A match the JAX build exactly
+    flat_cap = int(12e6) // (nl * tile_v * 4 + 1024)
+    flat_cap = max(flat_cap, _round_up(int(spans_sorted.max()), 8))
+    edges = _dp_bucket_edges(spans_sorted, np.ones_like(spans_sorted), nb, 8,
+                             1, band_cap=flat_cap)
+    nb = len(edges) - 1
+    if not fold_prefix and nb != 1:
+        raise ValueError("band_buckets > 1 requires fold_prefix")
+    bands = [_round_up(max(8, int(spans_sorted[:, edges[b]:edges[b + 1]].max())), 8)
+             for b in range(nb)]
+
+    starts_buckets = [np.zeros((num_cam, edges[b + 1] - edges[b]), np.int32)
+                      for b in range(nb)]
+    inv_perm = np.zeros((num_cam, V2d), np.int32)
+    entries = []        # per camera (tile, row, col, val) of every A entry
+    for cam, (idx, w) in enumerate(per_cam):
+        pos = _tile_order(orders[cam], tperms[cam], tile_v, n_tiles, V2d)
+        inv_perm[cam] = pos
+        # no clamping: the features are padded by max(bands) rows at apply
+        # time, so any start <= P - 1 slices safely
+        s2 = tile_starts_all[cam][0][tperms[cam]]
+        t_of_cell = pos // tile_v
+        vi_of_cell = pos % tile_v
+        for b in range(nb):
+            starts_buckets[b][cam] = s2[edges[b]:edges[b + 1]]
+        if fold_prefix:
+            # rasterize the camera once; every bucket scatters its share
+            iy, ix, val, layer, cell = _raster_triplets(
+                calibs[cam], cfg, grid, feat_hw, crange)
+            t = t_of_cell[cell]
+            row = layer * tile_v + vi_of_cell[cell]
+            col = iy * fw + ix - s2[t]
+        else:
+            # 16-tap integral-image form
+            cell = np.broadcast_to(np.arange(V2d)[None, :, None], idx.shape)
+            layer = np.broadcast_to(np.arange(nl)[:, None, None], idx.shape)
+            keep = np.abs(w) > 0
+            t = t_of_cell[cell][keep]
+            row = (layer * tile_v + vi_of_cell[cell])[keep]
+            col = (idx - s2[t_of_cell][None, :, None])[keep]
+            val = w[keep]
+        entries.append((t.astype(np.int32), row.astype(np.int32),
+                        col.astype(np.int64), val))
+
+    A_buckets = []
+    for b in range(nb):
+        A_b = np.zeros((num_cam, edges[b + 1] - edges[b], nl * tile_v,
+                        bands[b]), np.float32)
+        for cam, (t, row, col, val) in enumerate(entries):
+            in_bucket = (t >= edges[b]) & (t < edges[b + 1])
+            ok = in_bucket & (col >= 0) & (col < bands[b])
+            if fold_prefix:
+                # bands come from these same raster spans: an entry with
+                # weight outside its band would be dropped signal
+                dropped = in_bucket & ~ok
+                if np.abs(val[dropped]).max(initial=0.0) != 0.0:
+                    raise ValueError("rig entry outside its band")
+            np.add.at(A_b[cam], (t[ok] - edges[b], row[ok], col[ok]), val[ok])
+        A_buckets.append(finish(A_b))
+        del A_b
+    return A_buckets, starts_buckets, inv_perm, nl
+
+
 def build_rig(
     calibs: np.ndarray,
     cfg: DatasetConfig,
@@ -394,32 +589,42 @@ def build_rig(
     tile_v: int = 64,
     dtype=torch.float32,
     crange=(-1.0, 0.95),
+    fold_prefix: bool = True,
     band_buckets: int = 1,
     layout: str = "window",
     device="cuda",
 ) -> CameraRig:
-    """Precompute the window-layout sampling matrices on the host (numpy)
-    and place them on `device`. `layout="flat"` is not ported yet."""
-    if layout == "flat":
-        raise NotImplementedError(
-            "the flat rig layout (and its kernels K4/K5) is not ported yet; "
-            "see ROADMAP.md Queue 2 (K4/K5) and Queue 1 item 4")
-    if layout != "window":
+    """Precompute the sampling matrices on the host (numpy) and place them
+    on `device`. layout 'window' (2D image windows, Hilbert cell order,
+    requires fold_prefix) or 'flat' (contiguous bands of the flattened
+    features; fold_prefix=False keeps the 16-tap integral-image form, one
+    bucket only)."""
+    if layout not in ("flat", "window"):
         raise ValueError(f"unknown rig layout {layout!r}")
+    if layout == "window" and not fold_prefix:
+        raise ValueError("the window layout requires fold_prefix")
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"rig dtype must be float32 or bfloat16, got {dtype}")
+    calibs, grid = np.asarray(calibs), np.asarray(grid)
     L, W = grid.shape[0], grid.shape[1]
+    place = lambda a: torch.from_numpy(a).to(device=device, dtype=dtype)
     scales = []
     for fh, fw in feat_shapes:
-        A_bk, s_bk, win_hw, inv_perm, nl = _build_scale_window(
-            np.asarray(calibs), cfg, np.asarray(grid), (fh, fw), crange,
-            tile_v, band_buckets, dtype=dtype)
+        if layout == "window":
+            A_bk, s_bk, win_hw, inv_perm, nl = _build_scale_window(
+                calibs, cfg, grid, (fh, fw), crange, tile_v, band_buckets,
+                dtype=dtype)
+            A_bk = [place(a) for a in A_bk]
+        else:
+            A_bk, s_bk, inv_perm, nl = _build_scale_flat(
+                calibs, cfg, grid, (fh, fw), crange, tile_v, band_buckets,
+                fold_prefix, place)
+            win_hw = ()
         scales.append(ScaleRig(
-            A=tuple(torch.from_numpy(a).to(device=device, dtype=dtype)
-                    for a in A_bk),
+            A=tuple(A_bk),
             starts=tuple(torch.from_numpy(s).to(device) for s in s_bk),
             inv_perm=torch.from_numpy(inv_perm.astype(np.int64)).to(device),
-            feat_hw=(fh, fw), nl=nl, tile_v=tile_v,
+            feat_hw=(fh, fw), nl=nl, tile_v=tile_v, on_raw=fold_prefix,
             window_hw=tuple(win_hw),
         ))
     return CameraRig(scales=scales, grid_shape=(L, W))
@@ -450,6 +655,19 @@ def pad_features(lat: torch.Tensor) -> torch.Tensor:
     return ii.contiguous()
 
 
+def pad_features_flat(lat: torch.Tensor, rig: ScaleRig) -> torch.Tensor:
+    """(B, N, fh, fw, C) -> (N, B, fh*fw + max_band, C), contiguous: the
+    flattened features of a flat rig (2D-cumsum'd first when the rig keeps
+    the 16-tap form), padded by max_band zero rows so that a band starting
+    near the end never reads past the buffer."""
+    B, N, fh, fw, C = lat.shape
+    if not rig.on_raw:
+        lat = lat.cumsum(3).cumsum(2)
+    ii = lat.reshape(B, N, fh * fw, C).transpose(0, 1)
+    max_band = max(a.shape[-1] for a in rig.A)
+    return torch.nn.functional.pad(ii, (0, 0, 0, max_band)).contiguous()
+
+
 def collapse_per_layer(collapse_kernel: torch.Tensor, C: int, nl: int,
                        dtype) -> torch.Tensor:
     """Collapse weight regrouped per layer: K[c*nl + l, o] -> Kr[l, c, o]
@@ -472,13 +690,61 @@ def _window_pixels(starts_b: torch.Tensor, N: int, T: int, Hp: int, Wp: int,
     return pix + (torch.arange(N, device=dev) * (Hp * Wp))[:, None, None]
 
 
-def _window_vox(ii, A_b, pix):
-    """vox = A @ window in fp32 for one bucket: (N, T, R, B*C)."""
-    N, B, Hp, Wp, C = ii.shape
+def _band_pixels(starts_b: torch.Tensor, N: int, T: int, rows: int,
+                 band: int) -> torch.Tensor:
+    """(N, T, band) row indices of every flat band's pixels in the padded
+    flat features flattened to (N*rows, B*C)."""
+    dev = starts_b.device
+    pix = starts_b.reshape(N, T, 1).long() + torch.arange(band, device=dev)
+    return pix + (torch.arange(N, device=dev) * rows)[:, None, None]
+
+
+def _band_vox(ii, A_b, pix):
+    """vox = A @ band in fp32 for one bucket: (N, T, R, B*C). ii is
+    (N, B, pixels..., C); pix (N, T, K) indexes its pixels flattened over
+    (N, pixels...)."""
+    N, B, C = ii.shape[0], ii.shape[1], ii.shape[-1]
     T, _, K = A_b.shape[1:]
-    flat = ii.permute(0, 2, 3, 1, 4).reshape(N * Hp * Wp, B * C)
-    windows = flat.index_select(0, pix.reshape(-1)).reshape(N, T, K, B * C)
-    return torch.matmul(A_b.float(), windows.float())
+    flat = ii.reshape(N, B, -1, C).permute(0, 2, 1, 3).reshape(-1, B * C)
+    bands = flat.index_select(0, pix.reshape(-1)).reshape(N, T, K, B * C)
+    return torch.matmul(A_b.float(), bands.float())
+
+
+def _tiles_fwd(ii, A_b, pix, Kr, tile_v):
+    """The bucket's tiles (N, B, T*tile_v, n_out) in ii's dtype: vox =
+    A @ band accumulated in fp32, then sum_l vox_l @ Kr_l in fp32."""
+    N, B, C = ii.shape[0], ii.shape[1], ii.shape[-1]
+    T = A_b.shape[1]
+    nl, _, n_out = Kr.shape
+    vox = _band_vox(ii, A_b, pix)
+    vox = vox.to(Kr.dtype).reshape(N, T, nl, tile_v, B, C)
+    out = torch.einsum("ntlvbc,lco->nbtvo", vox.float(), Kr.float())
+    return out.reshape(N, B, T * tile_v, n_out).to(ii.dtype)
+
+
+def _tiles_bwd(ii, A_b, pix, Kr, g_b, tile_v, dII):
+    """(dII, dKr) of `_tiles_fwd`, written out (no autograd), both fp32:
+    dII, shaped as ii, is the given accumulator with this bucket's bands
+    added (a new zero-filled one if None), dKr (nl, C, n_out) is this
+    bucket's contribution."""
+    N, B, C = ii.shape[0], ii.shape[1], ii.shape[-1]
+    T, R, K = A_b.shape[1:]
+    nl, _, n_out = Kr.shape
+    vox = _band_vox(ii, A_b, pix).reshape(N, T, nl, tile_v, B, C)
+    g = g_b.float().reshape(N, B, T, tile_v, n_out)
+    dKr = torch.einsum("ntlvbc,nbtvo->lco", vox, g)
+    dvox = torch.einsum("nbtvo,lco->ntlvbc", g, Kr.float())
+    dband = torch.matmul(A_b.float().transpose(-1, -2),
+                         dvox.reshape(N, T, R, B * C))
+    pixels = ii[0, 0].numel() // C
+    dflat = torch.zeros((N * pixels, B * C), dtype=torch.float32,
+                        device=ii.device)
+    dflat.index_add_(0, pix.reshape(-1), dband.reshape(N * T * K, B * C))
+    add = dflat.reshape(N, pixels, B, C).permute(0, 2, 1, 3).reshape(ii.shape)
+    if dII is None:
+        return add.contiguous(), dKr
+    dII += add
+    return dII, dKr
 
 
 def window_tiles(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
@@ -487,22 +753,16 @@ def window_tiles(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
 
     ii (N, B, Hp, Wp, C) padded features; A_b (N, T, nl*tile_v, wh*ww);
     starts_b (N, T, 2); Kr (nl, C, n_out). Returns the bucket's tiles
-    (N, B, T*tile_v, n_out) in ii's dtype: vox = A @ window accumulated in
-    fp32, then sum_l vox_l @ Kr_l in fp32."""
+    (N, B, T*tile_v, n_out) in ii's dtype."""
     N, B, Hp, Wp, C = ii.shape
-    T = A_b.shape[1]
-    nl, _, n_out = Kr.shape
-    vox = _window_vox(ii, A_b, _window_pixels(starts_b, N, T, Hp, Wp, window))
-    vox = vox.to(Kr.dtype).reshape(N, T, nl, tile_v, B, C)
-    out = torch.einsum("ntlvbc,lco->nbtvo", vox.float(), Kr.float())
-    return out.reshape(N, B, T * tile_v, n_out).to(ii.dtype)
+    pix = _window_pixels(starts_b, N, A_b.shape[1], Hp, Wp, window)
+    return _tiles_fwd(ii, A_b, pix, Kr, tile_v)
 
 
 def window_tiles_bwd(ii: torch.Tensor, A_b: torch.Tensor,
                      starts_b: torch.Tensor, Kr: torch.Tensor,
                      g_b: torch.Tensor, window, tile_v: int, dII=None):
-    """Plain PyTorch version of the window backward kernel for one bucket,
-    written out (no autograd).
+    """Plain PyTorch version of the window backward kernel for one bucket.
 
     Inputs as `window_tiles`, plus g_b (N, B, T*tile_v, n_out), the
     cotangent of the bucket's tiles. Returns (dII, dKr), both fp32: dII
@@ -510,23 +770,50 @@ def window_tiles_bwd(ii: torch.Tensor, A_b: torch.Tensor,
     added (a new zero-filled one if None), dKr (nl, C, n_out) is this
     bucket's contribution."""
     N, B, Hp, Wp, C = ii.shape
-    T, R, K = A_b.shape[1:]
-    nl, _, n_out = Kr.shape
-    pix = _window_pixels(starts_b, N, T, Hp, Wp, window)
-    A = A_b.float()
-    vox = _window_vox(ii, A_b, pix).reshape(N, T, nl, tile_v, B, C)
-    g = g_b.float().reshape(N, B, T, tile_v, n_out)
-    dKr = torch.einsum("ntlvbc,nbtvo->lco", vox, g)
-    dvox = torch.einsum("nbtvo,lco->ntlvbc", g, Kr.float())
-    dwin = torch.matmul(A.transpose(-1, -2), dvox.reshape(N, T, R, B * C))
-    dflat = torch.zeros((N * Hp * Wp, B * C), dtype=torch.float32,
-                        device=ii.device)
-    dflat.index_add_(0, pix.reshape(-1), dwin.reshape(N * T * K, B * C))
-    add = dflat.reshape(N, Hp, Wp, B, C).permute(0, 3, 1, 2, 4)
-    if dII is None:
-        return add.contiguous(), dKr
-    dII += add
-    return dII, dKr
+    pix = _window_pixels(starts_b, N, A_b.shape[1], Hp, Wp, window)
+    return _tiles_bwd(ii, A_b, pix, Kr, g_b, tile_v, dII)
+
+
+def flat_tiles(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
+               Kr: torch.Tensor, tile_v: int) -> torch.Tensor:
+    """Plain PyTorch version of the flat kernel for one bucket.
+
+    ii (N, B, P + max_band, C) padded flat features; A_b
+    (N, T, nl*tile_v, band); starts_b (N, T); Kr (nl, C, n_out). Returns
+    the bucket's tiles (N, B, T*tile_v, n_out) in ii's dtype."""
+    N, B, rows, C = ii.shape
+    T, _, band = A_b.shape[1:]
+    return _tiles_fwd(ii, A_b, _band_pixels(starts_b, N, T, rows, band), Kr,
+                      tile_v)
+
+
+def flat_tiles_bwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
+                   Kr: torch.Tensor, g_b: torch.Tensor, tile_v: int, dII=None):
+    """Plain PyTorch version of the flat backward kernel for one bucket:
+    as `window_tiles_bwd`, with dII (N, B, P + max_band, C) (its last
+    max_band rows are padding)."""
+    N, B, rows, C = ii.shape
+    T, _, band = A_b.shape[1:]
+    return _tiles_bwd(ii, A_b, _band_pixels(starts_b, N, T, rows, band), Kr,
+                      g_b, tile_v, dII)
+
+
+def scale_tiles(ii: torch.Tensor, rig: ScaleRig, Kr: torch.Tensor):
+    """All buckets of one scale through the plain versions:
+    (N, B, T_total*tile_v, n_out)."""
+    if rig.window_hw:
+        parts = [window_tiles(ii, A_b, s_b, Kr, win, rig.tile_v)
+                 for A_b, s_b, win in zip(rig.A, rig.starts, rig.window_hw)]
+    else:
+        parts = [flat_tiles(ii, A_b, s_b, Kr, rig.tile_v)
+                 for A_b, s_b in zip(rig.A, rig.starts)]
+    return torch.cat(parts, dim=2)
+
+
+def scale_features(lat: torch.Tensor, rig: ScaleRig) -> torch.Tensor:
+    """The padded features a scale's kernels read: `pad_features` for the
+    window layout, `pad_features_flat` for the flat one."""
+    return pad_features(lat) if rig.window_hw else pad_features_flat(lat, rig)
 
 
 def rig_epilogue(tiles: torch.Tensor, inv_perm: torch.Tensor,
@@ -549,12 +836,9 @@ def rig_sample_scale(lat, rig: ScaleRig, collapse_kernel, collapse_bias,
     lat (B, N, fh, fw, C); collapse_kernel (C*nl, n_out) c-major. Returns
     relu(collapse(vox)) in BEV order: (B, N, V2d, n_out), or the camera sum
     (B, V2d, n_out) when camera_sum."""
-    B, N, fh, fw, C = lat.shape
+    C = lat.shape[-1]
     out_dtype = out_dtype or lat.dtype
-    ii = pad_features(lat)
+    ii = scale_features(lat, rig)
     Kr = collapse_per_layer(collapse_kernel, C, rig.nl, lat.dtype)
-    tiles = torch.cat([
-        window_tiles(ii, A_b, s_b, Kr, win, rig.tile_v)
-        for A_b, s_b, win in zip(rig.A, rig.starts, rig.window_hw)], dim=2)
-    return rig_epilogue(tiles, rig.inv_perm, collapse_bias, out_dtype,
-                        camera_sum)
+    return rig_epilogue(scale_tiles(ii, rig, Kr), rig.inv_perm, collapse_bias,
+                        out_dtype, camera_sum)

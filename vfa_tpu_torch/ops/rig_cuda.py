@@ -1,19 +1,22 @@
-"""Compiled-rig sampling through the hand-written Hopper window kernels.
+"""Compiled-rig sampling through the hand-written Hopper kernels.
 
-Port of `vfa_tpu/ops/rig_pallas.py`: `rig_window_fwd` wraps
+Port of `vfa_tpu/ops/rig_pallas.py`. Window layout: `rig_window_fwd` wraps
 `csrc/rig_window_fwd.cu`, the replacement of `_kernel_win`;
 `rig_window_bwd` wraps `csrc/rig_window_bwd.cu`, the replacement of
-`_bwd_kernel_win_pipe` and `_bwd_kernel_win`; `RigScaleTiles` is the
-per-scale autograd function that mirrors `_make_scale_op`
-(`rig_pallas.py:802-870`), and `rig_sample_scale_cuda` has the contract of
-`rig_sample_scale_pallas` (`:917-988`): one launch per bucket, each writing
-its tile range of one shared (N, B, T_total*tile_v, n_out) buffer, then the
-plain epilogue (inv_perm gather, bias + ReLU, fp32 camera sum), which
-autograd differentiates.
+`_bwd_kernel_win_pipe` and `_bwd_kernel_win`. Flat layout: `rig_flat_fwd`
+wraps `csrc/rig_flat_fwd.cu`, the replacement of `_kernel`; `rig_flat_bwd`
+wraps `csrc/rig_flat_bwd.cu`, the replacement of `_bwd_kernel`.
+`RigScaleTiles` is the per-scale autograd function that mirrors
+`_make_scale_op` (`rig_pallas.py:802-870`) and takes either layout, and
+`rig_sample_scale_cuda` has the contract of `rig_sample_scale_pallas`
+(`:917-988`): one launch per bucket, each writing its tile range of one
+shared (N, B, T_total*tile_v, n_out) buffer, then the plain epilogue
+(inv_perm gather, bias + ReLU, fp32 camera sum), which autograd
+differentiates.
 
 On a CPU tensor a wrapper runs its kernel's plain version
-(`ops/rig.window_tiles`, `ops/rig.window_tiles_bwd`); on a CUDA tensor it
-launches the kernel or raises.
+(`ops/rig.window_tiles`, `window_tiles_bwd`, `flat_tiles`,
+`flat_tiles_bwd`); on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -22,15 +25,17 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from vfa_tpu_torch.ops.rig import (
-    ScaleRig, collapse_per_layer, pad_features, rig_epilogue, window_tiles,
-    window_tiles_bwd,
+    ScaleRig, collapse_per_layer, flat_tiles, flat_tiles_bwd, rig_epilogue,
+    scale_features, window_tiles, window_tiles_bwd,
 )
 
 
-def _check_launch(what, ii, tensors, shapes_ok, C, n_out, K, describe):
-    """Shared argument checks of the two kernels' wrappers: one device,
+def _check_launch(what, ii, tensors, shapes_ok, C, n_out, K, describe,
+                  k_multiple=16):
+    """Shared argument checks of the kernels' wrappers: one device,
     contiguous, float32 (int32 starts), consistent shapes, and the widths
-    the kernels are written for."""
+    the kernels are written for (the band length K a multiple of 16 for a
+    window, of 8 for a flat band)."""
     if ii.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {ii.device}")
     for name, t in tensors.items():
@@ -42,14 +47,21 @@ def _check_launch(what, ii, tensors, shapes_ok, C, n_out, K, describe):
         if t.dtype != want:
             raise TypeError(
                 f"{what}: {name} must be {str(want).split('.')[-1]}"
-                + (" (bf16 is not ported yet)" if want == torch.float32 else "")
+                + (" (the bf16 variants are not ported yet: ROADMAP.md "
+                   "Queue 2)" if want == torch.float32 else "")
                 + f", got {t.dtype}")
     if not shapes_ok:
         raise ValueError(f"{what}: inconsistent shapes {describe}")
-    if C != 256 or n_out != 256 or K % 16:
-        raise ValueError(f"{what}: the kernel takes C = n_out = 256 and "
-                         f"wh*ww % 16 == 0, got C {C}, n_out {n_out}, "
-                         f"wh*ww {K}")
+    if C != 256 or n_out != 256 or K % k_multiple:
+        raise ValueError(f"{what}: the kernel takes C = n_out = 256 and a "
+                         f"band length that is a multiple of {k_multiple}, "
+                         f"got C {C}, n_out {n_out}, band length {K}")
+
+
+def _launch(name, ii, *args):
+    from vfa_tpu_torch.kernels import launch
+
+    launch(name, f"{name}_f32", ii.device, *args)
 
 
 def rig_window_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
@@ -81,18 +93,11 @@ def rig_window_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
         f"ii {tuple(ii.shape)}, A {tuple(A_b.shape)}, starts "
         f"{tuple(starts_b.shape)}, Kr {tuple(Kr.shape)}, out "
         f"{tuple(out.shape)}, off_t {off_t}, tile_v {tile_v}, window {window}")
-    from vfa_tpu_torch.kernels import LIBRARY, check
-
-    lib = LIBRARY.load("rig_window_fwd")
     # vox scratch between the kernel's two passes (A-product, collapse)
     vox = torch.empty((N, B, T, R, C), dtype=torch.float32, device=ii.device)
-    with torch.cuda.device(ii.device):
-        stream = torch.cuda.current_stream(ii.device).cuda_stream
-        err = lib.rig_window_fwd_f32(
-            ii.data_ptr(), A_b.data_ptr(), starts_b.data_ptr(), Kr.data_ptr(),
-            vox.data_ptr(), out.data_ptr(), N, B, Hp, Wp, C, T, nl, tile_v,
-            wh, ww, n_out, off_t, rows, stream)
-    check(err, "rig_window_fwd launch")
+    _launch("rig_window_fwd", ii, ii.data_ptr(), A_b.data_ptr(),
+            starts_b.data_ptr(), Kr.data_ptr(), vox.data_ptr(), out.data_ptr(),
+            N, B, Hp, Wp, C, T, nl, tile_v, wh, ww, n_out, off_t, rows)
     rig_window_fwd.launches += 1
     return out
 
@@ -142,23 +147,113 @@ def rig_window_bwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
         f"{tuple(starts_b.shape)}, Kr {tuple(Kr.shape)}, g {tuple(g.shape)}, "
         f"dII {tuple(dII.shape)}, dKr {tuple(dKr.shape)}, off_t {off_t}, "
         f"tile_v {tile_v}, window {window}")
-    from vfa_tpu_torch.kernels import LIBRARY, check
-
-    lib = LIBRARY.load("rig_window_bwd")
     # scratch shared by the passes: vox (recomputed), then dvox over it
     vox = torch.empty((N, B, T, R, C), dtype=torch.float32, device=ii.device)
-    with torch.cuda.device(ii.device):
-        stream = torch.cuda.current_stream(ii.device).cuda_stream
-        err = lib.rig_window_bwd_f32(
-            ii.data_ptr(), A_b.data_ptr(), starts_b.data_ptr(), KrT.data_ptr(),
-            g.data_ptr(), vox.data_ptr(), dII.data_ptr(), dKr.data_ptr(),
-            N, B, Hp, Wp, C, T, nl, tile_v, wh, ww, n_out, off_t, rows, stream)
-    check(err, "rig_window_bwd launch")
+    _launch("rig_window_bwd", ii, ii.data_ptr(), A_b.data_ptr(),
+            starts_b.data_ptr(), KrT.data_ptr(), g.data_ptr(), vox.data_ptr(),
+            dII.data_ptr(), dKr.data_ptr(), N, B, Hp, Wp, C, T, nl, tile_v,
+            wh, ww, n_out, off_t, rows)
     rig_window_bwd.launches += 1
     return dII, dKr
 
 
 rig_window_bwd.launches = 0
+
+
+def rig_flat_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
+                 Kr: torch.Tensor, out: torch.Tensor, *, off_t: int,
+                 tile_v: int) -> torch.Tensor:
+    """Write one flat bucket's tiles into `out` rows
+    [off_t*tile_v, (off_t+T)*tile_v).
+
+    ii (N, B, P + max_band, C) padded flat features; A_b
+    (N, T, nl*tile_v, band); starts_b (N, T) int32; Kr (nl, C, n_out); out
+    (N, B, rows, n_out). `rig_flat_fwd.launches` counts kernel launches."""
+    N, B, pixels, C = ii.shape
+    T, R, band = A_b.shape[1:]
+    nl, _, n_out = Kr.shape
+    rows = out.shape[2]
+    if ii.device.type == "cpu":
+        out[:, :, off_t * tile_v:(off_t + T) * tile_v] = flat_tiles(
+            ii, A_b, starts_b, Kr, tile_v)
+        return out
+    tensors = {"ii": ii, "A": A_b, "starts": starts_b, "Kr": Kr, "out": out}
+    _check_launch(
+        "rig_flat_fwd", ii, tensors,
+        A_b.shape[0] == N and R == nl * tile_v
+        and tuple(starts_b.shape) == (N, T)
+        and tuple(Kr.shape) == (nl, C, n_out)
+        and tuple(out.shape) == (N, B, rows, n_out)
+        and (off_t + T) * tile_v <= rows and band <= pixels,
+        C, n_out, band,
+        f"ii {tuple(ii.shape)}, A {tuple(A_b.shape)}, starts "
+        f"{tuple(starts_b.shape)}, Kr {tuple(Kr.shape)}, out "
+        f"{tuple(out.shape)}, off_t {off_t}, tile_v {tile_v}", k_multiple=8)
+    vox = torch.empty((N, B, T, R, C), dtype=torch.float32, device=ii.device)
+    _launch("rig_flat_fwd", ii, ii.data_ptr(), A_b.data_ptr(),
+            starts_b.data_ptr(), Kr.data_ptr(), vox.data_ptr(), out.data_ptr(),
+            N, B, pixels, C, T, nl, tile_v, band, n_out, off_t, rows)
+    rig_flat_fwd.launches += 1
+    return out
+
+
+rig_flat_fwd.launches = 0
+
+
+def rig_flat_bwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
+                 Kr: torch.Tensor, g: torch.Tensor, dII: torch.Tensor,
+                 dKr: torch.Tensor, *, off_t: int, tile_v: int,
+                 KrT: torch.Tensor = None):
+    """Add one flat bucket's gradients into the scale's accumulators: as
+    `rig_window_bwd`, with ii and dII (N, B, P + max_band, C) (dII's last
+    max_band rows are padding). `rig_flat_bwd.launches` counts kernel
+    launches."""
+    N, B, pixels, C = ii.shape
+    T, R, band = A_b.shape[1:]
+    nl, _, n_out = Kr.shape
+    rows = g.shape[2]
+    if ii.device.type == "cpu":
+        _, dKr_b = flat_tiles_bwd(
+            ii, A_b, starts_b, Kr,
+            g[:, :, off_t * tile_v:(off_t + T) * tile_v], tile_v, dII=dII)
+        dKr += dKr_b
+        return dII, dKr
+    if KrT is None:
+        KrT = Kr.transpose(1, 2).contiguous()
+    tensors = {"ii": ii, "A": A_b, "starts": starts_b, "Kr": Kr, "KrT": KrT,
+               "g": g, "dII": dII, "dKr": dKr}
+    _check_launch(
+        "rig_flat_bwd", ii, tensors,
+        A_b.shape[0] == N and R == nl * tile_v
+        and tuple(starts_b.shape) == (N, T)
+        and tuple(Kr.shape) == (nl, C, n_out)
+        and tuple(KrT.shape) == (nl, n_out, C)
+        and tuple(g.shape) == (N, B, rows, n_out)
+        and dII.shape == ii.shape and dKr.shape == Kr.shape
+        and (off_t + T) * tile_v <= rows and band <= pixels,
+        C, n_out, band,
+        f"ii {tuple(ii.shape)}, A {tuple(A_b.shape)}, starts "
+        f"{tuple(starts_b.shape)}, Kr {tuple(Kr.shape)}, g {tuple(g.shape)}, "
+        f"dII {tuple(dII.shape)}, dKr {tuple(dKr.shape)}, off_t {off_t}, "
+        f"tile_v {tile_v}", k_multiple=8)
+    vox = torch.empty((N, B, T, R, C), dtype=torch.float32, device=ii.device)
+    _launch("rig_flat_bwd", ii, ii.data_ptr(), A_b.data_ptr(),
+            starts_b.data_ptr(), KrT.data_ptr(), g.data_ptr(), vox.data_ptr(),
+            dII.data_ptr(), dKr.data_ptr(), N, B, pixels, C, T, nl, tile_v,
+            band, n_out, off_t, rows)
+    rig_flat_bwd.launches += 1
+    return dII, dKr
+
+
+rig_flat_bwd.launches = 0
+
+
+def _buckets(rig: ScaleRig):
+    """(A_b, starts_b, off_t, window or None) of every bucket of a scale."""
+    off_t = 0
+    for bi, (A_b, s_b) in enumerate(zip(rig.A, rig.starts)):
+        yield A_b, s_b, off_t, rig.window_hw[bi] if rig.window_hw else None
+        off_t += A_b.shape[1]
 
 
 def rig_scale_bwd(ii: torch.Tensor, rig: ScaleRig, Kr: torch.Tensor,
@@ -169,19 +264,22 @@ def rig_scale_bwd(ii: torch.Tensor, rig: ScaleRig, Kr: torch.Tensor,
     dKr = torch.zeros(Kr.shape, dtype=torch.float32, device=ii.device)
     KrT = Kr.transpose(1, 2).contiguous()
     g = g.contiguous()
-    off_t = 0
-    for A_b, s_b, win in zip(rig.A, rig.starts, rig.window_hw):
-        rig_window_bwd(ii, A_b, s_b, Kr, g, dII, dKr, off_t=off_t,
-                       tile_v=rig.tile_v, window=win, KrT=KrT)
-        off_t += A_b.shape[1]
+    for A_b, s_b, off_t, win in _buckets(rig):
+        if win is None:
+            rig_flat_bwd(ii, A_b, s_b, Kr, g, dII, dKr, off_t=off_t,
+                         tile_v=rig.tile_v, KrT=KrT)
+        else:
+            rig_window_bwd(ii, A_b, s_b, Kr, g, dII, dKr, off_t=off_t,
+                           tile_v=rig.tile_v, window=win, KrT=KrT)
     return dII, dKr
 
 
 class RigScaleTiles(torch.autograd.Function):
     """(ii, Kr) -> the scale's (N, B, T_total*tile_v, n_out) tiles, every
     bucket written in place into one buffer; the backward runs the backward
-    kernel bucket by bucket. A and starts are rig structure and get no
-    gradient."""
+    kernel bucket by bucket. ii is the scale's padded features in the rig's
+    layout (`ops.rig.scale_features`). A and starts are rig structure and
+    get no gradient."""
 
     @staticmethod
     def forward(ctx, ii, Kr, rig: ScaleRig):
@@ -189,11 +287,13 @@ class RigScaleTiles(torch.autograd.Function):
         T_total = sum(a.shape[1] for a in rig.A)
         out = torch.empty((N, B, T_total * rig.tile_v, Kr.shape[-1]),
                           dtype=ii.dtype, device=ii.device)
-        off_t = 0
-        for A_b, s_b, win in zip(rig.A, rig.starts, rig.window_hw):
-            rig_window_fwd(ii, A_b, s_b, Kr, out, off_t=off_t,
-                           tile_v=rig.tile_v, window=win)
-            off_t += A_b.shape[1]
+        for A_b, s_b, off_t, win in _buckets(rig):
+            if win is None:
+                rig_flat_fwd(ii, A_b, s_b, Kr, out, off_t=off_t,
+                             tile_v=rig.tile_v)
+            else:
+                rig_window_fwd(ii, A_b, s_b, Kr, out, off_t=off_t,
+                               tile_v=rig.tile_v, window=win)
         ctx.save_for_backward(ii, Kr)
         ctx.rig = rig
         return out
@@ -209,8 +309,9 @@ class RigScaleTiles(torch.autograd.Function):
 def rig_tiles_cuda(lat: torch.Tensor, rig: ScaleRig,
                    collapse_kernel: torch.Tensor) -> torch.Tensor:
     """All buckets of one scale: (N, B, T_total*tile_v, n_out) tiles.
-    Differentiable in lat and collapse_kernel."""
-    ii = pad_features(lat)
+    Differentiable in lat and collapse_kernel (for a flat rig the padding,
+    and the cumsum of a 16-tap rig, are differentiated by autograd)."""
+    ii = scale_features(lat, rig)
     Kr = collapse_per_layer(collapse_kernel, lat.shape[-1], rig.nl, lat.dtype)
     return RigScaleTiles.apply(ii, Kr, rig)
 

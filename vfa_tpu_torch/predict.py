@@ -1,12 +1,14 @@
 """Multi-scene inference CLI of the port (mirrors `predict.py`, without the
 figure).
 
-Builds the compiled camera rig once on the host (window layout, 12
-buckets, fp32), runs VFANet through the hand-written window kernel, decodes
-the detections, and reports the time per request (one request = one batch
-of scenes, timed from host input to decoded detections on the host).
+Builds the compiled camera rig once on the host (window layout by default,
+`--rig_layout flat` for the flat one; 12 buckets, fp32), runs VFANet
+through the hand-written rig kernel of that layout, decodes the
+detections, and reports the time per request (one request = one batch of
+scenes, timed from host input to decoded detections on the host).
 
     python -m vfa_tpu_torch.predict --data MultiviewC --synthetic --scenes 4 --batch 2
+    python -m vfa_tpu_torch.predict --data MultiviewC --synthetic --rig_layout flat
     python -m vfa_tpu_torch.predict --data MultiviewC --synthetic --tiny --device cpu
 """
 
@@ -17,6 +19,8 @@ import time
 
 import numpy as np
 import torch
+
+from vfa_tpu_torch.rig_cli import add_rig_layout_arg
 
 
 def parse_args(argv=None):
@@ -35,8 +39,9 @@ def parse_args(argv=None):
     p.add_argument("--cls_thresh", type=float, default=0.9)
     p.add_argument("--device", default="cuda")
     p.add_argument("--rig_impl", default="cuda", choices=["cuda", "plain"],
-                   help="cuda: the hand-written window kernel; plain: its "
+                   help="cuda: the hand-written rig kernel; plain: its "
                         "plain PyTorch version")
+    add_rig_layout_arg(p)
     return p.parse_args(argv)
 
 
@@ -65,7 +70,8 @@ def main(argv=None, rig=None) -> dict:
               for i in range(args.scenes)]
 
     if rig is None:
-        rig = build_cli_rig(cfg, scenes[0].calibs, device)
+        rig = build_cli_rig(cfg, scenes[0].calibs, device,
+                            layout=args.rig_layout)
 
     gen = torch.Generator().manual_seed(args.seed)
     model = init_weights(VFANet(cfg, rig_impl=args.rig_impl), gen)

@@ -1,17 +1,19 @@
 """Where one training step of the PyTorch/CUDA port spends its time.
 
 Runs the full-width MultiviewC fp32 train step of `vfa_tpu_torch.train_lib`
-(7 x 720x1280 cameras, window rig with 8 buckets, batch 2, random seeded
-weights, TF32 off as in chip_smoke.py) on one GPU, warms up, then traces
-two steps with torch.profiler and prints the device time by kernel, the
-device busy share of the traced wall time, the host wall time per step and
-the card's name and power limit.
+(7 x 720x1280 cameras, 8-bucket rig of the given layout, batch 2, random
+seeded weights, TF32 off as in chip_smoke.py) on one GPU, warms up, then
+traces two steps with torch.profiler and prints the device time by kernel,
+the device busy share of the traced wall time, the host wall time per step
+and the card's name and power limit.
 
     python -m vfa_tpu_torch.prof_train
+    VFA_FUSED_STEM=1 python -m vfa_tpu_torch.prof_train --rig_layout flat
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import time
 
@@ -22,7 +24,12 @@ ROWS = 30
 STEPS = 2
 
 
-def main():
+def main(argv=None):
+    from vfa_tpu_torch.rig_cli import add_rig_layout_arg
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    add_rig_layout_arg(parser)
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -41,7 +48,8 @@ def main():
     cfg = get_config("MultiviewC")
     loader = SyntheticSceneLoader(cfg, num_frames=BATCH, batch_size=BATCH, seed=0)
     batch = next(iter(loader))
-    rig = build_cli_rig(cfg, loader.scenes[0].calibs, dev, training=True)
+    rig = build_cli_rig(cfg, loader.scenes[0].calibs, dev, training=True,
+                        layout=args.rig_layout)
     model = init_weights(VFANet(cfg), torch.Generator().manual_seed(0)).to(dev)
     # a small peak lr: the trace repeats one batch and must not diverge
     tcfg = TrainConfig(epochs=40, batch_size=BATCH, lr=0.002, pretrained=False)
@@ -70,6 +78,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {card.splitlines()[0]}")
+    print(f"rig layout {args.rig_layout}, fused stem "
+          f"{'on' if model.base.fused_stem_on() else 'off'}")
     print(f"last loss {loss:.5f}; host wall ms per step (batch {BATCH}): "
           + " ".join(f"{w:.2f}" for w in walls))
     print(f"device kernel time {total_dev:.2f} ms over {t_trace:.2f} ms traced "

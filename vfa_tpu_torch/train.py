@@ -1,11 +1,15 @@
 """Training CLI of the port (the synthetic route of the root `train.py`).
 
-Builds the compiled camera rig once on the host (window layout, 8 buckets,
-fp32), trains VFANet with SGD + OneCycle through the hand-written window
-kernels (forward and backward), runs the validation loss after each epoch,
-and reports the time per step.
+Builds the compiled camera rig once on the host (window layout by default,
+`--rig_layout flat` for the flat one; 8 buckets, fp32), trains VFANet with
+SGD + OneCycle through the hand-written rig kernels of that layout
+(forward and backward), runs the validation loss after each epoch, and
+reports the time per step. With VFA_FUSED_STEM=1 in the environment (as
+in the JAX package) the stem's GroupNorm + ReLU + max-pool run through
+`ops.stem.gn_relu_pool` and its hand-written backward kernels.
 
     python -m vfa_tpu_torch.train --data MultiviewC --synthetic -e 1 -b 2 --pretrained 0 --no_augment
+    VFA_FUSED_STEM=1 python -m vfa_tpu_torch.train --data MultiviewC --synthetic -e 1 -b 2 --pretrained 0 --no_augment --rig_layout flat
     python -m vfa_tpu_torch.train --data MultiviewC --synthetic --tiny -e 1 --pretrained 0 --no_augment --device cpu
 """
 
@@ -16,6 +20,8 @@ import time
 
 import numpy as np
 import torch
+
+from vfa_tpu_torch.rig_cli import add_rig_layout_arg
 
 
 def parse_args(argv=None):
@@ -63,8 +69,9 @@ def parse_args(argv=None):
                    help="max window buckets of the rig (default: the "
                         "training policy of rig_cli, 8)")
     p.add_argument("--rig_impl", default="cuda", choices=["cuda", "plain"],
-                   help="cuda: the hand-written window kernels; plain: "
+                   help="cuda: the hand-written rig kernels; plain: "
                         "their plain PyTorch versions under autograd")
+    add_rig_layout_arg(p)
     p.add_argument("--multihost", action="store_true",
                    help="multi-process data parallelism (not ported yet)")
     p.add_argument("--device", default="cuda")
@@ -143,14 +150,16 @@ def main(argv=None, rig=None) -> dict:
     steps_per_epoch = max(1, len(train_loader))
     if rig is None:
         rig = build_cli_rig(cfg, train_loader.scenes[0].calibs, device,
-                            buckets=args.rig_buckets, training=True)
+                            buckets=args.rig_buckets, training=True,
+                            layout=args.rig_layout)
 
     gen = torch.Generator().manual_seed(args.seed)
     model = init_weights(
         VFANet(cfg, base=tcfg.base, angle_range=tcfg.angle_range,
                rig_impl=args.rig_impl), gen).to(device)
     print(f"training from random weights (seed {args.seed}), "
-          f"rig_impl {args.rig_impl}")
+          f"rig_impl {args.rig_impl}, fused stem "
+          f"{'on' if model.base.fused_stem_on() else 'off'}")
     optimizer = make_optimizer(model, tcfg, steps_per_epoch)
     train_step = make_train_step(model, optimizer, cfg, tcfg,
                                  dim_mean=train_loader.dim_mean)
