@@ -10,11 +10,12 @@ result line):
   2. hold each kernel against its plain PyTorch version at B = 1 and B = 2
      on the full MultiviewC fp32 rigs (7 x 720x1280 cameras, 156x156 BEV,
      nl 5), all 3 scales, every bucket: the window forward on the 12-bucket
-     (serving) rig, the window backward (dII and dKr, all buckets of a scale
-     through one dII) on the 8-bucket (training) rig, the flat forward and
-     backward on the 8-bucket flat rig (tile_v 160) and once on a small
-     16-tap rig (cumsum'd features); and the two stem backward kernels at
-     (14, 64, 360, 640), also on an integer-valued input where ties decide;
+     (serving) rig, the window backward (tensor cores, 3xTF32; dII and dKr,
+     all buckets of a scale through one dII) on the 8-bucket (training) rig,
+     the flat forward and backward on the 8-bucket flat rig (tile_v 160) and
+     once on a small 16-tap rig (cumsum'd features); and the two stem
+     backward kernels at (14, 64, 360, 640), also on an integer-valued input
+     where ties decide;
   3. drive the serving path, `python -m vfa_tpu_torch.predict` at full
      width with random seeded weights, once per rig layout, with every
      kernel's launch count set to 0 just before and read just after; then
@@ -27,8 +28,10 @@ result line):
      through the plain versions under autograd (unfused stem), and compare
      per-step losses and final parameters; then one step at batch 1;
   5. time each kernel (CUDA events, warmed up) beside its bound and its
-     plain version, and print peak memory, the card's name and power limit,
-     the `kernels` JSON line and, last, the `ok` JSON line.
+     plain version (the rig kernels' operations are held to 495 / 3 = 165
+     TFLOP/s, fp32-accurate 3xTF32 on the tensor cores; the window backward
+     also alone at B = 1), and print peak memory, the card's name and power
+     limit, the `kernels` JSON line and, last, the `ok` JSON line.
 Imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -44,9 +47,13 @@ import time
 import numpy as np
 import torch
 
-# published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores and
-# HBM3 bandwidth
+# published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores, dense
+# TF32 on the tensor cores and HBM3 bandwidth. An fp32-accurate product on
+# the tensor cores costs three TF32 products (3xTF32), so the rig kernels'
+# operations are bounded by PEAK_TF32_FLOPS / 3 = 165 TFLOP/s, whichever unit
+# a kernel uses today; the stem kernels' comparisons run on the CUDA cores.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 KERNEL_TOL = 1e-4      # max |kernel - plain| / max |plain|, fp32 both sides
 PATH_TOL = 1e-3        # heatmap, kernel route vs plain route, relative to max
@@ -502,14 +509,17 @@ def kernel_work(rig, B, backward: bool):
     return flops, nbytes
 
 
-def bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+def bound_ms(flops, nbytes, peak_flops=PEAK_TF32_FLOPS / 3):
+    """(ms, "operations" or "bytes"): the least time the card can take.
+    Operations are counted once and, by default, held to the fp32-accurate
+    tensor-core rate."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def phase_numbers(rig, device, backward: bool, rounds: int = 2):
+def phase_numbers(rig, device, backward: bool, rounds: int = 2, batch: int = BATCH):
     """(ms, plain_ms, bound_ms, bound_by) of one rig kernel over the rig's
-    three scales at batch BATCH: best of `rounds` interleaved rounds of
+    three scales at batch `batch`: best of `rounds` interleaved rounds of
     kernel and plain version."""
     from vfa_tpu_torch.ops.rig_cuda import rig_scale_bwd, rig_tiles_cuda
 
@@ -520,21 +530,43 @@ def phase_numbers(rig, device, backward: bool, rounds: int = 2):
         inputs, kernel, plain = scale_inputs, rig_tiles_cuda, plain_tiles
     ms = plain_ms = 0.0
     for si, sr in enumerate(rig.scales):
-        first, *rest = inputs(sr, BATCH, 7 + si, device)
+        first, *rest = inputs(sr, batch, 7 + si, device)
         k_ms, p_ms = [], []
         for _ in range(rounds):
             k_ms.append(cuda_time_ms(lambda: kernel(first, sr, *rest), reps=5))
             p_ms.append(cuda_time_ms(lambda: plain(first, sr, *rest), reps=3))
-        f, b = kernel_work(type(rig)([sr], rig.grid_shape), BATCH, backward)
-        log(f"  scale {si} B={BATCH}: {name} "
+        f, b = kernel_work(type(rig)([sr], rig.grid_shape), batch, backward)
+        log(f"  scale {si} B={batch}: {name} "
             + " / ".join(f"{t:.3f}" for t in k_ms) + " ms, plain "
             + " / ".join(f"{t:.3f}" for t in p_ms)
-            + f" ms, bound {bound_ms(f, b)[0]:.3f} ms "
-            f"({f / 1e9:.1f} GFLOP, {b / 1e9:.3f} GB)")
+            + f" ms, bound {bound_ms(f, b)[0]:.3f} ms at 165 TFLOP/s "
+            f"(3xTF32 on the tensor cores; {bound_ms(f, b, PEAK_FP32_FLOPS)[0]:.3f} "
+            f"ms at the CUDA cores' 67 TFLOP/s; {f / 1e9:.1f} GFLOP, "
+            f"{b / 1e9:.3f} GB)")
         ms += min(k_ms)
         plain_ms += min(p_ms)
         del first, rest
-    return (ms, plain_ms, *bound_ms(*kernel_work(rig, BATCH, backward)))
+    return (ms, plain_ms, *bound_ms(*kernel_work(rig, batch, backward)))
+
+
+def phase_tf32_arithmetic(device):
+    """Log what the split buys: the plain 3xTF32 product of `ops.rig`
+    (the arithmetic the backward kernels are written to) against PyTorch's
+    fp32 product on the card, with one, three and four TF32 products."""
+    from vfa_tpu_torch.ops.rig import matmul_3xtf32
+
+    g = torch.Generator().manual_seed(3)
+    a = torch.rand((320, 2048), generator=g).to(device)
+    b = torch.randn((2048, 256), generator=g).to(device)
+    want = a @ b
+    errs = {n: float((matmul_3xtf32(a, b, n) - want).abs().max() / want.abs().max())
+            for n in (1, 3, 4)}
+    log("3xTF32 arithmetic (plain, ops.rig.matmul_3xtf32) on a (320, 2048) @ "
+        "(2048, 256) product, max err of the fp32 product's max: "
+        + ", ".join(f"{n} product{'s' if n > 1 else ''} {e:.3e}"
+                    for n, e in errs.items()))
+    if not errs[3] < 1e-5 < errs[1]:
+        raise AssertionError("the 3xTF32 split does not behave as the kernels assume")
 
 
 def phase_stem_numbers(device):
@@ -557,7 +589,7 @@ def phase_stem_numbers(device):
             p_ms.append(cuda_time_ms(lambda: plain(x, dy, params), reps=3))
         nbytes = 4 * (x.numel() + dy.numel() + params.numel() + written)
         flops = 50 * x.numel()
-        b_ms, by = bound_ms(flops, nbytes)
+        b_ms, by = bound_ms(flops, nbytes, PEAK_FP32_FLOPS)
         log(f"  {name} {tuple(x.shape)}: " + " / ".join(f"{t:.3f}" for t in k_ms)
             + " ms, plain " + " / ".join(f"{t:.3f}" for t in p_ms)
             + f" ms, bound {b_ms:.3f} ms by {by} ({nbytes / 1e9:.3f} GB, "
@@ -576,6 +608,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     phase_build()
+    phase_tf32_arithmetic(device)
     err, num = {}, {}
 
     # the stem kernels alone
@@ -599,6 +632,10 @@ def main() -> int:
     del train_res["model"]
     torch.cuda.empty_cache()
     num["rig_window_bwd"] = phase_numbers(train_rig, device, backward=True)
+    # the serial TPU kernel's case (K3, B = 1) alone
+    k3 = phase_numbers(train_rig, device, backward=True, batch=1)
+    log(f"rig_window_bwd at B=1 (replaces vfa_tpu/ops/rig_pallas.py:355): "
+        f"{k3[0]:.3f} ms, plain {k3[1]:.3f} ms, bound {k3[2]:.3f} ms by {k3[3]}")
     del train_rig
     torch.cuda.empty_cache()
 
@@ -632,6 +669,10 @@ def main() -> int:
             f"{float(np.median(r['ms'])):.3f} (steps "
             + " ".join(f"{t:.1f}" for t in r["ms"])
             + f"); max_memory_allocated {pk} bytes")
+    for bwd, fwd in (("rig_window_bwd", "rig_window_fwd"),
+                     ("rig_flat_bwd", "rig_flat_fwd")):
+        log(f"{bwd} / {fwd}: {num[bwd][0] / num[fwd][0]:.3f} "
+            f"({num[bwd][0]:.3f} / {num[fwd][0]:.3f} ms; twice the operations)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card.splitlines()[0]}")
 

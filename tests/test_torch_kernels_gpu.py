@@ -3,9 +3,11 @@ versions, on the card. Needs a CUDA device and nvcc; skips without a card.
 Run on an H100 with:  python -m pytest tests/test_torch_kernels_gpu.py -m gpu
 
 Tolerance: rtol 1e-4 / atol 1e-4 relative to the output scale. Both sides
-are fp32 (TF32 off); they sum the band products and the nl*C collapse
-terms in different orders, and the backward kernels add overlapping bands
-with atomics. The stem kernels' tolerance is stated at their tests."""
+are fp32-accurate (TF32 off in PyTorch; the backward kernels run 3xTF32 on
+the tensor cores, see tests/test_torch_rig_tf32.py); they sum the band
+products and the nl*C collapse terms in different orders, and the backward
+kernels add overlapping bands with atomics. The stem kernels' tolerance is
+stated at their tests."""
 
 import numpy as np
 import pytest
@@ -77,13 +79,17 @@ def test_window_kernel_matches_plain(cuda, name, tile_v, buckets, B):
 
 @pytest.mark.parametrize("name,tile_v,buckets",
                          [("MultiviewC", 16, 1), ("MultiviewC", 16, 3),
-                          ("MultiviewC", 64, 3), ("Wildtrack", 24, 3)])
+                          ("MultiviewC", 64, 3), ("Wildtrack", 24, 3),
+                          ("MultiviewC", 24, 3), ("Wildtrack", 16, 3)])
 @pytest.mark.parametrize("B", [1, 2, 8])
 def test_window_bwd_kernel_matches_plain(cuda, name, tile_v, buckets, B):
     """dII and dKr of the backward kernel (all buckets of a scale through
     one dII) against `window_tiles_bwd`, and the autograd function against
     autograd of the plain forward. Tolerance 1e-4 of the plain result's
-    max: fp32 both sides, the kernel adds with atomics in another order."""
+    max: fp32 both sides, the kernel adds with atomics in another order.
+    MultiviewC at tile_v 24 has nl*tile_v = 120 rows (not a multiple of the
+    64-row CTA tile, and tile_v not a multiple of the 16-deep slice);
+    Wildtrack at tile_v 16 has nl = 8."""
     cfg = tiny_config(get_config(name), factor=4)
     calibs = make_calibrations(cfg)
     grid = make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name)
@@ -161,8 +167,9 @@ def _plain_scale(lat, sr, k):
 
 @pytest.mark.parametrize("tile_v,buckets,fold_prefix",
                          [(16, 1, True), (16, 3, True), (160, 3, True),
-                          (16, 1, False)],
-                         ids=["tv16-b1", "tv16-b3", "tv160-b3", "taps"])
+                          (16, 1, False), (24, 3, True)],
+                         ids=["tv16-b1", "tv16-b3", "tv160-b3", "taps",
+                              "tv24-b3"])
 @pytest.mark.parametrize("B", [1, 2, 8])
 def test_flat_kernels_match_plain(cuda, tile_v, buckets, fold_prefix, B):
     """K4 and K5 on every bucket of a flat rig against `flat_tiles` /
@@ -219,6 +226,74 @@ def test_flat_kernels_match_plain(cuda, tile_v, buckets, fold_prefix, B):
         for a, b in zip(*grads):
             np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                        rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
+def _one_tile_case(layout, B, device):
+    """A bucket cut to its first tile (T = 1), placed at tile 2 of a 4-tile
+    cotangent, with seeded inputs and zeroed accumulators."""
+    cfg = tiny_config(get_config("MultiviewC"), factor=4)
+    rig = trig.build_rig(make_calibrations(cfg), cfg,
+                         make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name),
+                         trig.pyramid_feat_shapes(cfg.resize_size), tile_v=16,
+                         band_buckets=3, layout=layout, device=device)
+    sr = rig.scales[0]
+    bi = len(sr.A) - 1
+    A_b, s_b = sr.A[bi][:, :1].contiguous(), sr.starts[bi][:, :1].contiguous()
+    gen = torch.Generator(device="cpu").manual_seed(40 + B)
+    N = A_b.shape[0]
+    lat = torch.rand((B, N, *sr.feat_hw, 256), generator=gen).to(device)
+    ii = trig.scale_features(lat, sr)
+    Kr = (torch.randn((sr.nl, 256, 256), generator=gen) * 0.05).to(device)
+    g = torch.randn((N, B, 4 * sr.tile_v, 256), generator=gen).to(device)
+    return sr, bi, ii, A_b, s_b, Kr, g
+
+
+@pytest.mark.parametrize("layout", ["window", "flat"])
+@pytest.mark.parametrize("B", [1, 2, 8])
+def test_bwd_kernels_single_tile_bucket(cuda, layout, B):
+    """T = 1 at a tile offset: the dKr pass has fewer tiles than depth
+    chunks, the other passes a grid of one tile per (n, b)."""
+    sr, bi, ii, A_b, s_b, Kr, g = _one_tile_case(layout, B, cuda)
+    dII, dKr = torch.zeros_like(ii), torch.zeros_like(Kr)
+    g_b = g[:, :, 2 * sr.tile_v:3 * sr.tile_v]
+    if layout == "window":
+        rig_window_bwd(ii, A_b, s_b, Kr, g, dII, dKr, off_t=2, tile_v=sr.tile_v,
+                       window=sr.window_hw[bi])
+        want = trig.window_tiles_bwd(ii, A_b, s_b, Kr, g_b, sr.window_hw[bi],
+                                     sr.tile_v)
+    else:
+        rig_flat_bwd(ii, A_b, s_b, Kr, g, dII, dKr, off_t=2, tile_v=sr.tile_v)
+        want = trig.flat_tiles_bwd(ii, A_b, s_b, Kr, g_b, sr.tile_v)
+    torch.cuda.synchronize()
+    for a, b in zip((dII, dKr), want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("layout", ["window", "flat"])
+def test_bwd_kernels_dkr_same_bits_every_run(cuda, layout):
+    """dKr is reduced in a fixed order (a workspace and a second stage, no
+    atomics): two runs give the same bits. dII is added with atomics and is
+    held to rounding only."""
+    cfg = tiny_config(get_config("MultiviewC"), factor=4)
+    rig = trig.build_rig(make_calibrations(cfg), cfg,
+                         make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name),
+                         trig.pyramid_feat_shapes(cfg.resize_size), tile_v=16,
+                         band_buckets=3, layout=layout, device=cuda)
+    sr = rig.scales[0]
+    gen = torch.Generator(device="cpu").manual_seed(50)
+    N = sr.A[0].shape[0]
+    ii = trig.scale_features(
+        torch.rand((2, N, *sr.feat_hw, 256), generator=gen).to(cuda), sr)
+    Kr = (torch.randn((sr.nl, 256, 256), generator=gen) * 0.05).to(cuda)
+    rows = sum(a.shape[1] for a in sr.A) * sr.tile_v
+    g = torch.randn((N, 2, rows, 256), generator=gen).to(cuda)
+    first = rig_scale_bwd(ii, sr, Kr, g)
+    second = rig_scale_bwd(ii, sr, Kr, g)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1])
+    np.testing.assert_allclose(first[0].cpu().numpy(), second[0].cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * float(first[0].abs().max()))
 
 
 def test_flat_kernel_rejects_bad_inputs(cuda):

@@ -30,13 +30,13 @@ SIGNATURES = {
         "rig_window_fwd_f32": [P] * 6 + [I] * 13 + [P],
     },
     "rig_window_bwd": {
-        "rig_window_bwd_f32": [P] * 8 + [I] * 13 + [P],
+        "rig_window_bwd_f32": [P] * 9 + [I] * 13 + [P],
     },
     "rig_flat_fwd": {
         "rig_flat_fwd_f32": [P] * 6 + [I] * 11 + [P],
     },
     "rig_flat_bwd": {
-        "rig_flat_bwd_f32": [P] * 8 + [I] * 11 + [P],
+        "rig_flat_bwd_f32": [P] * 9 + [I] * 11 + [P],
     },
     "stem_bwd": {
         "stem_bwd_stats_f32": [P] * 5 + [I] * 4 + [P],

@@ -798,6 +798,35 @@ def flat_tiles_bwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
                       g_b, tile_v, dII)
 
 
+def tf32_split(x: torch.Tensor):
+    """x (fp32) -> (hi, lo), both fp32 values that fit TF32 (10 mantissa
+    bits): hi is x rounded to nearest (ties away from zero, by integer
+    arithmetic on the bits, as `cvt.rna.tf32.f32` rounds) and lo is x - hi
+    rounded the same way. The split of the backward kernels' 3xTF32
+    products (`csrc/rig_mma.cuh`)."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    x = x.float()
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor, products: int = 3):
+    """a @ b as the tensor-core passes of the backward kernels compute it:
+    both operands split by `tf32_split`, a_lo @ b_hi + a_hi @ b_lo +
+    a_hi @ b_hi summed in fp32, small terms first. `products` 1 keeps only
+    a_hi @ b_hi (one TF32 product), 4 adds a_lo @ b_lo. For tests and logs;
+    nothing on the main path calls it."""
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    terms = [a_lo @ b_lo, a_lo @ b_hi, a_hi @ b_lo, a_hi @ b_hi][4 - products:]
+    if products == 1:
+        return terms[0]
+    return sum(terms[1:], terms[0])
+
+
 def scale_tiles(ii: torch.Tensor, rig: ScaleRig, Kr: torch.Tensor):
     """All buckets of one scale through the plain versions:
     (N, B, T_total*tile_v, n_out)."""

@@ -14,6 +14,11 @@ shared (N, B, T_total*tile_v, n_out) buffer, then the plain epilogue
 (inv_perm gather, bias + ReLU, fp32 camera sum), which autograd
 differentiates.
 
+The forward kernels are fp32 SGEMM passes on the CUDA cores; the backward
+kernels run on the tensor cores and stay fp32-accurate through a 3xTF32
+split (`csrc/rig_mma.cuh`; the same arithmetic in plain PyTorch is
+`ops/rig.matmul_3xtf32`).
+
 On a CPU tensor a wrapper runs its kernel's plain version
 (`ops/rig.window_tiles`, `window_tiles_bwd`, `flat_tiles`,
 `flat_tiles_bwd`); on a CUDA tensor it launches the kernel or raises.
@@ -34,8 +39,11 @@ def _check_launch(what, ii, tensors, shapes_ok, C, n_out, K, describe,
                   k_multiple=16):
     """Shared argument checks of the kernels' wrappers: one device,
     contiguous, float32 (int32 starts), consistent shapes, and the widths
-    the kernels are written for (the band length K a multiple of 16 for a
-    window, of 8 for a flat band)."""
+    the kernels are written for: C = n_out = 256 (the width of the CTA
+    tiles, of the forward's SGEMM passes and of the backward's tensor-core
+    passes alike) and a band length K that is a multiple of 16 for a
+    window, of 8 for a flat band (both stage 16-deep slices and mask whole
+    16-byte quads past a band; any nl, tile_v and T go)."""
     if ii.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {ii.device}")
     for name, t in tensors.items():
@@ -56,6 +64,22 @@ def _check_launch(what, ii, tensors, shapes_ok, C, n_out, K, describe,
         raise ValueError(f"{what}: the kernel takes C = n_out = 256 and a "
                          f"band length that is a multiple of {k_multiple}, "
                          f"got C {C}, n_out {n_out}, band length {K}")
+
+
+# depth chunks of the backward's dKr pass (DKR_MAX_SPLITS in csrc/rig_mma.cuh)
+DKR_MAX_SPLITS = 16
+
+
+def _bwd_scratch(ii, T, R, nl, n_out):
+    """Scratch of one backward launch: vox (the recomputed A product, then
+    dvox written over it) and the dKr pass's workspace (one partial dKr per
+    depth chunk, added into dKr in a fixed order by the pass's second
+    stage)."""
+    N, B, C = ii.shape[0], ii.shape[1], ii.shape[-1]
+    vox = torch.empty((N, B, T, R, C), dtype=torch.float32, device=ii.device)
+    ws = torch.empty((DKR_MAX_SPLITS, nl, C, n_out), dtype=torch.float32,
+                     device=ii.device)
+    return vox, ws
 
 
 def _launch(name, ii, *args):
@@ -147,12 +171,11 @@ def rig_window_bwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
         f"{tuple(starts_b.shape)}, Kr {tuple(Kr.shape)}, g {tuple(g.shape)}, "
         f"dII {tuple(dII.shape)}, dKr {tuple(dKr.shape)}, off_t {off_t}, "
         f"tile_v {tile_v}, window {window}")
-    # scratch shared by the passes: vox (recomputed), then dvox over it
-    vox = torch.empty((N, B, T, R, C), dtype=torch.float32, device=ii.device)
+    vox, ws = _bwd_scratch(ii, T, R, nl, n_out)
     _launch("rig_window_bwd", ii, ii.data_ptr(), A_b.data_ptr(),
             starts_b.data_ptr(), KrT.data_ptr(), g.data_ptr(), vox.data_ptr(),
-            dII.data_ptr(), dKr.data_ptr(), N, B, Hp, Wp, C, T, nl, tile_v,
-            wh, ww, n_out, off_t, rows)
+            ws.data_ptr(), dII.data_ptr(), dKr.data_ptr(), N, B, Hp, Wp, C, T,
+            nl, tile_v, wh, ww, n_out, off_t, rows)
     rig_window_bwd.launches += 1
     return dII, dKr
 
@@ -236,11 +259,11 @@ def rig_flat_bwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
         f"{tuple(starts_b.shape)}, Kr {tuple(Kr.shape)}, g {tuple(g.shape)}, "
         f"dII {tuple(dII.shape)}, dKr {tuple(dKr.shape)}, off_t {off_t}, "
         f"tile_v {tile_v}", k_multiple=8)
-    vox = torch.empty((N, B, T, R, C), dtype=torch.float32, device=ii.device)
+    vox, ws = _bwd_scratch(ii, T, R, nl, n_out)
     _launch("rig_flat_bwd", ii, ii.data_ptr(), A_b.data_ptr(),
             starts_b.data_ptr(), KrT.data_ptr(), g.data_ptr(), vox.data_ptr(),
-            dII.data_ptr(), dKr.data_ptr(), N, B, pixels, C, T, nl, tile_v,
-            band, n_out, off_t, rows)
+            ws.data_ptr(), dII.data_ptr(), dKr.data_ptr(), N, B, pixels, C, T,
+            nl, tile_v, band, n_out, off_t, rows)
     rig_flat_bwd.launches += 1
     return dII, dKr
 
