@@ -5,17 +5,18 @@
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
   1. build every hand-written kernel from csrc/ with nvcc (one process per
-     source, all started together) and print ptxas' register / shared
-     memory / spill lines;
+     source, all started together) and print ptxas' registers and spills
+     per kernel (fails if a tensor-core pass `rig_*_mma` spills);
   2. hold each kernel against its plain PyTorch version at B = 1 and B = 2
      on the full MultiviewC fp32 rigs (7 x 720x1280 cameras, 156x156 BEV,
-     nl 5), all 3 scales, every bucket: the window forward on the 12-bucket
-     (serving) rig, the window backward (tensor cores, 3xTF32; dII and dKr,
-     all buckets of a scale through one dII) on the 8-bucket (training) rig,
-     the flat forward and backward on the 8-bucket flat rig (tile_v 160) and
-     once on a small 16-tap rig (cumsum'd features); and the two stem
-     backward kernels at (14, 64, 360, 640), also on an integer-valued input
-     where ties decide;
+     nl 5), all 3 scales, every bucket (the forwards bucket by bucket): the
+     window forward on the 12-bucket (serving) and the 8-bucket (training)
+     rig, the window backward (dII and dKr, all buckets of a scale through
+     one dII) on the 8-bucket rig, the flat forward and backward on the
+     8-bucket flat rig (tile_v 160) and on a small 16-tap rig (cumsum'd
+     features); all rig kernels run 3xTF32 on the tensor cores; and the two
+     stem backward kernels at (14, 64, 360, 640), also on an integer-valued
+     input where ties decide;
   3. drive the serving path, `python -m vfa_tpu_torch.predict` at full
      width with random seeded weights, once per rig layout, with every
      kernel's launch count set to 0 just before and read just after; then
@@ -30,8 +31,9 @@ result line):
   5. time each kernel (CUDA events, warmed up) beside its bound and its
      plain version (the rig kernels' operations are held to 495 / 3 = 165
      TFLOP/s, fp32-accurate 3xTF32 on the tensor cores; the window backward
-     also alone at B = 1), and print peak memory, the card's name and power
-     limit, the `kernels` JSON line and, last, the `ok` JSON line.
+     also alone at B = 1), split each forward's device time between its two
+     passes (torch.profiler), and print peak memory, the card's name and
+     power limit, the `kernels` JSON line and, last, the `ok` JSON line.
 Imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -50,8 +52,8 @@ import torch
 # published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores, dense
 # TF32 on the tensor cores and HBM3 bandwidth. An fp32-accurate product on
 # the tensor cores costs three TF32 products (3xTF32), so the rig kernels'
-# operations are bounded by PEAK_TF32_FLOPS / 3 = 165 TFLOP/s, whichever unit
-# a kernel uses today; the stem kernels' comparisons run on the CUDA cores.
+# operations are bounded by PEAK_TF32_FLOPS / 3 = 165 TFLOP/s; the stem
+# kernels' comparisons run on the CUDA cores.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -115,6 +117,26 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def ptxas_kernels(text: str):
+    """(kernel, registers, spill stores + loads in bytes) of every entry
+    function in a `-Xptxas -v` log, by the kernel's name in the source."""
+    out, name, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            short = re.search(r"\d((?:rig|stem)_[a-z_]+)", m.group(1))
+            name = short.group(1) if short else m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name, spill = None, 0
+    return out
+
+
 def phase_build():
     from vfa_tpu_torch.kernels import LIBRARY, SIGNATURES
 
@@ -123,9 +145,11 @@ def phase_build():
     LIBRARY.build(names)
     for name in names:
         LIBRARY.load(name)
-        for line in LIBRARY.ptxas_log.get(name, "").splitlines():
-            if re.search(r"registers|spill|smem", line):
-                log(f"  ptxas[{name}]: {line.strip()}")
+        for kernel, regs, spill in ptxas_kernels(LIBRARY.ptxas_log.get(name, "")):
+            log(f"  ptxas[{name}]: {kernel}: {regs} registers, {spill} bytes "
+                "spilled")
+            if spill and re.match(r"rig_\w+_mma", kernel):
+                raise AssertionError(f"{kernel} spills {spill} bytes")
     log(f"phase 1 build: {names} in {time.perf_counter() - t0:.1f} s")
 
 
@@ -185,12 +209,13 @@ def plain_tiles(lat, sr, k):
                        collapse_per_layer(k, lat.shape[-1], sr.nl, lat.dtype))
 
 
-def check_close(what, got, want, tol=KERNEL_TOL):
+def check_close(what, got, want, tol=KERNEL_TOL, quiet=False):
     """(max abs err, max err / max |want|); raises past `tol`."""
     err = float((got - want).abs().max())
     rel = err / max(float(want.abs().max()), 1e-30)
-    log(f"  {what}: max abs err {err:.3e}, max rel err {rel:.3e} "
-        f"(tolerance {tol:.0e} of the plain result's max)")
+    if not quiet:
+        log(f"  {what}: max abs err {err:.3e}, max rel err {rel:.3e} "
+            f"(tolerance {tol:.0e} of the plain result's max)")
     if not np.isfinite(rel) or rel > tol:
         raise AssertionError(f"{what} disagrees with its plain version: rel {rel:.3e}")
     return err, rel
@@ -201,6 +226,9 @@ def worst_of(errs):
 
 
 def phase_kernel_vs_plain(rig, device, batches=(1, 2)):
+    """The forward kernel against its plain version, bucket by bucket: each
+    bucket's rows of the scale's tiles held to the tolerance of its own
+    plain result's max; one line per scale with its worst bucket."""
     from vfa_tpu_torch.ops.rig_cuda import rig_tiles_cuda
 
     name = f"rig_{layout_of(rig)}_fwd"
@@ -211,10 +239,19 @@ def phase_kernel_vs_plain(rig, device, batches=(1, 2)):
             got = rig_tiles_cuda(lat, sr, k)
             torch.cuda.synchronize()
             want = plain_tiles(lat, sr, k)
-            errs.append(check_close(
-                f"{name} B={B} scale {si} ({len(sr.A)} buckets, "
-                f"{sum(a.shape[1] for a in sr.A)} tiles, bands "
-                f"{[a.shape[-1] for a in sr.A]})", got, want))
+            tag = (f"{name} B={B} scale {si} ({len(sr.A)} buckets, "
+                   f"{sum(a.shape[1] for a in sr.A)} tiles, bands "
+                   f"{[a.shape[-1] for a in sr.A]})")
+            per_bucket, off = [], 0
+            for bi, A_b in enumerate(sr.A):
+                rows = slice(off, off + A_b.shape[1] * sr.tile_v)
+                per_bucket.append(check_close(f"{tag} bucket {bi}", got[:, :, rows],
+                                              want[:, :, rows], quiet=True))
+                off = rows.stop
+            err, rel = worst_of(per_bucket)
+            log(f"  {tag}: worst bucket max abs err {err:.3e}, max rel err "
+                f"{rel:.3e} (tolerance {KERNEL_TOL:.0e} of each bucket's plain max)")
+            errs += per_bucket
             del got, want
     log(f"phase 2 {name} vs plain: ok")
     return worst_of(errs)
@@ -549,9 +586,39 @@ def phase_numbers(rig, device, backward: bool, rounds: int = 2, batch: int = BAT
     return (ms, plain_ms, *bound_ms(*kernel_work(rig, batch, backward)))
 
 
+def phase_pass_shares(rig, device, batch: int = BATCH):
+    """Device time of the forward kernel's two passes, pass 1 `rig_vox_mma`
+    (the A product) and pass 2 `rig_collapse_mma`, over one batch-`batch`
+    forward of the rig's three scales, from a torch.profiler capture after
+    a warm-up; logged as ms and as shares of the two passes' sum."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vfa_tpu_torch.ops.rig_cuda import rig_tiles_cuda
+
+    name = f"rig_{layout_of(rig)}_fwd"
+    inputs = [scale_inputs(sr, batch, 7 + si, device) for si, sr in enumerate(rig.scales)]
+
+    def forward():
+        for sr, (lat, k) in zip(rig.scales, inputs):
+            rig_tiles_cuda(lat, sr, k)
+        torch.cuda.synchronize()
+
+    forward()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        forward()
+    ms = {p: sum(e.device_time_total for e in prof.key_averages() if p in e.key) / 1e3
+          for p in ("rig_vox_mma", "rig_collapse_mma")}
+    total = sum(ms.values())
+    if not total > 0:
+        raise AssertionError(f"the profiler saw no device time of {name}'s passes")
+    log(f"{name} passes at B={batch} (torch.profiler, one forward over the 3 "
+        "scales): " + ", ".join(f"{p} {t:.3f} ms ({t / total:.1%})" for p, t in ms.items()))
+    return ms
+
+
 def phase_tf32_arithmetic(device):
     """Log what the split buys: the plain 3xTF32 product of `ops.rig`
-    (the arithmetic the backward kernels are written to) against PyTorch's
+    (the arithmetic the rig kernels are written to) against PyTorch's
     fp32 product on the card, with one, three and four TF32 products."""
     from vfa_tpu_torch.ops.rig import matmul_3xtf32
 
@@ -621,11 +688,14 @@ def main() -> int:
     err["rig_window_fwd"] = phase_kernel_vs_plain(rig, device)
     serve_launches, res, peak = phase_main_path(rig, device, scenes=6)
     num["rig_window_fwd"] = phase_numbers(rig, device, backward=False)
+    phase_pass_shares(rig, device)
     del rig
     torch.cuda.empty_cache()
 
     # window layout, training
     train_rig = full_rig(device, training=True)
+    err["rig_window_fwd"] = worst_of([err["rig_window_fwd"],
+                                      phase_kernel_vs_plain(train_rig, device)])
     err["rig_window_bwd"] = phase_bwd_kernel_vs_plain(train_rig, device)
     train_launches, train_res, train_peak = phase_train_path(
         train_rig, device, fused_stem=False)
@@ -641,7 +711,7 @@ def main() -> int:
 
     # flat layout: one rig (the 8-bucket training policy) serves both runs
     taps_rig = small_taps_rig(device)
-    phase_kernel_vs_plain(taps_rig, device, batches=(2,))
+    phase_kernel_vs_plain(taps_rig, device)
     phase_bwd_kernel_vs_plain(taps_rig, device, batches=(2,))
     del taps_rig
     flat_rig = full_rig(device, training=True, layout="flat")
@@ -655,6 +725,7 @@ def main() -> int:
     del flat_train_res["model"]
     torch.cuda.empty_cache()
     num["rig_flat_fwd"] = phase_numbers(flat_rig, device, backward=False)
+    phase_pass_shares(flat_rig, device)
     num["rig_flat_bwd"] = phase_numbers(flat_rig, device, backward=True)
 
     card = subprocess.run(

@@ -3,8 +3,8 @@ versions, on the card. Needs a CUDA device and nvcc; skips without a card.
 Run on an H100 with:  python -m pytest tests/test_torch_kernels_gpu.py -m gpu
 
 Tolerance: rtol 1e-4 / atol 1e-4 relative to the output scale. Both sides
-are fp32-accurate (TF32 off in PyTorch; the backward kernels run 3xTF32 on
-the tensor cores, see tests/test_torch_rig_tf32.py); they sum the band
+are fp32-accurate (TF32 off in PyTorch; the rig kernels run 3xTF32 on the
+tensor cores, see tests/test_torch_rig_tf32.py); they sum the band
 products and the nl*C collapse terms in different orders, and the backward
 kernels add overlapping bands with atomics. The stem kernels' tolerance is
 stated at their tests."""
@@ -268,6 +268,59 @@ def test_bwd_kernels_single_tile_bucket(cuda, layout, B):
     for a, b in zip((dII, dKr), want):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-4,
                                    atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("layout,name,tile_v",
+                         [("window", "MultiviewC", 24), ("window", "Wildtrack", 16),
+                          ("flat", "MultiviewC", 16), ("flat", "MultiviewC", 160),
+                          ("flat", "Wildtrack", 16)],
+                         ids=["window-R120", "window-nl8", "flat-band8",
+                              "flat-R800", "flat-nl8"])
+@pytest.mark.parametrize("single_tile", [False, True], ids=["bucket", "T1"])
+@pytest.mark.parametrize("B", [1, 2])
+def test_fwd_kernels_write_in_place(cuda, layout, name, tile_v, single_tile, B):
+    """K1 / K4 bucket by bucket into an `out` filled with NaN, at tile
+    offset 2 with one tile of room after the bucket: the launch's rows
+    within 1e-4 of the plain version's max, every other row still NaN
+    (buckets write in place; the collapse's last CTA does not store rows
+    past T*tile_v). Cases: R = nl*tile_v = 120 and 800 (no multiple of the
+    64-row CTA tile), nl = 8 (Wildtrack: the collapse sums 2048 depths in
+    one chain of tensor-core accumulators), flat bands with band % 16 == 8,
+    and with `single_tile` each bucket cut to T = 1."""
+    cfg = tiny_config(get_config(name), factor=4)
+    rig = trig.build_rig(make_calibrations(cfg), cfg,
+                         make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name),
+                         trig.pyramid_feat_shapes(cfg.resize_size), tile_v=tile_v,
+                         band_buckets=3, layout=layout, device=cuda)
+    if layout == "flat":
+        assert any(a.shape[-1] % 16 == 8 for sr in rig.scales for a in sr.A)
+    gen = torch.Generator(device="cpu").manual_seed(60 + B)
+    off_t = 2
+    for sr in rig.scales:
+        assert sr.nl == (8 if name == "Wildtrack" else 5)
+        N = sr.A[0].shape[0]
+        lat = torch.rand((B, N, *sr.feat_hw, 256), generator=gen).to(cuda)
+        ii = trig.scale_features(lat, sr)
+        Kr = (torch.randn((sr.nl, 256, 256), generator=gen) * 0.05).to(cuda)
+        for bi, (A_b, s_b) in enumerate(zip(sr.A, sr.starts)):
+            if single_tile:
+                A_b, s_b = A_b[:, :1].contiguous(), s_b[:, :1].contiguous()
+            T = A_b.shape[1]
+            lo, hi = off_t * tile_v, (off_t + T) * tile_v
+            out = torch.full((N, B, hi + tile_v, 256), float("nan"), device=cuda)
+            if layout == "window":
+                rig_window_fwd(ii, A_b, s_b, Kr, out, off_t=off_t, tile_v=tile_v,
+                               window=sr.window_hw[bi])
+                want = trig.window_tiles(ii, A_b, s_b, Kr, sr.window_hw[bi], tile_v)
+            else:
+                rig_flat_fwd(ii, A_b, s_b, Kr, out, off_t=off_t, tile_v=tile_v)
+                want = trig.flat_tiles(ii, A_b, s_b, Kr, tile_v)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(out[:, :, lo:hi].cpu().numpy(),
+                                       want.cpu().numpy(), rtol=1e-4,
+                                       atol=1e-4 * float(want.abs().max()))
+            assert torch.isnan(out[:, :, :lo]).all()
+            assert torch.isnan(out[:, :, hi:]).all()
 
 
 @pytest.mark.parametrize("layout", ["window", "flat"])

@@ -1,14 +1,16 @@
-"""The arithmetic of the backward kernels' tensor-core passes, on the CPU.
+"""The arithmetic of the rig kernels' tensor-core passes, on the CPU.
 
-`csrc/rig_mma.cuh` computes every product of the rig backward as 3xTF32:
-operands split into TF32 hi and lo parts, three TF32 products summed in
-fp32. No kernel runs here; `ops.rig.tf32_split` and `matmul_3xtf32` are the
-same arithmetic in plain PyTorch, and these tests pin what it promises: the
-split loses at most 2^-21 of a value, each of the four products of
-`window_tiles_bwd` / `flat_tiles_bwd` redone with it agrees with the fp32
-product within 1e-5 of its max (both sides round ~1e-7 per term, over bands
-of up to a few hundred pixels), and one TF32 product alone does not reach
-the kernels' 1e-4 tolerance."""
+`csrc/rig_mma.cuh` computes every product of the rig forward and backward
+as 3xTF32: operands split into TF32 hi and lo parts, three TF32 products
+summed in fp32. No kernel runs here; `ops.rig.tf32_split` and
+`matmul_3xtf32` are the same arithmetic in plain PyTorch, and these tests
+pin what it promises: the split loses at most 2^-21 of a value, the
+forward's two products (vox, then the collapse as one product of depth
+nl*C) and each of the four products of `window_tiles_bwd` /
+`flat_tiles_bwd` redone with it agree with the fp32 result within 1e-5 of
+its max (both sides round ~1e-7 per term, over bands of up to a few hundred
+pixels), and one TF32 product alone does not reach the kernels' 1e-4
+tolerance."""
 
 import numpy as np
 import pytest
@@ -54,6 +56,30 @@ def _bucket_inputs(sr, bi, B, rng):
     return ii, A_b, pix, Kr, g_b
 
 
+def _bands(ii, A_b, pix):
+    """The bucket's bands (N, T, K, B*C), as `ops.rig._band_vox` reads them."""
+    N, B, C = ii.shape[0], ii.shape[1], ii.shape[-1]
+    T, _, K = A_b.shape[1:]
+    flat = ii.reshape(N, B, -1, C).permute(0, 2, 1, 3).reshape(-1, B * C)
+    return flat.index_select(0, pix.reshape(-1)).reshape(N, T, K, B * C)
+
+
+def _forward_products(ii, A_b, pix, Kr, tile_v, mm):
+    """The two products of the forward kernels through the matrix product
+    `mm`: vox = A @ band, then the collapse as `rig_collapse_mma` computes
+    it, one product of depth nl*C whose row (t, v) is vox[t][l*tile_v + v][c]
+    at depth l*C + c, against Kr seen as (nl*C, n_out). The collapse takes
+    `mm`'s own vox, as the kernel does. Returns (vox (N, T, R, B*C), tiles
+    (N, B, T*tile_v, n_out))."""
+    N, B, C = ii.shape[0], ii.shape[1], ii.shape[-1]
+    T = A_b.shape[1]
+    nl, _, n_out = Kr.shape
+    vox = mm(A_b, _bands(ii, A_b, pix))
+    rows = (vox.reshape(N, T, nl, tile_v, B, C).permute(0, 4, 1, 3, 2, 5)
+            .reshape(N, B, T * tile_v, nl * C))
+    return vox, mm(rows, Kr.reshape(nl * C, n_out))
+
+
 def _four_products(ii, A_b, pix, Kr, g_b, tile_v, mm):
     """The four products of `ops.rig._tiles_bwd` through the matrix product
     `mm`: (vox, dKr, dvox, dband). dKr, dvox and dband take the fp32 vox and
@@ -61,8 +87,7 @@ def _four_products(ii, A_b, pix, Kr, g_b, tile_v, mm):
     N, B, C = ii.shape[0], ii.shape[1], ii.shape[-1]
     T, R, K = A_b.shape[1:]
     nl, _, n_out = Kr.shape
-    flat = ii.reshape(N, B, -1, C).permute(0, 2, 1, 3).reshape(-1, B * C)
-    bands = flat.index_select(0, pix.reshape(-1)).reshape(N, T, K, B * C)
+    bands = _bands(ii, A_b, pix)
     vox = mm(A_b, bands)                                      # (N, T, R, B*C)
     vox32 = torch.matmul(A_b, bands).reshape(N, T, nl, tile_v, B, C)
     g = g_b.reshape(N, B, T, tile_v, n_out)
@@ -147,6 +172,41 @@ def test_backward_products_3xtf32_match_fp32(kind, B, seed):
             assert _rel(got, dII) < 1e-5
             three = _four_products(ii, A_b, pix, Kr, g_b, sr.tile_v, _tf32(3))
             for name, a, b in zip(("vox", "dKr", "dvox", "dband"), three, plain):
+                err = _rel(a, b)
+                worst = max(worst, err)
+                assert err < 1e-5, (name, err)
+    assert worst > 0.0
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("kind", list(RIGS))
+def test_forward_products_3xtf32_match_fp32(kind, B, seed):
+    """Every bucket of every scale: the forward kernels' two products read
+    with plain matmul equal `window_tiles` / `flat_tiles` (which guards this
+    file's reading of them: the collapse as one product of depth nl*C), and
+    redone in 3xTF32, vox feeding the collapse as in the kernel, they agree
+    with `_tiles_fwd` within 1e-5 of its max."""
+    rig = _rig(kind)
+    rng = np.random.default_rng(100 * seed + B + 50)
+    worst = 0.0
+    for sr in rig.scales:
+        assert sr.on_raw == (kind != "flat-taps")
+        for bi in range(len(sr.A)):
+            ii, A_b, pix, Kr, _ = _bucket_inputs(sr, bi, B, rng)
+            want = trig._tiles_fwd(ii, A_b, pix, Kr, sr.tile_v)
+            if sr.window_hw:
+                ref = trig.window_tiles(ii, A_b, sr.starts[bi], Kr,
+                                        sr.window_hw[bi], sr.tile_v)
+            else:
+                ref = trig.flat_tiles(ii, A_b, sr.starts[bi], Kr, sr.tile_v)
+            assert torch.equal(ref, want)
+            vox32, plain = _forward_products(ii, A_b, pix, Kr, sr.tile_v,
+                                             torch.matmul)
+            assert torch.equal(vox32, trig._band_vox(ii, A_b, pix))
+            assert _rel(plain, want) < 1e-6
+            vox, three = _forward_products(ii, A_b, pix, Kr, sr.tile_v, _tf32(3))
+            for name, a, b in (("vox", vox, vox32), ("tiles", three, want)):
                 err = _rel(a, b)
                 worst = max(worst, err)
                 assert err < 1e-5, (name, err)

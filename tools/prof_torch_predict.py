@@ -4,8 +4,8 @@ Runs the full-width MultiviewC fp32 path of `vfa_tpu_torch.predict` (7 x
 720x1280 cameras, window rig with 12 buckets, batch 2, random seeded
 weights, TF32 off as in chip_smoke.py) on one GPU, warms up, then traces
 two requests with torch.profiler and prints the device time by kernel, the
-device busy share of the traced wall time, and the host wall time per
-request.
+device busy share of the traced wall time, the host wall time per request
+and the card's name and power limit.
 
     python tools/prof_torch_predict.py
 """
@@ -13,6 +13,7 @@ request.
 from __future__ import annotations
 
 import os
+import subprocess
 import sys
 import time
 
@@ -70,7 +71,10 @@ def main():
     events = [e for e in prof.key_averages() if e.device_time_total > 0
               and e.device_type == torch.autograd.DeviceType.CUDA]
     total_dev = sum(e.device_time_total for e in events) / 1e3
-    print(f"card: {torch.cuda.get_device_name(0)}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"card: {card.splitlines()[0]}")
     print(f"host wall ms per request (batch {BATCH}): "
           + " ".join(f"{w:.2f}" for w in walls))
     print(f"device kernel time {total_dev:.2f} ms over {t_trace:.2f} ms traced "

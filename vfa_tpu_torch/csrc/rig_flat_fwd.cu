@@ -1,4 +1,5 @@
-// Flat-layout compiled-rig forward for NVIDIA Hopper (sm_90a), fp32.
+// Flat-layout compiled-rig forward for NVIDIA Hopper (sm_90a), fp32 in and
+// out, on the tensor cores.
 //
 // Replaces vfa_tpu/ops/rig_pallas.py::_kernel (the TPU Pallas kernel
 // launched by the flat branch of _bucket_fwd_call). For each camera n,
@@ -14,24 +15,27 @@
 // by max_band zero rows, so a band never leaves the buffer; start =
 // starts[n*T + t]. start and band are multiples of 8.
 //
-// What bounds it on the H100 (SXM, 700 W): fp32 operations on the CUDA
-// cores, as the window kernel, only more of them: a flat band spans whole
-// image rows, so A is several times the window rig's and mostly zeros,
-// and the A product grows with it while the collapse stays the same. A is
-// read once per batch; at 3.35 TB/s that stays an order of magnitude below
-// the time of the products at 67 TFLOP/s.
+// What bounds it on the H100 (SXM, 700 W): operations, as for the window
+// forward, only more of them: a flat band spans whole image rows, so A is
+// several times the window rig's and mostly zeros (6.0 GB at the full
+// MultiviewC rig), and the A product grows with it while the collapse stays
+// the same: 1.1 TFLOP per scene. A is read once per batch (1.8 ms at 3.35
+// TB/s); the fp32-accurate products at 495 / 3 = 165 TFLOP/s (3xTF32) take
+// 6.7 ms per scene.
 //
-// What the design does about it: the same two register-tiled SGEMM passes
-// as the window forward (rig_gemm.cuh), with the band's pixel k at row
-// start + k instead of a 2D window gather. The CTA tile works on 16-deep
-// slices and a band is only a multiple of 8: on the last slice both
-// operands' loaders return zeros past the band (A's row would otherwise be
-// read 8 floats past its end, on the last row of the last tile past the
-// buffer). nl*tile_v = 800 is no multiple of the 64-row CTA tile: rows
-// past it are zeros in A's loader and are not stored. The TPU kernel's
-// double-buffered band DMA across the scene axis is not carried over.
+// What the design does about it: the window forward's two passes on the
+// wgmma tile of rig_mma.cuh (see rig_window_fwd.cu), with the band's pixel
+// k at row start + k instead of a 2D window gather. A band is only a
+// multiple of 8 (112 ... 1992 pixels on the full rig), so pass 1's last
+// 16-deep slice may be half empty: both operands' loaders zero-fill whole
+// 16-byte quads past the band (A's row would otherwise be read 8 floats past
+// its end, on the last row of the last tile past the buffer). nl*tile_v =
+// 800 is no multiple of the 64-row CTA tile: rows past it are zeros in A's
+// loader and are not stored. The TPU kernel's double-buffered band DMA
+// across the scene axis is not carried over; the scene is the innermost
+// grid index instead, so the B CTAs that read one A tile share it in L2.
 
-#include "rig_gemm.cuh"
+#include "rig_mma.cuh"
 
 // ii (N, B, pixels, C) fp32 with pixels = fh*fw + max_band; A
 // (N, T, nl*tile_v, band) fp32; starts (N*T) int32; Kr (nl, C, n_out) fp32;

@@ -1,16 +1,17 @@
-// Tensor-core passes of the compiled-rig backward kernels (rig_window_bwd.cu,
-// rig_flat_bwd.cu) for NVIDIA Hopper (sm_90a): one CTA tile on
-// wgmma.mma_async m64n64k8 TF32 with a 3xTF32 split that keeps fp32
-// accuracy, and the four passes of a backward launch written on it, for
-// both band layouts. See rig_window_bwd.cu for the sequence and the reasons.
+// Tensor-core passes of all four compiled-rig kernels (rig_window_fwd.cu,
+// rig_flat_fwd.cu, rig_window_bwd.cu, rig_flat_bwd.cu) for NVIDIA Hopper
+// (sm_90a): one CTA tile on wgmma.mma_async m64n64k8 TF32 with a 3xTF32
+// split that keeps fp32 accuracy, and the two passes of a forward launch and
+// the four of a backward launch written on it, for both band layouts. See
+// rig_window_fwd.cu and rig_window_bwd.cu for the sequences and the reasons.
 //
 // The tile. A CTA of one warpgroup (4 warps) computes a 64 x 256 output tile
 // D = Aop @ Bop (256 = all channels, so the B operand is always a whole row
-// of the band, of g, of Kr^T or of dvox). Operands come in 16-deep slices
-// through a ring of 4 stages in dynamic shared memory, filled by cp.async
-// 16 bytes a thread, one __syncthreads a slice (102 KB with the split
-// buffers below, so two CTAs an SM). 64 rows divide nl*tile_v = 320 and
-// waste 4 % of 800.
+// of the band, of g, of Kr, of Kr^T or of dvox). Operands come in 16-deep
+// slices through a ring of 4 stages in dynamic shared memory, filled by
+// cp.async 16 bytes a thread, one __syncthreads a slice (102 KB with the
+// split buffers below, so two CTAs an SM). 64 rows divide nl*tile_v = 320
+// and waste 4 % of 800.
 //
 // wgmma and its obstacle. For TF32 wgmma reads a shared-memory operand only
 // depth-contiguous, and in every pass the 256-wide operand lies the other
@@ -33,14 +34,16 @@
 // slices) took 255 registers and spilled (35.6 against 34.6 ms, window
 // backward; NVIDIA H100 80GB HBM3, 700 W); waiting at the top of the next
 // slice made ptxas serialise every wgmma (44.5 ms).
-// The first version of these passes ran mma.sync.m16n8k8 on the same ring:
-// 45.4 ms against 34.7 ms with wgmma for the window backward, 67.5 against
-// 49.2 ms for the flat one (same card; PERF.md). What is left on the
-// table: N = 64 per wgmma (a 128-column tile needs 256 accumulator
-// registers), TMA and warp specialisation (one barrier a slice stalls the
-// whole warpgroup), and the register operand's split, redone by each of
-// the 4 warps' lanes for its own channels only (no redundancy there) but
-// still 5 ALU operations a value.
+// The first version of the backward's passes ran mma.sync.m16n8k8 on the
+// same ring: 45.4 ms against 34.7 ms with wgmma for the window backward,
+// 67.5 against 49.2 ms for the flat one (same card; PERF.md). The forward's
+// two passes ran as a register-tiled fp32 SGEMM on the CUDA cores: 36.5 and
+// 55.1 ms a batch-2 window and flat forward, 17.9 and 24.8 ms on this tile.
+// What is left on the table: N = 64 per wgmma (a 128-column tile needs 256
+// accumulator registers), TMA and warp specialisation (one barrier a slice
+// stalls the whole warpgroup), and the register operand's split, redone by
+// each of the 4 warps' lanes for its own channels only (no redundancy
+// there) but still 5 ALU operations a value.
 //
 // 3xTF32. Each fp32 operand value x is split into hi = x rounded to TF32
 // and lo = x - hi rounded to TF32 (to nearest, ties away, as cvt.rna.tf32
@@ -342,21 +345,23 @@ __device__ __forceinline__ size_t band_row(int k, int s0, int s1, int Wp,
   }
 }
 
-// Pass 1: vox[n, b, t] = A[n, t] @ band(n, b, t). grid (ceil(R/BM), T, N*B).
-// A's rows are depth-contiguous (A_MK); K is a multiple of 8, so a ragged
-// last slice ends on a quad.
+// Pass 1 of both directions: vox[n, b, t] = A[n, t] @ band(n, b, t), rows
+// m0 .. m0 + 63 of it. A's rows are depth-contiguous (A_MK); K is a
+// multiple of 8, so a ragged last slice ends on a quad.
 template <bool WINDOW>
-__global__ void __launch_bounds__(THREADS)
-rig_vox_mma(const float* __restrict__ ii, const float* __restrict__ A,
-            const int* __restrict__ starts, float* __restrict__ vox, int B,
-            int pixels, int Wp, int T, int R, int K, int ww) {
-  const int m0 = blockIdx.x * BM;
-  const int t = blockIdx.y;
-  const int i = (blockIdx.z / B) * T + t;
+__device__ __forceinline__ void vox_tile(const float* __restrict__ ii,
+                                         const float* __restrict__ A,
+                                         const int* __restrict__ starts,
+                                         float* __restrict__ vox, int B,
+                                         int pixels, int Wp, int T, int R,
+                                         int K, int ww, int n, int b, int t,
+                                         int m0) {
+  const int i = n * T + t;
+  const int nb = n * B + b;
   const int s0 = WINDOW ? starts[2 * i] : starts[i];
   const int s1 = WINDOW ? starts[2 * i + 1] : 0;
   const float* A_t = A + (size_t)i * R * K;
-  const float* img = ii + (size_t)blockIdx.z * pixels * CH;
+  const float* img = ii + (size_t)nb * pixels * CH;
   int k0 = 0;
 
   float acc[4][8][4];
@@ -371,11 +376,81 @@ rig_vox_mma(const float* __restrict__ ii, const float* __restrict__ A,
                           : nullptr;
       },
       acc);
-  float* dst0 = vox + ((size_t)blockIdx.z * T + t) * R * CH;
+  float* dst0 = vox + ((size_t)nb * T + t) * R * CH;
   store_tile(
       acc,
       [&](int m) -> float* {
         return m0 + m < R ? dst0 + (size_t)(m0 + m) * CH : nullptr;
+      },
+      put4);
+}
+
+// Pass 1 as a kernel, grid vox_grid(): the scene is the innermost index, so
+// the B CTAs of one (n, t, row block), which read the same 64 rows of A,
+// are neighbours in launch order and all but the first read that A tile
+// from L2 (A is 2.9 GB on the full window rig, 6.0 GB flat: one pass over
+// it per batch instead of B). At batch 2 that took 0.8 % (window) and 2.4 %
+// (flat) off the pass against the scene-outermost order, the same vox bit
+// for bit (tools/exp_vox_order.py; PERF.md).
+template <bool WINDOW>
+__global__ void __launch_bounds__(THREADS)
+rig_vox_mma(const float* __restrict__ ii, const float* __restrict__ A,
+            const int* __restrict__ starts, float* __restrict__ vox, int B,
+            int pixels, int Wp, int T, int R, int K, int ww) {
+  vox_tile<WINDOW>(ii, A, starts, vox, B, pixels, Wp, T, R, K, ww, blockIdx.z,
+                   blockIdx.x % B, blockIdx.y, (blockIdx.x / B) * BM);
+}
+
+inline dim3 vox_grid(int R, int T, int N, int B) {
+  return dim3(B * ((R + BM - 1) / BM), T, N);
+}
+
+// Forward pass 2, the collapse: out = sum_l vox_l @ Kr[l] over all cells
+// (t, v) of the bucket, as one product of depth nl*C. Row t*tile_v + v of
+// the A operand is vox[t][l*tile_v + v][c] at depth l*C + c (channel-
+// contiguous, A_MK; a 16-deep slice never crosses a layer); the B operand
+// is Kr seen as (nl*C, n_out), so no transposed copy is needed. Rows land
+// in place at (off_t + t)*tile_v + v of the scale's (N, B, rows_total,
+// n_out) tiles; rows past T*tile_v are not written. grid
+// (ceil(T*tile_v/BM), 1, N*B). The chain of depths in the accumulators is
+// nl*C long: 1280 at nl 5, 2048 at nl 8 (rig_dkr_mma says why it matters).
+__global__ void __launch_bounds__(THREADS)
+rig_collapse_mma(const float* __restrict__ vox, const float* __restrict__ Kr,
+                 float* __restrict__ out, int T, int nl, int tile_v, int off_t,
+                 int rows_total) {
+  __shared__ int row_of[BM];   // vox row t*R + v of cell r0 + m; -1: none
+  const int cells = T * tile_v;
+  const int r0 = blockIdx.x * BM;
+  const size_t R = (size_t)nl * tile_v;
+  if (threadIdx.x < BM) {
+    const int rr = r0 + threadIdx.x;
+    row_of[threadIdx.x] =
+        rr < cells ? (int)((rr / tile_v) * R + rr % tile_v) : -1;
+  }
+  // (mma_tile's first barrier makes row_of visible to every thread)
+  const float* vox_nb = vox + (size_t)blockIdx.z * T * R * CH;
+  const float* vox_l = vox_nb;   // vox_nb + layer l's rows + channel c0
+  int k0 = 0;
+
+  float acc[4][8][4];
+  mma_tile<true>(
+      nl * (CH / BK),
+      [&](int kt) {
+        k0 = kt * BK;
+        vox_l = vox_nb + (size_t)(k0 / CH) * tile_v * CH + k0 % CH;
+      },
+      [&](int m, int k) -> const float* {
+        const int row = row_of[m];
+        return row < 0 ? nullptr : vox_l + (size_t)row * CH + k;
+      },
+      [&](int k) -> const float* { return Kr + (size_t)(k0 + k) * CH; },
+      acc);
+  float* dst0 = out + ((size_t)blockIdx.z * rows_total +
+                       (size_t)off_t * tile_v + r0) * CH;
+  store_tile(
+      acc,
+      [&](int m) -> float* {
+        return r0 + m < cells ? dst0 + (size_t)m * CH : nullptr;
       },
       put4);
 }
@@ -550,6 +625,30 @@ inline cudaError_t launch_tile(Kernel kernel, dim3 grid, cudaStream_t s,
   return cudaGetLastError();
 }
 
+// Both passes of a forward launch. pixels = rows of one (n, b) image;
+// WINDOW: K = wh*ww, Wp and ww as in band_row; flat: K = band, Wp = ww = 0.
+// Kr (nl, C, n_out); vox the (N, B, T, nl*tile_v, C) scratch; out the
+// scale's (N, B, rows_total, n_out) tiles, written at tile offset off_t.
+template <bool WINDOW>
+inline int rig_fwd_launch(const float* ii, const float* A, const int* starts,
+                          const float* Kr, float* vox, float* out, int N,
+                          int B, int pixels, int Wp, int C, int T, int nl,
+                          int tile_v, int K, int ww, int n_out, int off_t,
+                          int rows_total, void* stream) {
+  const int R = nl * tile_v;
+  if (C != CH || n_out != CH || K < 1 || K % (WINDOW ? BK : 8) != 0 || T < 1 ||
+      T > 65535 || N * B > 65535 || R < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_tile(rig_vox_mma<WINDOW>, vox_grid(R, T, N, B), s,
+                                ii, A, starts, vox, B, pixels, Wp, T, R, K, ww);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_tile(rig_collapse_mma,
+                    dim3((T * tile_v + BM - 1) / BM, 1, N * B), s, vox, Kr,
+                    out, T, nl, tile_v, off_t, rows_total);
+  return (int)err;
+}
+
 // All passes of a backward launch. pixels = rows of one (n, b) image;
 // WINDOW: K = wh*ww, Wp and ww as in band_row; flat: K = band, Wp = ww = 0.
 // KrT (nl, n_out, C); g the cotangent of the scale's tiles; vox the
@@ -571,8 +670,8 @@ inline int rig_bwd_launch(const float* ii, const float* A, const int* starts,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
 
-  err = launch_tile(rig_vox_mma<WINDOW>, dim3((R + BM - 1) / BM, T, NB), s, ii,
-                    A, starts, vox, B, pixels, Wp, T, R, K, ww);
+  err = launch_tile(rig_vox_mma<WINDOW>, vox_grid(R, T, N, B), s, ii, A,
+                    starts, vox, B, pixels, Wp, T, R, K, ww);
   if (err != cudaSuccess) return (int)err;
 
   // nl*4 output tiles; as many depth chunks as fill the card's 132 SMs

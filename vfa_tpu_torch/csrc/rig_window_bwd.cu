@@ -26,21 +26,23 @@
 // costs three TF32 products, so the card's least time is the operations at
 // 165 TFLOP/s.
 //
-// What the design does about it (rig_mma.cuh, shared with the flat
-// layout's backward): every pass is a product on one CTA tile built on
+// What the design does about it (rig_mma.cuh, the tile all four rig
+// kernels share): every pass is a product on one CTA tile built on
 // wgmma.mma_async m64n64k8 (TF32) with the 3xTF32 split, fed by a 4-stage
-// cp.async ring in dynamic shared memory; every CTA is independent. The TPU kernels' two-slot DMA pipeline, scene packing, VMEM
-// budgets and the split into a pipelined and a serial kernel do not come
-// across. For TF32 wgmma reads a shared-memory operand only
-// depth-contiguous, which no pass offers for its 256-channel operand. All
-// four therefore compute the product transposed: the channels are the M of
-// wgmma and come from registers, where each thread builds and splits its
-// fragment from the slice as it lies; the pass's 64 rows are the N and come
-// from shared memory, rewritten once per slice, split and depth-contiguous.
-//   pass 1 (rig_vox_mma): vox into a device scratch (N, B, T, nl*tile_v,
-//          C). Register operand: the window's pixels (channel-contiguous
-//          rows, addressed per pixel from the tile's window origin);
-//          shared-memory operand: 64 rows of A, already depth-contiguous.
+// cp.async ring in dynamic shared memory; every CTA is independent. The
+// TPU kernels' two-slot DMA pipeline, scene packing, VMEM budgets and the
+// split into a pipelined and a serial kernel do not come across. For TF32
+// wgmma reads a shared-memory operand only depth-contiguous, which no pass
+// offers for its 256-channel operand. All four therefore compute the
+// product transposed: the channels are the M of wgmma and come from
+// registers, where each thread builds and splits its fragment from the
+// slice as it lies; the pass's 64 rows are the N and come from shared
+// memory, rewritten once per slice, split and depth-contiguous.
+//   pass 1 (rig_vox_mma, the forward's first pass): vox into a device
+//          scratch (N, B, T, nl*tile_v, C). Register operand: the
+//          window's pixels (channel-contiguous rows, addressed per pixel
+//          from the tile's window origin); shared-memory operand: 64 rows
+//          of A, already depth-contiguous.
 //   pass 2 (rig_dkr_mma, rig_dkr_reduce): dKr as one (nl*C) x n_out product
 //          whose depth runs over every cell (n, b, t, v) of the bucket.
 //          Register operand: g; shared-memory operand: 64 channels of vox,

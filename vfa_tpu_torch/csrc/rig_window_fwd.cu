@@ -1,4 +1,5 @@
-// Window-layout compiled-rig forward for NVIDIA Hopper (sm_90a), fp32.
+// Window-layout compiled-rig forward for NVIDIA Hopper (sm_90a), fp32 in
+// and out, on the tensor cores.
 //
 // Replaces vfa_tpu/ops/rig_pallas.py::_kernel_win (the TPU Pallas kernel
 // launched by the window branch of _bucket_fwd_call). For each camera n,
@@ -14,33 +15,33 @@
 // lies inside the image padded to (fh up to 8, fw up to 16) -- the rig
 // builder checks that.
 //
-// What bounds it on the H100 (SXM, 700 W): at the full MultiviewC fp32 rig
-// (tile_v 64, 12 buckets, C = n_out = 256) the products are 705 GFLOP per
-// scene; on the CUDA cores (fp32, no tensor cores, 67 TFLOP/s) that is
-// 10.5 ms per scene. A is 2.89 GB and has to be read once per batch:
-// 0.86 ms at 3.35 TB/s. So the work is bound by fp32 operations, not by
-// bytes, from batch 1 up.
+// What bounds it on the H100 (SXM, 700 W): operations. At the full
+// MultiviewC fp32 rig (tile_v 64, 12 buckets, C = n_out = 256) the products
+// are 705 GFLOP per scene against one read of A per batch (2.89 GB: 0.86 ms
+// at 3.35 TB/s). Kept fp32-accurate on the tensor cores, a product costs
+// three TF32 products (3xTF32), so the card's least time is the operations
+// at 495 / 3 = 165 TFLOP/s: 4.3 ms per scene.
 //
-// What the design does about it: both products run as register-tiled
-// SGEMMs at the FMA rate. Every CTA is independent (the TPU grid's
+// What the design does about it: both products run on the wgmma TF32 tile
+// of rig_mma.cuh with the 3xTF32 split, the tile all four rig kernels share
+// (see there for how wgmma is fed). Every CTA is independent (the TPU grid's
 // cross-step DMA pipeline, scene packing and VMEM budgets are not carried
-// over). The CTA tile (64 x 128 outputs from 16-deep double-buffered
-// slices) and both passes live in rig_gemm.cuh, shared with the backward
-// and with the flat layout's kernels (rig_flat_fwd.cu).
-//   pass 1 (rig_vox_kernel, rig_gemm.cuh): vox = A[n,t] @ window for every
-//          (n, t, b); the A operand is A's rows, the B operand the window's
-//          pixels, gathered by (ry + k / ww, rx + k % ww).
-//   pass 2 (rig_collapse_kernel, rig_gemm.cuh): out = vox2 @ Kr2 with
-//          vox2[(t, v), l*C + c] = vox[t][l*tile_v + v][c] and Kr2 = Kr as
-//          (nl*C, n_out), one GEMM over all cells of the bucket, so Kr is
-//          read once per 64 cells.
+// over).
+//   pass 1 (rig_vox_mma, also the backward's first pass): vox = A[n,t] @
+//          window for every (n, t, b). Register operand: the window's pixels,
+//          gathered by (ry + k / ww, rx + k % ww); shared-memory operand:
+//          64 rows of A. The scene is the grid's innermost index, so the B
+//          CTAs that read one A tile run together and share it through L2.
+//   pass 2 (rig_collapse_mma): out = vox2 @ Kr2 with vox2[(t, v), l*C + c]
+//          = vox[t][l*tile_v + v][c] and Kr2 = Kr as (nl*C, n_out), one
+//          product over all cells of the bucket, depth nl*C = 1280 in one
+//          chain of accumulators. Register operand: Kr's rows; shared-memory
+//          operand: 64 cells of vox.
 // vox goes through a device scratch buffer (N, B, T, nl*tile_v, C): at the
 // full rig and batch 2 that is 1.75 GB per scale written and read once,
-// about 1 ms at 3.35 TB/s against ~7 ms of fp32 work per scale.
-// Tensor cores (3xTF32 or bf16 wgmma), TMA and a persistent schedule are
-// later work.
+// about 1 ms at 3.35 TB/s.
 
-#include "rig_gemm.cuh"
+#include "rig_mma.cuh"
 
 // ii (N, B, Hp, Wp, C) fp32; A (N, T, nl*tile_v, wh*ww) fp32; starts
 // (N*T*2) int32; Kr (nl, C, n_out) fp32; vox scratch (N, B, T,

@@ -802,7 +802,7 @@ def tf32_split(x: torch.Tensor):
     """x (fp32) -> (hi, lo), both fp32 values that fit TF32 (10 mantissa
     bits): hi is x rounded to nearest (ties away from zero, by integer
     arithmetic on the bits, as `cvt.rna.tf32.f32` rounds) and lo is x - hi
-    rounded the same way. The split of the backward kernels' 3xTF32
+    rounded the same way. The split of the rig kernels' 3xTF32
     products (`csrc/rig_mma.cuh`)."""
     def rna(v):
         bits = v.contiguous().view(torch.int32)
@@ -814,7 +814,7 @@ def tf32_split(x: torch.Tensor):
 
 
 def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor, products: int = 3):
-    """a @ b as the tensor-core passes of the backward kernels compute it:
+    """a @ b as the tensor-core passes of the rig kernels compute it:
     both operands split by `tf32_split`, a_lo @ b_hi + a_hi @ b_lo +
     a_hi @ b_hi summed in fp32, small terms first. `products` 1 keeps only
     a_hi @ b_hi (one TF32 product), 4 adds a_lo @ b_lo. For tests and logs;

@@ -14,10 +14,9 @@ shared (N, B, T_total*tile_v, n_out) buffer, then the plain epilogue
 (inv_perm gather, bias + ReLU, fp32 camera sum), which autograd
 differentiates.
 
-The forward kernels are fp32 SGEMM passes on the CUDA cores; the backward
-kernels run on the tensor cores and stay fp32-accurate through a 3xTF32
-split (`csrc/rig_mma.cuh`; the same arithmetic in plain PyTorch is
-`ops/rig.matmul_3xtf32`).
+All four kernels run on one tensor-core tile and stay fp32-accurate
+through a 3xTF32 split (`csrc/rig_mma.cuh`; the same arithmetic in plain
+PyTorch is `ops/rig.matmul_3xtf32`).
 
 On a CPU tensor a wrapper runs its kernel's plain version
 (`ops/rig.window_tiles`, `window_tiles_bwd`, `flat_tiles`,
@@ -39,11 +38,11 @@ def _check_launch(what, ii, tensors, shapes_ok, C, n_out, K, describe,
                   k_multiple=16):
     """Shared argument checks of the kernels' wrappers: one device,
     contiguous, float32 (int32 starts), consistent shapes, and the widths
-    the kernels are written for: C = n_out = 256 (the width of the CTA
-    tiles, of the forward's SGEMM passes and of the backward's tensor-core
-    passes alike) and a band length K that is a multiple of 16 for a
-    window, of 8 for a flat band (both stage 16-deep slices and mask whole
-    16-byte quads past a band; any nl, tile_v and T go)."""
+    the kernels are written for: C = n_out = 256 (the width of the
+    tensor-core CTA tile that every pass runs on) and a band length K that
+    is a multiple of 16 for a window, of 8 for a flat band (both stage
+    16-deep slices and mask whole 16-byte quads past a band; any nl, tile_v
+    and T go)."""
     if ii.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {ii.device}")
     for name, t in tensors.items():
