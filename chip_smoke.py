@@ -16,7 +16,7 @@ result line):
      8-bucket flat rig (tile_v 160) and on a small 16-tap rig (cumsum'd
      features); all rig kernels run 3xTF32 on the tensor cores; and the two
      stem backward kernels at (14, 64, 360, 640), also on an integer-valued
-     input where ties decide;
+     input where ties decide (stem_bwd_stats twice: the same bits);
   3. drive the serving path, `python -m vfa_tpu_torch.predict` at full
      width with random seeded weights, once per rig layout, with every
      kernel's launch count set to 0 just before and read just after; then
@@ -31,9 +31,11 @@ result line):
   5. time each kernel (CUDA events, warmed up) beside its bound and its
      plain version (the rig kernels' operations are held to 495 / 3 = 165
      TFLOP/s, fp32-accurate 3xTF32 on the tensor cores; the window backward
-     also alone at B = 1), split each forward's device time between its two
-     passes (torch.profiler), and print peak memory, the card's name and
-     power limit, the `kernels` JSON line and, last, the `ok` JSON line.
+     also alone at B = 1; the stem kernels with their GB/s and share of the
+     byte bound, and the fused stem backward beside autograd of the unfused
+     chain), split each forward's device time between its two passes
+     (torch.profiler), and print peak memory, the card's name and power
+     limit, the `kernels` JSON line and, last, the `ok` JSON line.
 Imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -338,6 +340,9 @@ def phase_stem_vs_plain(device):
         torch.cuda.synchronize()
         errs["stem_bwd_stats"].append(check_close(
             f"stem_bwd_stats {tag}", acc, stem.stem_bwd_stats_plain(x, dy, params)))
+        if not torch.equal(acc, stem.stem_bwd_stats(x, dy, params)):
+            raise AssertionError(f"stem_bwd_stats {tag}: two runs give other bits")
+        log(f"  stem_bwd_stats {tag}: the same bits in two runs")
         c = torch.randn(mu.shape, generator=torch.Generator().manual_seed(5)).to(device) * 1e-3
         params = stem.plane_params(mu, rstd, scale, bias, c, -c)
         dx = stem.stem_bwd_dx(x, dy, params)
@@ -637,10 +642,13 @@ def phase_tf32_arithmetic(device):
 
 
 def phase_stem_numbers(device):
-    """name -> (ms, plain_ms, bound_ms, bound_by) of the two stem kernels at
-    STEM_SHAPE. Neither is a matrix product: a few tens of comparisons and
-    ~10 flops per pixel. Bytes: x and dy read and the (M*C, 8) parameters,
-    acc (stats) or dx (dx) written."""
+    """name -> (ms, plain_ms, bound_ms, bound_by, GB/s, share of the bound)
+    of the two stem kernels at STEM_SHAPE. Neither is a matrix product: a
+    few tens of comparisons and ~10 flops per pixel. Bytes: x and dy read
+    and the (M*C, 8) parameters, acc (stats) or dx (dx) written. Then, as
+    context, the whole fused backward (`gn_relu_pool_bwd`: both kernels and
+    the small reductions between them) beside autograd of the unfused chain
+    from its stored activations (what the fused stem replaces)."""
     from vfa_tpu_torch.ops import stem
 
     x, scale, bias, dy, mu, rstd = stem_inputs(device, integers=False)
@@ -657,11 +665,26 @@ def phase_stem_numbers(device):
         nbytes = 4 * (x.numel() + dy.numel() + params.numel() + written)
         flops = 50 * x.numel()
         b_ms, by = bound_ms(flops, nbytes, PEAK_FP32_FLOPS)
+        gbps = nbytes / min(k_ms) / 1e6
         log(f"  {name} {tuple(x.shape)}: " + " / ".join(f"{t:.3f}" for t in k_ms)
             + " ms, plain " + " / ".join(f"{t:.3f}" for t in p_ms)
             + f" ms, bound {b_ms:.3f} ms by {by} ({nbytes / 1e9:.3f} GB, "
-            f"~{flops / 1e9:.1f} GFLOP)")
-        out[name] = (min(k_ms), min(p_ms), b_ms, by)
+            f"~{flops / 1e9:.1f} GFLOP); {gbps:.0f} GB/s, "
+            f"{b_ms / min(k_ms):.1%} of the bound")
+        out[name] = (min(k_ms), min(p_ms), b_ms, by, gbps, b_ms / min(k_ms))
+    del params
+    fused = cuda_time_ms(lambda: stem.gn_relu_pool_bwd(x, scale, bias, dy, mu, rstd),
+                         reps=5)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
+        y = stem._chain(*leaves, 16, 1e-5)
+        unfused = cuda_time_ms(lambda: torch.autograd.grad(y, leaves, dy,
+                                                           retain_graph=True), reps=5)
+    del y, leaves
+    log(f"  stem backward at {tuple(x.shape)}: fused (stem_bwd_stats + "
+        f"stem_bwd_dx + reductions) {fused:.3f} ms, kernels alone "
+        f"{out['stem_bwd_stats'][0] + out['stem_bwd_dx'][0]:.3f} ms; autograd "
+        f"of the unfused chain from its stored activations {unfused:.3f} ms")
     return out
 
 
@@ -748,7 +771,9 @@ def main() -> int:
     log(f"card: {card.splitlines()[0]}")
 
     def entry(name, source, replaces, launches, **extra):
-        ms, plain_ms, b_ms, by = num[name]
+        ms, plain_ms, b_ms, by, *rate = num[name]
+        if rate:
+            extra.update(gb_per_s=rate[0], share_of_bound=rate[1])
         return {"name": name, "route": "cuda",
                 "source": f"vfa_tpu_torch/csrc/{source}.cu", "replaces": replaces,
                 "launches": launches, "max_abs_err": err[name][0],

@@ -83,6 +83,85 @@ def test_encode_targets_match_jax(cfg, dense_rotation):
     assert float(got["mask"][0].sum()) == 3.0            # 4 valid, 2 share a cell
 
 
+def _place(batch, cfg, b, i, row, col):
+    """Put object i of frame b on grid cell (row, col), indices unclipped
+    (Wildtrack's row is the location's x, MultiviewC's its y)."""
+    cx, cy = (row, col) if cfg.name == "Wildtrack" else (col, row)
+    cell = np.asarray(cfg.world_size, np.float32) / np.asarray(cfg.grid_shape, np.float32)
+    batch["location"][b, i, :2] = (np.array([cx, cy], np.float32) + [0.3, 0.6]) * cell
+
+
+# (object 1 of frame 0 at (row, col), object 3 at (row, col) or None) ->
+# cells of frame 0's mask after JAX's wrap, and its sum. In frame 0 objects 0
+# and 2 share one cell already (3 cells from 4 objects).
+WRAP_CASES = {
+    "row_minus_1": ((-1, 2), None, 3),
+    "col_minus_1": ((1, -1), None, 3),
+    "row_L": (("L", 2), None, 2),
+    "wrapped_then_later_in_grid": ((-1, 2), ("L-1", 2), 2),
+}
+
+
+@pytest.mark.parametrize("case", list(WRAP_CASES))
+@pytest.mark.parametrize("cfg", [mc_opts, wt_opts], ids=lambda c: c.name)
+def test_encode_wraps_negative_cells_as_jax(cfg, case):
+    """The dense targets take JAX's scatter index rule: row (col) -1 wraps
+    to L-1 (W-1), row L is dropped, and a later valid object on the wrapped
+    cell wins. mask, offsets, dense rotation and n_pos equal JAX's."""
+    rng = np.random.default_rng(9)
+    jcfg = tiny_config(cfg)
+    tcfg = t_tiny_config(get_config(cfg.name))
+    L, W = jcfg.grid_shape
+    batch = _batch(jcfg, rng)
+    first, later, n_pos = WRAP_CASES[case]
+    sub = lambda v: {"L": L, "L-1": L - 1}.get(v, v)
+    _place(batch, jcfg, 0, 1, *map(sub, first))
+    if later is not None:
+        _place(batch, jcfg, 0, 3, *map(sub, later))
+    dm = DIM_MEAN if cfg.mode == "3D" else None
+    want = j_encode_targets({k: jnp.asarray(v) for k, v in batch.items()}, jcfg,
+                            None if dm is None else jnp.asarray(dm), 360)
+    got = ttl.encode_targets({k: torch.from_numpy(v) for k, v in batch.items()},
+                             tcfg, dm, 360)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=RTOL, atol=ATOL, err_msg=k)
+    assert float(got["mask"][0].sum()) == float(want["mask"][0].sum()) == n_pos
+    r, c = map(sub, first)
+    if -L <= r < L and -W <= c < W:
+        assert float(got["mask"][0, 0, r % L, c % W]) == 1.0
+    if later is not None:
+        # the wrapped cell holds the later object's offsets
+        loc = batch["location"][0, 3, :2] / np.asarray(jcfg.world_size) * jcfg.grid_shape
+        np.testing.assert_allclose(got["loc_offset"][0, r % L, c % W].numpy(),
+                                   loc - np.floor(loc), rtol=RTOL, atol=ATOL)
+
+
+def test_encode_wrapped_cell_full_multiviewc():
+    """Full MultiviewC (156 x 156): one object half a cell below y = 0 and
+    one inside; both packages mark (39, 39) and the wrapped (155, 78)."""
+    jcfg, tcfg = mc_opts, get_config("MultiviewC")
+    cell = np.asarray(jcfg.world_size, np.float32) / np.asarray(jcfg.grid_shape, np.float32)
+    loc = np.zeros((2, 3), np.float32)
+    loc[0, :2] = np.array([39.5, 39.5]) * cell
+    loc[1, :2] = np.array([78.5, -0.5]) * cell
+    objs = {"location": loc, "valid": np.ones(2, np.float32),
+            "dimension": np.full((2, 3), 200.0, np.float32),
+            "rotation": np.array([0.3, -1.2], np.float32)}
+    heat = np.zeros(jcfg.grid_shape, np.float32)
+    want = jc.encode_frame({k: jnp.asarray(v) for k, v in objs.items()},
+                           jnp.asarray(heat), jcfg, dim_mean=jnp.asarray(DIM_MEAN))
+    got = tc.encode_frame({k: torch.from_numpy(v) for k, v in objs.items()},
+                          torch.from_numpy(heat), tcfg, dim_mean=DIM_MEAN)
+    cells = [[39, 39], [155, 78]]
+    assert np.argwhere(np.asarray(want["mask"])[0, 0]).tolist() == cells
+    assert torch.nonzero(got["mask"][0, 0]).tolist() == cells
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=RTOL, atol=ATOL, err_msg=k)
+
+
 def test_encode_single_frame_keeps_jax_shapes():
     rng = np.random.default_rng(6)
     jcfg = tiny_config(mc_opts)

@@ -378,7 +378,8 @@ def _stem_inputs(shape, seed, quantised, device):
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 24, 32), (3, 64, 23, 37), (1, 32, 7, 10),
-                                   (1, 64, 256, 48), (2, 64, 90, 130), (1, 16, 1, 5)],
+                                   (1, 64, 256, 48), (2, 64, 90, 130), (1, 16, 1, 5),
+                                   (1, 64, 100, 640), (2, 32, 61, 260), (2, 32, 61, 261)],
                          ids=str)
 def test_stem_kernels_match_plain(cuda, shape):
     """K6 and K7 against their plain versions on the same per-plane
@@ -448,3 +449,70 @@ def test_stem_kernel_rejects_bad_inputs(cuda):
         tstem.stem_bwd_dx(x, g[:, :, :3], params)
     with pytest.raises(ValueError, match="contiguous"):
         tstem.stem_bwd_dx(x.transpose(2, 3), g, params)
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 102, 640), (2, 32, 61, 260), (1, 16, 23, 256)],
+                         ids=str)
+def test_stem_kernels_paths_and_bits(cuda, shape):
+    """Planes of 51, 31 and 12 window rows: strips of 5 with boundaries at
+    odd and even window rows and a short last strip. acc has the same bits
+    in two runs and stays within 1e-4 of the plain version's max; on planes
+    that are not 16-byte aligned (the scalar path) dx and acc have the same
+    bits as on the 16-byte path."""
+    x, scale, bias, g = _stem_inputs(shape, 4, False, cuda)
+    _, mu, rstd = tstem.group_norm_stats(x, scale, bias, 16, 1e-5)
+    c = torch.randn(mu.shape, generator=torch.Generator().manual_seed(2)).to(cuda) * 0.1
+    params = tstem.plane_params(mu, rstd, scale, bias, c, -c)
+    acc = tstem.stem_bwd_stats(x, g, params)
+    assert torch.equal(acc, tstem.stem_bwd_stats(x, g, params))
+    want = tstem.stem_bwd_stats_plain(x, g, params)
+    np.testing.assert_allclose(acc.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+    dx = tstem.stem_bwd_dx(x, g, params)
+    np.testing.assert_allclose(dx.cpu().numpy(),
+                               tstem.stem_bwd_dx_plain(x, g, params).cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * float(dx.abs().max()))
+    # the same values one float into a buffer: every plane off 16-byte alignment
+    x_off = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)
+    x_off.copy_(x)
+    assert x_off.data_ptr() % 16 and x_off.is_contiguous()
+    assert torch.equal(tstem.stem_bwd_dx(x_off, g, params), dx)
+    assert torch.equal(tstem.stem_bwd_stats(x_off, g, params), acc)
+
+
+@pytest.mark.parametrize("bias_value", [0.25, -0.25])
+@pytest.mark.parametrize("shape", [(1, 16, 9, 12), (1, 16, 10, 11)], ids=str)
+def test_stem_kernels_constant_plane(cuda, shape, bias_value):
+    """x constant in every plane: every window is tied, and the windows on
+    the image's edge also hold padding. With bias > 0 each window's dy goes
+    to its first pixel inside the image (never to padding); with bias < 0
+    nothing passes the ReLU and dz is 0 everywhere."""
+    M, C, H, W = shape
+    x = torch.full(shape, 0.7, device=cuda)
+    scale = torch.ones(C, device=cuda)
+    bias = torch.full((C,), bias_value, device=cuda)
+    g = torch.randn((M, C, (H + 1) // 2, (W + 1) // 2),
+                    generator=torch.Generator().manual_seed(3)).to(cuda)
+    _, mu, rstd = tstem.group_norm_stats(x, scale, bias, 16, 1e-5)
+    params = tstem.plane_params(mu, rstd, scale, bias)
+    dz = tstem.stem_bwd_dx(x, g, params)
+    want = tstem.stem_bwd_dx_plain(x, g, params)
+    assert torch.equal(dz == 0, want == 0)
+    np.testing.assert_allclose(dz.cpu().numpy(), want.cpu().numpy(), rtol=1e-5,
+                               atol=1e-6)
+    z = torch.nn.functional.group_norm(x, 16, scale, bias, 1e-5).requires_grad_()
+    y = torch.nn.functional.max_pool2d(torch.relu(z), 3, 2, 1)
+    (dz_ref,) = torch.autograd.grad(y, z, g)
+    assert torch.equal(dz == 0, dz_ref == 0)
+    if bias_value < 0:
+        assert not dz.any()
+    else:   # window (oh, ow)'s first pixel inside the image
+        rows = torch.clamp(2 * torch.arange(g.shape[2]) - 1, min=0)
+        cols = torch.clamp(2 * torch.arange(g.shape[3]) - 1, min=0)
+        hit = torch.zeros((H, W), dtype=torch.bool)
+        hit[rows[:, None], cols[None, :]] = True
+        assert torch.equal(dz[0, 0].cpu() != 0, hit)
+    acc = tstem.stem_bwd_stats(x, g, params)
+    ref = tstem.stem_bwd_stats_plain(x, g, params)
+    np.testing.assert_allclose(acc.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4 * max(float(ref.abs().max()), 1e-30))

@@ -6,9 +6,13 @@ Encode: each object's center picks a grid cell (Wildtrack's index order is
 swapped), and the cell gets fractional location offsets, log(dim /
 class_mean) dimension offsets and a 360-bin Circular-Smooth-Label rotation
 target. Batched over scenes on the objects' device, no loop over cells;
-two objects on one cell resolve last-writer-wins through the `owner` mask
-of `object_cells`, so every cell is written once and the result does not
-depend on the order in which a device applies a scatter.
+two objects on one cell resolve last-writer-wins through an `owner` mask,
+so every cell is written once and the result does not depend on the order
+in which a device applies a scatter. The dense targets index the grid as
+the JAX package's `.at[row, col].set(..., mode="drop")` does: a row in
+[-L, 0) wraps to row + L (columns likewise with W), and only indices
+outside [-L, L) x [-W, W) are dropped. `object_cells` clips instead, as
+its JAX twin does (the sparse rotation loss reads it).
 
 Decode: sigmoid -> 5x5 maxpool-equality NMS -> top-k -> threshold ->
 invert the offset / dimension / CSL encodings. Fixed-shape (B, K) outputs
@@ -60,20 +64,29 @@ def object_cells(objects: Dict[str, torch.Tensor], cfg: DatasetConfig):
     last-writer-wins scatter leaves that object's targets. Rows and cols
     are clipped into the grid."""
     L, W = cfg.grid_shape
+    row, col = _grid_indices(objects, cfg)
+    inside = (row >= 0) & (row < L) & (col >= 0) & (col < W)
+    owner = _last_writers(row * W + col, (objects["valid"] > 0) & inside)
+    return row.clamp(0, L - 1), col.clamp(0, W - 1), owner
+
+
+def _grid_indices(objects, cfg: DatasetConfig):
+    """Unclipped (row, col) of each object's cell; Wildtrack swaps them."""
     loc = _normalized_locations(objects["location"], cfg.world_size,
                                 cfg.grid_shape)
     cx = torch.floor(loc[..., 0]).to(torch.int64)
     cy = torch.floor(loc[..., 1]).to(torch.int64)
-    row, col = (cx, cy) if cfg.name == "Wildtrack" else (cy, cx)
-    inside = (row >= 0) & (row < L) & (col >= 0) & (col < W)
-    valid = (objects["valid"] > 0) & inside
-    key = row * W + col
+    return (cx, cy) if cfg.name == "Wildtrack" else (cy, cx)
+
+
+def _last_writers(key: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """(..., M) mask of the valid objects that no later valid object with
+    the same key follows."""
     M = key.shape[-1]
     later = torch.ones((M, M), dtype=torch.bool, device=key.device).triu(1)
     same_later = ((key[..., None, :] == key[..., :, None])
                   & valid[..., None, :] & later)
-    owner = valid & ~same_later.any(-1)
-    return row.clamp(0, L - 1), col.clamp(0, W - 1), owner
+    return valid & ~same_later.any(-1)
 
 
 def encode_frame(objects: Dict[str, torch.Tensor], heatmap: torch.Tensor,
@@ -88,8 +101,9 @@ def encode_frame(objects: Dict[str, torch.Tensor], heatmap: torch.Tensor,
     encoded as a batch of one. Returns mask (B, 1, L, W), heatmap
     (B, 1, L, W), loc_offset (B, L, W, 2) and, in 3D mode, dim_offset
     (B, L, W, 3) and (with dense_rotation) rotation (B, L, W, angle_range).
-    Objects that are padded or fall outside the grid are dropped; an empty
-    frame encodes to all-zero targets."""
+    Objects that are padded or fall outside [-L, L) x [-W, W) are dropped,
+    a negative index wraps (module docstring); an empty frame encodes to
+    all-zero targets."""
     if objects["location"].dim() == 2:
         objects = {k: v[None] for k, v in objects.items()}
         heatmap = heatmap[None]
@@ -97,7 +111,12 @@ def encode_frame(objects: Dict[str, torch.Tensor], heatmap: torch.Tensor,
     location = objects["location"].float()
     B, M = location.shape[:2]
     dev = location.device
-    row, col, owner = object_cells(objects, cfg)
+    # JAX's scatter index rule: a row in [-L, 0) wraps to row + L, one in
+    # [0, L) stays, any other is dropped (columns likewise with W)
+    row, col = _grid_indices(objects, cfg)
+    kept = (row >= -L) & (row < L) & (col >= -W) & (col < W)
+    row, col = row.remainder(L), col.remainder(W)
+    owner = _last_writers(row * W + col, (objects["valid"] > 0) & kept)
     # every owner writes its own cell; all others go to one spare slot
     flat = (torch.arange(B, device=dev)[:, None] * L + row) * W + col
     flat = torch.where(owner, flat, torch.full_like(flat, B * L * W)).reshape(-1)

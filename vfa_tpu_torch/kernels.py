@@ -46,10 +46,12 @@ SIGNATURES = {
 
 
 class KernelLibrary:
-    """Builds kernels on demand and holds the loaded libraries."""
+    """Builds kernels on demand from the sources in `csrc` and holds the
+    loaded libraries."""
 
-    def __init__(self, build_dir: str = BUILD):
+    def __init__(self, build_dir: str = BUILD, csrc: str = CSRC):
         self.build_dir = build_dir
+        self.csrc = csrc
         self.ptxas_log: Dict[str, str] = {}
         self._libs: Dict[str, ctypes.CDLL] = {}
         self._lock = threading.Lock()
@@ -62,12 +64,12 @@ class KernelLibrary:
         return path
 
     def _paths(self, name: str):
-        return (os.path.join(CSRC, f"{name}.cu"),
+        return (os.path.join(self.csrc, f"{name}.cu"),
                 os.path.join(self.build_dir, f"lib{name}.so"))
 
     def _stale(self, name: str) -> bool:
         src, so = self._paths(name)
-        deps = [src, *glob.glob(os.path.join(CSRC, "*.cuh"))]
+        deps = [src, *glob.glob(os.path.join(self.csrc, "*.cuh"))]
         return (not os.path.exists(so)
                 or os.path.getmtime(so) < max(map(os.path.getmtime, deps)))
 

@@ -130,6 +130,11 @@ def _check_launch(what, x, dy, params):
                          f"got {M * C}")
 
 
+# Both kernels (`csrc/stem_bwd.cu`) give one warp to each item of one plane,
+# STRIP pool-window rows and 128 columns; must equal the kernel's STRIP.
+STRIP = 5
+
+
 def _launch(fn, x, dy, params, *outs):
     from vfa_tpu_torch.kernels import launch
 
@@ -148,8 +153,9 @@ def stem_bwd_stats(x: torch.Tensor, dy: torch.Tensor,
         return stem_bwd_stats_plain(x, dy, params)
     _check_launch("stem_bwd_stats", x, dy, params)
     M, C, H, W = x.shape
-    # per-tile sums between the kernel's two stages (16 x 64 pixel tiles)
-    partial = torch.empty((M * C, -(-H // 16) * -(-W // 64), 2),
+    # per-item sums between the kernel's two stages
+    items = -(-((H - 1) // 2 + 1) // STRIP) * -(-W // 128)
+    partial = torch.empty((M * C, items, 2),
                           dtype=torch.float32, device=x.device)
     acc = torch.empty((M, 4, C), dtype=torch.float32, device=x.device)
     _launch("stem_bwd_stats_f32", x, dy, params, partial, acc)
