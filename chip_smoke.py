@@ -28,7 +28,19 @@ result line):
      stem on, counts set to 0 before and read after; then the same run
      through the plain versions under autograd (unfused stem), and compare
      per-step losses and final parameters; then one step at batch 1;
-  5. time each kernel (CUDA events, warmed up) beside its bound and its
+  5. drive the bench, `python -m vfa_tpu_torch.bench`, counts set to 0
+     just before each run and read just after: MultiviewC serving with the
+     auto batch (each attempt's peak memory on stderr) on the 12-bucket
+     rig; the first full-width runs of the 2D configs: MultiviewX (6 x
+     720x1280, 160x250 BEV, nl 8) on one 8-bucket window rig, serving and
+     training at batch 2, with K1 held against its plain version at B = 1,
+     2 and 8 (the vox scratch past 2^31 elements) and K2 at B = 1, 2, and
+     the rig's BEV features against the reference voxel route (rig=None)
+     at batch 1; Wildtrack (7 x 720x1280, 120x360 BEV, nl 8) on one
+     12-bucket window rig, K1 against its plain version and serving at
+     batch 2. Their rigs are built on the host by two processes started at
+     the beginning (into a temporary rig cache, loaded from it here);
+  6. time each kernel (CUDA events, warmed up) beside its bound and its
      plain version (the rig kernels' operations are held to 495 / 3 = 165
      TFLOP/s, fp32-accurate 3xTF32 on the tensor cores; the window backward
      also alone at B = 1; the stem kernels with their GB/s and share of the
@@ -44,8 +56,10 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -78,6 +92,15 @@ TRAIN_LR = "0.0001"
 # in another order than autograd's
 STEM_PARAM_TOL = 1e-3
 STEM_SHAPE = (7 * BATCH, 64, 360, 640)   # conv1's output at batch 2
+# rig vs the reference voxel route at full width (tests/test_rig.py:47)
+REF_RTOL, REF_ATOL = 2e-3, 2e-4
+BENCH_ITERS, BENCH_WARMUP = 5, 2
+BENCH = ["--batch", str(BATCH), "--iters", str(BENCH_ITERS), "--warmup",
+         str(BENCH_WARMUP)]
+BENCH_CALLS = 1 + BENCH_WARMUP + BENCH_ITERS + 1   # first, warm-up, timed, counted
+# rigs of the 2D configs, built on the host while the card works:
+# (data, buckets); 8 buckets = the training policy, 12 = serving
+PREBUILT = (("MultiviewX", 8), ("Wildtrack", 12))
 
 
 def counters():
@@ -155,23 +178,58 @@ def phase_build():
     log(f"phase 1 build: {names} in {time.perf_counter() - t0:.1f} s")
 
 
-def full_rig(device, training: bool, layout: str = "window"):
-    """The full MultiviewC fp32 rig under the serving (12 buckets) or the
-    training (8 buckets) policy, built once and handed to the CLIs."""
+def full_rig(device, training: bool, layout: str = "window",
+             data: str = "MultiviewC", buckets: int = None, cache_dir=None):
+    """A full-width fp32 rig under the serving (12 buckets) or the training
+    (8 buckets) policy, built once (or loaded from `cache_dir`) and handed
+    to the CLIs and the bench."""
     from vfa_tpu_torch.config import get_config
     from vfa_tpu_torch.data.synthetic import make_calibrations
     from vfa_tpu_torch.rig_cli import build_cli_rig
 
-    cfg = get_config("MultiviewC")
+    cfg = get_config(data)
     t0 = time.perf_counter()
-    rig = build_cli_rig(cfg, make_calibrations(cfg), device, training=training,
-                        layout=layout)
+    rig = build_cli_rig(cfg, make_calibrations(cfg), device, buckets=buckets,
+                        training=training, layout=layout, cache_dir=cache_dir)
     a_bytes = sum(a.numel() * 4 for s in rig.scales for a in s.A)
-    log(f"full MultiviewC fp32 {layout} {'training' if training else 'serving'} "
+    log(f"full {data} fp32 {layout} "
         f"rig: {[len(s.A) for s in rig.scales]} buckets, "
-        f"tile_v {rig.scales[0].tile_v}, A {a_bytes} bytes "
-        f"({a_bytes / 1e9:.3f} GB), built in {time.perf_counter() - t0:.1f} s")
+        f"tile_v {rig.scales[0].tile_v}, nl {rig.scales[0].nl}, A shapes "
+        f"{[tuple(s.A[0].shape) for s in rig.scales]} (bucket 0 of each scale), "
+        f"A {a_bytes} bytes ({a_bytes / 1e9:.3f} GB), "
+        f"{'loaded' if cache_dir else 'built'} in {time.perf_counter() - t0:.1f} s")
     return rig
+
+
+def start_rig_builds(cache_dir):
+    """One host process per PREBUILT rig, each building it on the CPU (no
+    card) into the rig cache at `cache_dir`; returns them running."""
+    procs = []
+    for data, buckets in PREBUILT:
+        code = ("from vfa_tpu_torch.config import get_config\n"
+                "from vfa_tpu_torch.data.synthetic import make_calibrations\n"
+                "from vfa_tpu_torch.rig_cli import build_cli_rig\n"
+                f"cfg = get_config({data!r})\n"
+                f"build_cli_rig(cfg, make_calibrations(cfg), 'cpu', buckets={buckets}, "
+                f"cache_dir={cache_dir!r})\n")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+            cwd=os.path.dirname(os.path.abspath(__file__))))
+    return procs
+
+
+def prebuilt_rig(procs, i, device, cache_dir):
+    """Wait for rig build `i`, log its host build line, load the rig."""
+    data, buckets = PREBUILT[i]
+    out, _ = procs[i].communicate()
+    if procs[i].returncode:
+        raise RuntimeError(f"the {data} rig build failed:\n{out}")
+    log(f"host build of the {data} rig (a process of its own, no cache): "
+        f"{out.strip().splitlines()[-1]}")
+    return full_rig(device, training=buckets == 8, data=data, buckets=buckets,
+                    cache_dir=cache_dir)
 
 
 def small_taps_rig(device):
@@ -523,6 +581,112 @@ def phase_main_path(rig, device, scenes: int):
     return launches, res, peak
 
 
+def phase_bench(argv, rig, kernels, calls=None):
+    """`python -m vfa_tpu_torch.bench` in this process on a built rig, every
+    kernel's count set to 0 just before and read just after. Each of
+    `kernels` must have launched; with `calls` (the bench's calls at one
+    batch: first, warm-up, timed, counted) exactly once per bucket a call.
+    TF32 goes back off for the parity phases (the bench turns cuDNN's on)."""
+    from vfa_tpu_torch import bench
+
+    reset_launches()
+    res = bench.main(argv, rig=rig)
+    launches = read_launches()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    buckets = sum(len(s.A) for s in rig.scales)
+    tag = " ".join(argv)
+    if not (np.isfinite(res["value"]) and res["value"] > 0
+            and res["tflops_per_sec"] > 0 and "mfu" in res):
+        raise AssertionError(f"bench {tag}: bad result {res}")
+    for name, n in launches.items():
+        want = None if calls is None else calls * buckets
+        if name in kernels and (n <= 0 or want is not None and n != want):
+            raise AssertionError(f"bench {tag}: {name} launched {n} times, "
+                                 f"expected {want or 'some'}")
+        if name not in kernels and n:
+            raise AssertionError(f"bench {tag}: {name} launched {n} times")
+    per = f"; {buckets} per call over {calls} calls" if calls else ""
+    log(f"phase 5 bench {tag}: {res}; launches {launches}{per}")
+    return res, launches
+
+
+def phase_rig_vs_reference(rig, device, data: str):
+    """The kernel route's summed BEV features against the reference voxel
+    route's (rig=None) at full width, batch 1, same seeded weights, scale by
+    scale and summed (the model's camera and scale sums, before the final
+    cast): max abs and rel error beside tests/test_rig.py:47's rtol / atol,
+    and the largest |err| / (atol + rtol |ref|)."""
+    from vfa_tpu_torch.config import get_config
+    from vfa_tpu_torch.data.synthetic import make_scene
+    from vfa_tpu_torch.model.vfanet import VFANet, init_weights, voxel_contribution
+    from vfa_tpu_torch.ops.rig_cuda import rig_sample_scale_cuda
+    from vfa_tpu_torch.ops.voxel import sample_voxels, voxel_boxes
+
+    cfg = get_config(data)
+    model = init_weights(VFANet(cfg), torch.Generator().manual_seed(0)).to(device).eval()
+    f64 = lambda t: t.to(torch.float64)
+    scene = make_scene(cfg, seed=0, num_objects=6)
+    images = torch.from_numpy(scene.images[None]).to(device)
+    calibs = torch.from_numpy(scene.calibs[None]).to(device)
+    grid = torch.from_numpy(scene.grid).to(device)
+    L, W = cfg.grid_shape
+    N = cfg.num_cam
+    reset_launches()
+    got_sum = want_sum = exact_sum = 0.0
+    rows, rows64 = [], []
+    with torch.no_grad():
+        lats = model.laterals(images)
+        boxes = [voxel_boxes(calibs[:, n], grid, dataset=cfg.name,
+                             grid_height=cfg.grid_h, cube_size=cfg.cube_size,
+                             image_size=cfg.image_size) for n in range(N)]
+        for si, (sr, lat, lin) in enumerate(zip(rig.scales, lats, model.collapses())):
+            lat5 = lat.permute(0, 2, 3, 1).reshape(1, N, *lat.shape[2:], -1)
+            got = rig_sample_scale_cuda(lat5, sr, lin.weight.t(), lin.bias,
+                                        out_dtype=torch.float32,
+                                        camera_sum=True).reshape(1, L, W, -1)
+            want = sum(voxel_contribution(lat[n:n + 1], boxes[n], lin)
+                       for n in range(N))
+            # the same voxel route in float64 (same boxes and weights): what
+            # both fp32 routes round away from
+            exact = sum(torch.relu(torch.nn.functional.linear(
+                sample_voxels(f64(lat[n:n + 1]), f64(boxes[n])), f64(lin.weight),
+                f64(lin.bias))) for n in range(N))
+            rows.append((f"scale {si}", got, want))
+            rows64 += [(f"scale {si}, rig route vs fp64 voxel route", got, exact),
+                       (f"scale {si}, fp32 voxel route vs fp64 voxel route", want, exact)]
+            got_sum, want_sum = got_sum + got, want_sum + want
+            exact_sum = exact_sum + exact
+    rows.append(("sum of the 3 scales", got_sum, want_sum))
+    rows64 += [("sum, rig route vs fp64 voxel route", got_sum, exact_sum),
+               ("sum, fp32 voxel route vs fp64 voxel route", want_sum, exact_sum)]
+    if read_launches()["rig_window_fwd"] != sum(len(s.A) for s in rig.scales):
+        raise AssertionError("the rig route did not run through rig_window_fwd")
+    out = {}
+    for tag, got, want in rows + rows64:
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise AssertionError(f"{data} rig vs reference {tag}: non-finite")
+        diff = (got.double() - want.double()).abs()
+        err, ref_max = float(diff.max()), float(want.abs().max())
+        share = float((diff / (REF_ATOL + REF_RTOL * want.double().abs())).max())
+        log(f"  {data} rig vs reference voxel route, {tag}: max abs err "
+            f"{err:.3e}, max rel err {err / ref_max:.3e} (of max |ref| "
+            f"{ref_max:.3e}); largest |err| / (atol + rtol |ref|) {share:.3f} "
+            f"(rtol {REF_RTOL:.0e}, atol {REF_ATOL:.0e}, tests/test_rig.py:47)")
+        out[tag] = (err, err / ref_max, share)
+    log(f"phase 5 {data} rig vs reference at full width, batch 1: the fp32 "
+        "routes are "
+        f"{'within' if out['sum of the 3 scales'][2] <= 1 else 'OUTSIDE'} the "
+        "tolerance of each other (ROADMAP F2); the rig route is "
+        f"{out['sum, rig route vs fp64 voxel route'][2]:.3f} and the fp32 voxel "
+        f"route {out['sum, fp32 voxel route vs fp64 voxel route'][2]:.3f} of it "
+        "from the fp64 voxel route")
+    if not out["sum, rig route vs fp64 voxel route"][2] <= 1:
+        raise AssertionError(f"{data}: the rig route is outside rtol {REF_RTOL} / "
+                             f"atol {REF_ATOL} of the fp64 voxel route")
+    return out
+
+
 def kernel_work(rig, B, backward: bool):
     """(flops, bytes) of all launches of one forward or one backward, each
     input read once and each output written once.
@@ -696,7 +860,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    rig_cache = tempfile.mkdtemp(prefix="chip_smoke_rigs_")
+    builds = start_rig_builds(rig_cache)
+    try:
+        return run_phases(device, t_start, builds, rig_cache)
+    finally:
+        for proc in builds:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(rig_cache, ignore_errors=True)
 
+
+def run_phases(device, t_start, builds, rig_cache) -> int:
     phase_build()
     phase_tf32_arithmetic(device)
     err, num = {}, {}
@@ -712,6 +887,8 @@ def main() -> int:
     serve_launches, res, peak = phase_main_path(rig, device, scenes=6)
     num["rig_window_fwd"] = phase_numbers(rig, device, backward=False)
     phase_pass_shares(rig, device)
+    bench_mc, _ = phase_bench(["--data", "MultiviewC", "--batch", "0", "--iters",
+                               "5", "--warmup", "1"], rig, ["rig_window_fwd"])
     del rig
     torch.cuda.empty_cache()
 
@@ -750,6 +927,38 @@ def main() -> int:
     num["rig_flat_fwd"] = phase_numbers(flat_rig, device, backward=False)
     phase_pass_shares(flat_rig, device)
     num["rig_flat_bwd"] = phase_numbers(flat_rig, device, backward=True)
+    del flat_rig
+    torch.cuda.empty_cache()
+
+    # the 2D configs at full width: MultiviewX on one 8-bucket window rig
+    mx_rig = prebuilt_rig(builds, 0, device, rig_cache)
+    err["rig_window_fwd"] = worst_of([err["rig_window_fwd"], phase_kernel_vs_plain(
+        mx_rig, device, batches=(1, 2, 8))])
+    err["rig_window_bwd"] = worst_of([err["rig_window_bwd"],
+                                      phase_bwd_kernel_vs_plain(mx_rig, device)])
+    torch.cuda.empty_cache()
+    bench_mx, _ = phase_bench(["--data", "MultiviewX"] + BENCH, mx_rig,
+                              ["rig_window_fwd"], BENCH_CALLS)
+    bench_mx_train, _ = phase_bench(["--data", "MultiviewX", "--train"] + BENCH,
+                                    mx_rig, ["rig_window_fwd", "rig_window_bwd"],
+                                    BENCH_CALLS)
+    mx_num = {k: phase_numbers(mx_rig, device, backward=k == "rig_window_bwd",
+                               rounds=1)
+              for k in ("rig_window_fwd", "rig_window_bwd")}
+    mx_ref = phase_rig_vs_reference(mx_rig, device, "MultiviewX")
+    mx_buckets = sum(len(s.A) for s in mx_rig.scales)
+    del mx_rig
+    torch.cuda.empty_cache()
+    # Wildtrack on one 12-bucket window rig
+    wt_rig = prebuilt_rig(builds, 1, device, rig_cache)
+    err["rig_window_fwd"] = worst_of([err["rig_window_fwd"],
+                                      phase_kernel_vs_plain(wt_rig, device)])
+    bench_wt, _ = phase_bench(["--data", "Wildtrack"] + BENCH, wt_rig,
+                              ["rig_window_fwd"], BENCH_CALLS)
+    wt_num = phase_numbers(wt_rig, device, backward=False, rounds=1)
+    wt_buckets = sum(len(s.A) for s in wt_rig.scales)
+    del wt_rig
+    torch.cuda.empty_cache()
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -767,6 +976,23 @@ def main() -> int:
                      ("rig_flat_bwd", "rig_flat_fwd")):
         log(f"{bwd} / {fwd}: {num[bwd][0] / num[fwd][0]:.3f} "
             f"({num[bwd][0]:.3f} / {num[fwd][0]:.3f} ms; twice the operations)")
+    for tag, n, buckets in (
+            ("rig_window_fwd MultiviewX", mx_num["rig_window_fwd"], mx_buckets),
+            ("rig_window_bwd MultiviewX", mx_num["rig_window_bwd"], mx_buckets),
+            ("rig_window_fwd Wildtrack", wt_num, wt_buckets)):
+        log(f"{tag} at B={BATCH}: {n[0]:.3f} ms, plain {n[1]:.3f} ms, bound "
+            f"{n[2]:.3f} ms by {n[3]} ({n[2] / n[0]:.1%} of the bound); "
+            f"{buckets} launches per {'step' if 'bwd' in tag else 'request'}")
+    for tag, r in (("MultiviewC serving, auto batch", bench_mc),
+                   ("MultiviewX serving", bench_mx),
+                   ("MultiviewX training", bench_mx_train),
+                   ("Wildtrack serving", bench_wt)):
+        log(f"bench {tag}: {r['value']} scenes/s, {r['tflops_per_sec']} "
+            f"TFLOP/s, mfu {r['mfu']}")
+    share = mx_ref["sum of the 3 scales"]
+    log(f"MultiviewX rig vs reference voxel route (batch 1): max abs err "
+        f"{share[0]:.3e}, max rel err {share[1]:.3e}, {share[2]:.3f} of rtol "
+        f"{REF_RTOL:.0e} / atol {REF_ATOL:.0e}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card.splitlines()[0]}")
 

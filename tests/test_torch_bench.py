@@ -1,0 +1,183 @@
+"""The port's bench (`python -m vfa_tpu_torch.bench`) on the CPU, tiny
+config: one JSON line with the root bench's keys and metric names, the
+auto-batch fallback on out-of-memory only, the refusals of what is not
+ported, and the FLOP count (the plain rig counted once)."""
+
+import json
+import re
+
+import numpy as np
+import pytest
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from vfa_tpu_torch import bench
+from vfa_tpu_torch.config import get_config
+from vfa_tpu_torch.data.synthetic import make_calibrations, tiny_config
+from vfa_tpu_torch.geometry import make_grid
+from vfa_tpu_torch.ops.rig import (
+    build_rig, pyramid_feat_shapes, rig_matmul_flops, rig_sample_scale,
+)
+from vfa_tpu_torch.ops.rig_cuda import rig_window_fwd
+
+TINY = ["--tiny", "--device", "cpu", "--batch", "1", "--iters", "1", "--warmup", "0"]
+KEYS = {"metric", "value", "unit", "vs_baseline", "tflops_per_sec"}
+
+
+@pytest.fixture(autouse=True)
+def _home(tmp_path, monkeypatch):
+    """The rig cache goes under a temporary HOME."""
+    monkeypatch.setenv("HOME", str(tmp_path))
+
+
+def _run(capsys, argv, rig=None):
+    res = bench.main(argv, rig=rig)
+    out = capsys.readouterr()
+    lines = out.out.strip().splitlines()
+    assert len(lines) == 1, out.out
+    assert json.loads(lines[0]) == res
+    return res, out.err
+
+
+@pytest.mark.parametrize("extra,metric", [
+    ([], "multiviewc_2cam_scenes_per_sec_per_chip"),
+    (["--data", "MultiviewX"], "multiviewx_2cam_scenes_per_sec_per_chip"),
+    (["--data", "Wildtrack"], "wildtrack_2cam_scenes_per_sec_per_chip"),
+    (["--train"], "multiviewc_2cam_train_scenes_per_sec_per_chip"),
+    (["--data", "Wildtrack", "--train"], "wildtrack_2cam_train_scenes_per_sec_per_chip"),
+    (["--no-rig"], "multiviewc_2cam_scenes_per_sec_per_chip"),
+    (["--layout", "flat"], "multiviewc_2cam_scenes_per_sec_per_chip"),
+], ids=["mc", "mx", "wt", "mc_train", "wt_train", "no_rig", "flat"])
+def test_bench_prints_one_json_line_with_bench_keys(capsys, extra, metric):
+    launches = rig_window_fwd.launches
+    res, err = _run(capsys, TINY + extra)
+    assert set(res) == KEYS               # no card: no mfu key
+    assert res["metric"] == metric and res["unit"] == "scenes/sec"
+    assert res["vs_baseline"] is None
+    # tflops_per_sec is rounded to 2 decimals, as in bench.py: a slow CPU
+    # can print 0.0; the FLOPs of a call are on stderr
+    assert res["value"] > 0 and res["tflops_per_sec"] >= 0
+    assert float(re.search(r"# ([0-9.]+) GFLOP/call", err).group(1)) > 0
+    assert "torch.backends.cudnn.allow_tf32=True" in err
+    assert "torch.backends.cuda.matmul.allow_tf32=False" in err
+    assert "# batch 1: ok" in err and "# host syncs in one warm call: 0" in err
+    if "--no-rig" in extra:
+        assert "compiled rig" not in err
+    else:
+        want = "8 buckets" if "--train" in extra else "12 buckets"
+        assert f"compiled rig: {want}" in err
+        assert f"{'flat' if 'flat' in extra else 'window'} layout" in err
+    assert rig_window_fwd.launches == launches       # CPU: the plain versions
+
+
+def test_bench_takes_a_built_rig_and_the_rig_cache(capsys):
+    _, err = _run(capsys, TINY + ["--iters", "1"])
+    assert ", built in " in err
+    _, err = _run(capsys, TINY + ["--iters", "1"])
+    assert ", cache hit in " in err
+    cfg = tiny_config(get_config("MultiviewC"))
+    rig = build_rig(make_calibrations(cfg), cfg,
+                    make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name),
+                    pyramid_feat_shapes(cfg.resize_size), tile_v=16,
+                    band_buckets=2, device="cpu")
+    _, err = _run(capsys, TINY + ["--iters", "1"], rig=rig)
+    assert "compiled rig" not in err and "given by the caller" in err
+
+
+def _fail_above(limit, error):
+    real = bench.make_runner
+    tried = []
+
+    def make_runner(cfg, args, bs, rig, device):
+        tried.append(bs)
+        if bs > limit:
+            raise error
+        return real(cfg, args, bs, rig, device)
+
+    return make_runner, tried
+
+
+def test_auto_batch_falls_back_on_out_of_memory(capsys, monkeypatch):
+    fake, tried = _fail_above(2, torch.cuda.OutOfMemoryError("CUDA out of memory."))
+    monkeypatch.setattr(bench, "make_runner", fake)
+    _run(capsys, ["--tiny", "--device", "cpu", "--batch", "0", "--iters", "1",
+                  "--warmup", "0"])
+    assert tried == [32, 16, 8, 4, 2]
+    fake, tried = _fail_above(2, torch.cuda.OutOfMemoryError("CUDA out of memory."))
+    monkeypatch.setattr(bench, "make_runner", fake)
+    res, err = _run(capsys, ["--tiny", "--device", "cpu", "--batch", "0",
+                             "--iters", "1", "--warmup", "0", "--train"])
+    assert tried == [8, 4, 2]
+    assert "# batch 8: out of memory" in err and "# batch 2: ok" in err
+    assert "batch=2 " in err and res["value"] > 0
+
+
+def test_auto_batch_raises_other_errors(monkeypatch):
+    fake, tried = _fail_above(2, RuntimeError("kernel build failed"))
+    monkeypatch.setattr(bench, "make_runner", fake)
+    with pytest.raises(RuntimeError, match="kernel build failed"):
+        bench.main(["--tiny", "--device", "cpu", "--batch", "0", "--iters", "1"])
+    assert tried == [32]
+
+
+def test_out_of_memory_at_the_last_attempt_is_raised(monkeypatch):
+    fake, _ = _fail_above(0, torch.cuda.OutOfMemoryError("CUDA out of memory."))
+    monkeypatch.setattr(bench, "make_runner", fake)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        bench.main(TINY)
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--dtype", "bfloat16"], "item 9"),
+    (["--remat"], "item 9"),
+    (["--stem_remat"], "item 9"),
+    (["--chunks", "2"], "item 9"),
+    (["--from_disk"], "item 11"),
+    (["--disk_dir", "/nonexistent"], "item 11"),
+    (["--no_augment"], "item 11"),
+    (["--disk_frames", "8"], "item 11"),
+    (["--loader_threads", "4"], "item 11"),
+    (["--image_backend", "pil"], "item 11"),
+    (["--bev_shards", "2"], "item 15"),
+], ids=lambda v: v if isinstance(v, str) else v[0])
+def test_unported_flags_raise_naming_their_item(flag, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
+        bench.main(TINY + flag)
+
+
+def test_flop_count_sees_the_plain_rig_once():
+    """On the CPU the wrappers run the plain versions, whose matmuls the
+    counter sees: the rig forward's count equals B x rig_matmul_flops, so
+    the bench adds the builder's count only for the CUDA kernels."""
+    cfg = tiny_config(get_config("Wildtrack"))
+    rig = build_rig(make_calibrations(cfg), cfg,
+                    make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name),
+                    pyramid_feat_shapes(cfg.resize_size), tile_v=16,
+                    band_buckets=3, device="cpu")
+    B, N = 2, cfg.num_cam
+    g = torch.Generator().manual_seed(0)
+    counted = 0
+    for sr in rig.scales:
+        fh, fw = sr.feat_hw
+        lat = torch.rand((B, N, fh, fw, 256), generator=g)
+        k = torch.rand((256 * sr.nl, 256), generator=g)
+        with FlopCounterMode(display=False) as counter:
+            rig_sample_scale(lat, sr, k, torch.zeros(256), camera_sum=True)
+        counted += counter.get_total_flops()
+    assert counted == B * rig_matmul_flops(rig)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_bench_adds_the_rig_flops_only_for_the_cuda_kernels(train):
+    cfg = tiny_config(get_config("MultiviewC"))
+    rig = build_rig(make_calibrations(cfg), cfg,
+                    make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name),
+                    pyramid_feat_shapes(cfg.resize_size), tile_v=16,
+                    band_buckets=2, device="cpu")
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    kernels = 3 * rig_matmul_flops(rig, train=train)
+    assert kernels > 0
+    assert bench.call_flops(1000, rig, 3, train, cuda, "cuda") == 1000 + kernels
+    assert bench.call_flops(1000, rig, 3, train, cpu, "cuda") == 1000
+    assert bench.call_flops(1000, rig, 3, train, cuda, "plain") == 1000
+    assert bench.call_flops(1000, None, 3, train, cuda, "cuda") == 1000

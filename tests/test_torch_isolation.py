@@ -29,6 +29,8 @@ from vfa_tpu_torch.data.synthetic_loader import SyntheticSceneLoader
 from vfa_tpu_torch.ops.rig_cuda import rig_window_bwd, rig_flat_fwd, rig_flat_bwd
 from vfa_tpu_torch.ops import stem
 from vfa_tpu_torch import prof_train
+from vfa_tpu_torch import bench, entry
+from vfa_tpu_torch.ops import voxel
 
 cfg = tiny_config(get_config("MultiviewC"))
 scene = make_scene(cfg, seed=0, num_objects=2)

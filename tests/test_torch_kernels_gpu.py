@@ -516,3 +516,77 @@ def test_stem_kernels_constant_plane(cuda, shape, bias_value):
     ref = tstem.stem_bwd_stats_plain(x, g, params)
     np.testing.assert_allclose(acc.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4,
                                atol=1e-4 * max(float(ref.abs().max()), 1e-30))
+
+
+def _window_bucket(N, B, T, window, Hp, Wp, seed, device, nl=8, tile_v=24):
+    """A synthetic window bucket at the 2D configs' widths (nl 8, tile_v 24:
+    192-row tiles): dense random A (N, T, nl*tile_v, wh*ww), random window
+    origins inside the (Hp, Wp) padded image, features, Kr and the
+    cotangent of a (T + 1)-tile buffer."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    wh, ww = window
+    A = torch.rand((N, T, nl * tile_v, wh * ww), generator=gen) / (wh * ww)
+    starts = torch.stack([torch.randint(0, Hp - wh + 1, (N, T), generator=gen),
+                          torch.randint(0, Wp - ww + 1, (N, T), generator=gen)], -1)
+    ii = torch.rand((N, B, Hp, Wp, 256), generator=gen)
+    Kr = torch.randn((nl, 256, 256), generator=gen) * 0.05
+    g = torch.randn((N, B, (T + 1) * tile_v, 256), generator=gen)
+    return [t.to(device) for t in (A, starts.to(torch.int32), ii, Kr, g)]
+
+
+@pytest.mark.parametrize("T", [1, 5], ids=["one_tile", "five_tiles"])
+@pytest.mark.parametrize("window", [(8, 16), (16, 16)], ids=["band128", "band256"])
+@pytest.mark.parametrize("B", [1, 2, 8])
+def test_window_kernels_2d_config_widths(cuda, window, T, B):
+    """K1 and K2/K3 at the widths of the full MultiviewX and Wildtrack rigs:
+    nl 8 and tile_v 24 (192-row tiles, a 2048-deep collapse chain, dKr
+    chains split at DKR_CHAIN twice), 128- and 256-wide windows, a bucket of
+    one tile and one of five, at tile offset 1; within 1e-4 of the plain
+    versions' max."""
+    tile_v = 24
+    A, starts, ii, Kr, g = _window_bucket(3, B, T, window, 24, 48, 70 + B, cuda)
+    out = torch.full((3, B, (T + 1) * tile_v, 256), float("nan"), device=cuda)
+    rig_window_fwd(ii, A, starts, Kr, out, off_t=1, tile_v=tile_v, window=window)
+    want = trig.window_tiles(ii, A, starts, Kr, window, tile_v)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out[:, :, tile_v:].cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+    assert torch.isnan(out[:, :, :tile_v]).all()
+    dII, dKr = torch.zeros_like(ii), torch.zeros_like(Kr)
+    rig_window_bwd(ii, A, starts, Kr, g, dII, dKr, off_t=1, tile_v=tile_v,
+                   window=window)
+    want = trig.window_tiles_bwd(ii, A, starts, Kr, g[:, :, tile_v:], window, tile_v)
+    torch.cuda.synchronize()
+    for got, ref in zip((dII, dKr), want):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+def test_window_kernels_vox_scratch_past_2_31_elements(cuda, backward):
+    """A launch whose (N, B, T, nl*tile_v, C) vox scratch holds more than
+    2^31 elements (2 x 16 x 1400 x 192 x 256 = 2.2e9; 8.8 GB): offsets
+    past int32 must not wrap. Every scene's rows against the plain
+    version, the last scene's alone too (its vox rows lie past 2^31)."""
+    N, B, T, tile_v, window = 2, 16, 1400, 24, (1, 16)
+    assert N * B * T * 8 * tile_v * 256 > 2 ** 31
+    A, starts, ii, Kr, g = _window_bucket(N, B, T, window, 8, 32, 90, cuda)
+    if not backward:
+        out = torch.empty((N, B, (T + 1) * tile_v, 256), device=cuda)
+        rig_window_fwd(ii, A, starts, Kr, out, off_t=1, tile_v=tile_v, window=window)
+        got = [out[:, :, tile_v:]]
+        del out
+        want = [trig.window_tiles(ii, A, starts, Kr, window, tile_v)]
+    else:
+        dII, dKr = torch.zeros_like(ii), torch.zeros_like(Kr)
+        rig_window_bwd(ii, A, starts, Kr, g, dII, dKr, off_t=1, tile_v=tile_v,
+                       window=window)
+        got = [dII, dKr]
+        want = trig.window_tiles_bwd(ii, A, starts, Kr, g[:, :, tile_v:], window,
+                                     tile_v)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        tol = 1e-4 * float(b.abs().max())
+        assert float((a - b).abs().max()) <= tol
+        if a.dim() == 5 or a.dim() == 4:
+            assert float((a[-1, -1] - b[-1, -1]).abs().max()) <= tol

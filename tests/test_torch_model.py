@@ -108,6 +108,8 @@ def test_vfanet_rig_forward_matches_jax(cfg):
 
 
 def test_vfanet_without_rig_raises():
+    """Without a rig the model samples through the voxel route, which needs
+    the calibrations and the grid."""
     model = VFANet(t_tiny_config(get_config("MultiviewC")))
-    with pytest.raises(NotImplementedError, match="dynamic voxel path"):
+    with pytest.raises(ValueError, match="needs calibs"):
         model(torch.zeros((1, 2, 90, 160, 3)), None)

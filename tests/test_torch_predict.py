@@ -32,6 +32,16 @@ def test_predict_plain_and_kernel_route_agree_on_cpu():
     np.testing.assert_array_equal(a["heatmaps"][0].numpy(), b["heatmaps"][0].numpy())
 
 
+def test_predict_no_rig_tiny_cpu(capsys):
+    """--no_rig serves through the voxel route, no rig built."""
+    out = predict.main(["--data", "MultiviewX", "--synthetic", "--tiny",
+                        "--device", "cpu", "--scenes", "2", "--batch", "2",
+                        "--no_rig"])
+    assert "compiled rig" not in capsys.readouterr().out
+    assert len(out["detections"]) == 2
+    assert all(torch.isfinite(h).all() for h in out["heatmaps"])
+
+
 def test_predict_requires_synthetic():
     with pytest.raises(NotImplementedError, match="--synthetic"):
         predict.main(["--data", "MultiviewC", "--device", "cpu"])

@@ -92,7 +92,8 @@ def _launches():
 def _train_against_jax(cfg, steps, layout="window"):
     """`steps` train steps then one eval step, both packages, same weights
     and batches. JAX samples with rig_impl='pallas' (the Pallas kernels and
-    their hand-written VJP, interpreted on the CPU). Both packages read
+    their hand-written VJP, interpreted on the CPU); layout=None samples
+    through the voxel route on both sides. Both packages read
     VFA_FUSED_STEM when they build the stem."""
     jc = tiny_config(cfg)
     tc = t_tiny_config(get_config(cfg.name))
@@ -111,8 +112,9 @@ def _train_against_jax(cfg, steps, layout="window"):
     jmodel = jtl.create_model(jc, jtcfg, rig_impl="pallas")
     jb0 = {k: jnp.asarray(v) for k, v in batches[0].items()}
     state, tx = jtl.init_state(jmodel, jc, jtcfg, jax.random.PRNGKey(0), steps, jb0)
-    jrig = jax_build_rig(calibs, jc, grid, shapes, tile_v=16, dtype=jnp.float32,
-                         band_buckets=3, layout=layout)
+    jrig = layout and jax_build_rig(calibs, jc, grid, shapes, tile_v=16,
+                                    dtype=jnp.float32, band_buckets=3,
+                                    layout=layout)
     jstep = jtl.make_train_step(jmodel, tx, jc, jtcfg, dim_mean=loader.dim_mean)
     jeval = jtl.make_eval_step(jmodel, jc, dim_mean=loader.dim_mean)
 
@@ -120,8 +122,9 @@ def _train_against_jax(cfg, steps, layout="window"):
     model.load_state_dict(params_from_jax(
         jax.tree_util.tree_map(np.array, state.params),
         jax.tree_util.tree_map(np.array, state.batch_stats)), strict=True)
-    trig = build_rig(calibs, tc, grid, shapes, tile_v=16, dtype=torch.float32,
-                     band_buckets=3, layout=layout, device="cpu")
+    trig = layout and build_rig(calibs, tc, grid, shapes, tile_v=16,
+                                dtype=torch.float32, band_buckets=3,
+                                layout=layout, device="cpu")
     opt = ttl.make_optimizer(model, ttcfg, steps)
     tstep = ttl.make_train_step(model, opt, tc, ttcfg, dim_mean=loader.dim_mean)
     teval = ttl.make_eval_step(model, tc, dim_mean=loader.dim_mean)
@@ -193,6 +196,14 @@ def test_two_train_steps_match_jax_flat_rig_fused_stem(monkeypatch):
     pred = _train_against_jax(mc_opts, steps=2, layout="flat")
     assert len(calls) == 2          # the fused stem's backward ran each step
     assert set(pred) == {"heatmap", "loc_offset", "dim_offset", "rotation"}
+
+
+def test_train_cli_no_rig_tiny_cpu(capsys):
+    """--no_rig trains without building a rig."""
+    out = train_cli.main(TINY + ["--synthetic_frames", "2", "--no_rig"])
+    assert "compiled rig" not in capsys.readouterr().out
+    assert out["rig"] is None and len(out["losses"]) == 2
+    assert all(np.isfinite(d["loss"]) for d in out["losses"] + out["val_losses"])
 
 
 @pytest.mark.medium
@@ -285,9 +296,8 @@ def test_train_cli_tiny_cpu(capsys):
     (TINY + ["--resume", "run1"], "--resume"),
     (TINY + ["--vis_iter", "5"], "figures"),
     (TINY + ["--multihost"], "--multihost"),
-    (TINY + ["--no_rig"], "--no_rig"),
 ], ids=["on_disk", "pretrained", "augment", "bf16", "resume", "figures",
-        "multihost", "no_rig"])
+        "multihost"])
 def test_train_cli_refuses_what_is_not_ported(argv, match):
     with pytest.raises(NotImplementedError, match=match) as e:
         train_cli.main(argv + ["--device", "cpu"])

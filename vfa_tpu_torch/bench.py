@@ -1,0 +1,354 @@
+"""End-to-end benchmark of the port: steady-state scenes per second on one
+card, serving (forward + on-device decode) or training (forward + target
+encoding + loss + backward + SGD). Port of the root `bench.py`'s default
+path.
+
+    python -m vfa_tpu_torch.bench                         # MultiviewC serving, auto batch
+    python -m vfa_tpu_torch.bench --data MultiviewX --train
+    python -m vfa_tpu_torch.bench --tiny --device cpu --batch 1 --iters 2 --warmup 1
+
+Inputs are synthetic scenes (`make_scene(cfg, seed=s, num_objects=6)`)
+staged on the device before timing, weights are seeded random
+(`init_weights`, seed 0), the rig is built once (or loaded from the rig
+cache, `rig_cli.RIG_CACHE_DIR`). Warm-up runs inside the batch fallback;
+the timed loop dispatches `--iters` calls and then waits once for the
+device and reads one value back. `--batch 0` tries 32/16/8/4/2/1 scenes
+(training 8/4/2/1) and falls back on `torch.cuda.OutOfMemoryError` only.
+
+Prints ONE JSON line on stdout with `bench.py`'s keys: metric, value
+(scenes/sec), unit, vs_baseline (null: the root bench divides by targets
+set for a TPU, which are not the port's), tflops_per_sec and mfu (against
+the card's dense bf16 peak, for a known card only). Everything else
+(TF32 settings, the card and its power limit, each batch attempt with its
+peak memory, host syncs in a warm call, FLOPs) goes to stderr.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import gc
+import json
+import subprocess
+import sys
+import time
+import warnings
+
+import numpy as np
+import torch
+
+# dense bf16 tensor-core peak, TFLOP/s (H100 SXM5 data sheet); fp32 runs are
+# also reported against it, as the root bench does
+PEAK_BF16_TFLOPS = {"NVIDIA H100 80GB HBM3": 989.4}
+# TF32: on for cuDNN convolutions (PyTorch's default; the fp32 convolutions
+# lead every step without it), off for matmuls. The rig kernels run 3xTF32
+# by their own code, so neither setting touches them.
+CUDNN_TF32 = True
+MATMUL_TF32 = False
+SERVING_ATTEMPTS = (32, 16, 8, 4, 2, 1)
+TRAIN_ATTEMPTS = (8, 4, 2, 1)
+GRID2X_SERVING_ATTEMPTS = (8, 4, 2, 1)
+GRID2X_TRAIN_ATTEMPTS = (4, 2, 1)
+STEPS_PER_EPOCH = 100          # the schedule's length, as `bench.py:217`
+MAX_OBJECTS = 16               # objects a training scene is padded to
+DIM_MEAN = np.array([145.0, 120.0, 255.0], np.float32)
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--batch", type=int, default=0, help="scenes per call (0 = auto)")
+    p.add_argument("--iters", type=int, default=20)
+    p.add_argument("--warmup", type=int, default=3)
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="compute dtype (bfloat16 is not ported yet)")
+    p.add_argument("--data", default="MultiviewC",
+                   choices=["MultiviewC", "MultiviewX", "Wildtrack"])
+    p.add_argument("--layout", default="window", choices=["window", "flat"],
+                   help="rig band layout")
+    p.add_argument("--buckets", type=int, default=0,
+                   help="rig band buckets (0 = auto: 12 serving, 8 training)")
+    p.add_argument("--train", action="store_true",
+                   help="time training steps instead of serving calls")
+    p.add_argument("--no-rig", dest="no_rig", action="store_true",
+                   help="sample through the reference voxel route instead "
+                        "of a compiled rig")
+    p.add_argument("--grid2x", action="store_true",
+                   help="halve the ground cube size (2x BEV resolution)")
+    p.add_argument("--rig_impl", default="cuda", choices=["cuda", "plain"],
+                   help="cuda: the hand-written rig kernels; plain: their "
+                        "plain PyTorch versions")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--tiny", action="store_true",
+                   help="the shrunken test configuration")
+    # flags of the root bench whose paths are not ported yet: each raises
+    p.add_argument("--remat", action="store_true")
+    p.add_argument("--stem_remat", action="store_true")
+    p.add_argument("--chunks", type=int, default=None)
+    p.add_argument("--from_disk", action="store_true")
+    p.add_argument("--disk_dir", default=None)
+    p.add_argument("--no_augment", action="store_true")
+    p.add_argument("--disk_frames", type=int, default=None)
+    p.add_argument("--loader_threads", type=int, default=None)
+    p.add_argument("--image_backend", default=None)
+    p.add_argument("--bev_shards", type=int, default=None)
+    return p.parse_args(argv)
+
+
+def _refuse_unported(args) -> None:
+    """Every flag whose path is not ported yet raises, naming its ROADMAP
+    item; nothing is silently skipped."""
+    memory = "(ROADMAP.md Queue 1 item 9, with bf16)"
+    loader = "(ROADMAP.md Queue 1 item 11, the data pipeline)"
+    unported = [
+        (args.dtype != "float32", "--dtype bfloat16 is not ported yet "
+         "(ROADMAP.md Queue 1 item 9, bf16)"),
+        (args.remat, f"--remat is not ported yet {memory}"),
+        (args.stem_remat, f"--stem_remat is not ported yet {memory}"),
+        (args.chunks is not None, f"--chunks is not ported yet {memory}"),
+        (args.from_disk, f"--from_disk is not ported yet {loader}"),
+        (args.disk_dir is not None, f"--disk_dir is not ported yet {loader}"),
+        (args.no_augment, f"--no_augment is not ported yet {loader}"),
+        (args.disk_frames is not None, f"--disk_frames is not ported yet {loader}"),
+        (args.loader_threads is not None,
+         f"--loader_threads is not ported yet {loader}"),
+        (args.image_backend is not None,
+         f"--image_backend is not ported yet {loader}"),
+        (args.bev_shards is not None, "--bev_shards is not ported yet "
+         "(ROADMAP.md Queue 1 item 15, parallelism)"),
+    ]
+    for hit, message in unported:
+        if hit:
+            raise NotImplementedError(message)
+
+
+def make_inputs(cfg, bs: int, device, train: bool):
+    """A batch of `bs` synthetic scenes as tensors on `device`: images,
+    calibs, grid and, for training, the gt heatmap and the objects padded
+    to MAX_OBJECTS (`bench.py:206-219`)."""
+    from vfa_tpu_torch.data.synthetic import make_scene
+    from vfa_tpu_torch.utils import pad_objects
+
+    scenes = [make_scene(cfg, seed=s, num_objects=6) for s in range(bs)]
+    batch = {"images": np.stack([s.images for s in scenes]),
+             "calibs": np.stack([s.calibs for s in scenes]),
+             "grid": scenes[0].grid}
+    if train:
+        objs = [pad_objects(s.objects, MAX_OBJECTS, cfg.mode) for s in scenes]
+        batch["heatmap"] = np.stack([s.heatmap for s in scenes])
+        for key in objs[0]:
+            batch[key] = np.stack([o[key] for o in objs])
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def make_runner(cfg, args, bs: int, rig, device):
+    """A function of no arguments that runs one call at batch `bs` and
+    returns its outputs on the device: the decoded detections (serving) or
+    the loss dict (training). Model, optimizer and inputs live in its
+    closure and nowhere else, so dropping it frees them."""
+    from vfa_tpu_torch.codec import decode_frame
+    from vfa_tpu_torch.config import TrainConfig
+    from vfa_tpu_torch.model.vfanet import VFANet, init_weights
+    from vfa_tpu_torch.train_lib import make_optimizer, make_train_step
+
+    model = init_weights(VFANet(cfg, rig_impl=args.rig_impl),
+                         torch.Generator().manual_seed(0)).to(device)
+    batch = make_inputs(cfg, bs, device, args.train)
+    dim_mean = DIM_MEAN if cfg.mode == "3D" else None
+    if args.train:
+        tcfg = TrainConfig(pretrained=False)
+        step = make_train_step(model, make_optimizer(model, tcfg, STEPS_PER_EPOCH),
+                               cfg, tcfg, dim_mean=dim_mean)
+        return lambda: step(batch, rig)
+    model.eval()
+
+    @torch.no_grad()
+    def serve():
+        pred = model(batch["images"], rig, batch["calibs"], batch["grid"])
+        return decode_frame({k: v.float() for k, v in pred.items()}, cfg,
+                            cls_thresh=0.7, topk=100, dim_mean=dim_mean)
+
+    return serve
+
+
+def finish(out, device, train: bool) -> float:
+    """Wait for the device once and read one value back."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return float(out["loss"] if train else out["conf"].sum())
+
+
+def warm_runner(cfg, args, bs, rig, device):
+    """The runner at batch `bs` after its first call and the warm-up (both
+    inside the fallback: either can be the one that runs out of memory)."""
+    run = make_runner(cfg, args, bs, rig, device)
+    finish(run(), device, args.train)
+    for _ in range(args.warmup):
+        finish(run(), device, args.train)
+    return run
+
+
+def card_line(device) -> str:
+    if device.type != "cuda":
+        return f"# card: none ({device})"
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", f"--id={device.index or 0}"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    except FileNotFoundError:
+        smi = f"{torch.cuda.get_device_name(device)}, power limit not read (no nvidia-smi)"
+    return f"# card: {smi}"
+
+
+def count_call(run, device, train):
+    """(FLOPs, host syncs, output) of one warm call: the FLOPs that
+    torch.utils.flop_counter sees (the convolutions and matmuls, forward
+    and backward) and every synchronising call the device reports under
+    torch.cuda.set_sync_debug_mode('warn')."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if device.type == "cuda":
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with counter:
+                out = run()
+        finally:
+            if device.type == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+    # one warning per synchronizing call ("called a synchronizing CUDA
+    # operation"); the mode's own notice that it is a prototype is not one
+    syncs = [w for w in caught if "synchronizing cuda operation" in str(w.message).lower()]
+    finish(out, device, train)
+    return counter.get_total_flops(), syncs, out
+
+
+def call_flops(counted: int, rig, bs: int, train: bool, device, rig_impl: str) -> int:
+    """The FLOPs of one call: the counter's, plus the builder's count of the
+    rig products when the CUDA rig kernels ran. They launch through ctypes,
+    unseen by the counter; on the CPU (and with rig_impl 'plain') the plain
+    rig's matmuls are torch ops that the counter already sees."""
+    if rig is not None and device.type == "cuda" and rig_impl == "cuda":
+        from vfa_tpu_torch.ops.rig import rig_matmul_flops
+
+        return counted + bs * rig_matmul_flops(rig, train=train)
+    return counted
+
+
+def main(argv=None, rig=None) -> dict:
+    """Run the bench and print its JSON line; returns the printed dict.
+    `rig` is an already built CameraRig for this configuration (built, or
+    loaded from the rig cache, when None)."""
+    args = parse_args(argv)
+    _refuse_unported(args)
+    from vfa_tpu_torch.config import get_config
+    from vfa_tpu_torch.data.synthetic import make_calibrations, tiny_config
+    from vfa_tpu_torch.rig_cli import RIG_CACHE_DIR, build_cli_rig
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but no CUDA device is available")
+    torch.backends.cudnn.allow_tf32 = CUDNN_TF32
+    torch.backends.cuda.matmul.allow_tf32 = MATMUL_TF32
+    log(f"# TF32: torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+        f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    log(card_line(device))
+
+    cfg = get_config(args.data)
+    if args.grid2x:
+        l, w, h = cfg.cube_size
+        cfg = dataclasses.replace(cfg, cube_size=(l // 2, w // 2, h))
+        log(f"# grid2x: BEV grid {cfg.grid_shape}")
+    if args.tiny:
+        cfg = tiny_config(cfg)
+    buckets = args.buckets or (12 if (args.grid2x or not args.train) else 8)
+    if args.no_rig:
+        rig = None
+        log("# sampling: the reference voxel route (no rig)")
+    elif rig is None:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            rig = build_cli_rig(cfg, make_calibrations(cfg), device,
+                                buckets=buckets, layout=args.layout,
+                                cache_dir=RIG_CACHE_DIR)
+        log(f"# rig build: {time.perf_counter() - t0:.1f} s")
+    else:
+        log(f"# rig: given by the caller, {[len(s.A) for s in rig.scales]} "
+            "buckets per scale")
+
+    if args.batch:
+        attempts = (args.batch,)
+    elif args.grid2x:
+        attempts = GRID2X_TRAIN_ATTEMPTS if args.train else GRID2X_SERVING_ATTEMPTS
+    else:
+        attempts = TRAIN_ATTEMPTS if args.train else SERVING_ATTEMPTS
+    run = None
+    for i, bs in enumerate(attempts):
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        try:
+            run = warm_runner(cfg, args, bs, rig, device)
+            outcome = "ok"
+        except torch.cuda.OutOfMemoryError as e:
+            outcome = f"out of memory ({str(e).splitlines()[0][:160]})"
+            if i == len(attempts) - 1:
+                log(f"# batch {bs}: {outcome}")
+                raise
+        peak = (f"{torch.cuda.max_memory_allocated(device)} bytes"
+                if device.type == "cuda" else "not measured (no card)")
+        log(f"# batch {bs}: {outcome}; max_memory_allocated {peak}")
+        if run is not None:
+            break
+        # the failed attempt's model, inputs and outputs died with its
+        # frames; collect them before the next attempt asks for memory
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    out = None
+    for _ in range(args.iters):
+        out = run()
+    finish(out, device, args.train)
+    t = (time.perf_counter() - t0) / args.iters
+
+    counted, syncs, _ = count_call(run, device, args.train)
+    flops = call_flops(counted, rig, bs, args.train, device, args.rig_impl)
+    log(f"# host syncs in one warm call: {len(syncs)}"
+        + "".join(f"\n#   {w.filename}:{w.lineno}: {w.message}" for w in syncs[:5]))
+
+    scenes_per_sec = bs / t
+    kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    log(f"# batch={bs} p50={t / bs * 1e3:.2f} ms/scene over {args.iters} iters "
+        f"(dtype={args.dtype}, device={kind})")
+    tflops_s = flops / t / 1e12
+    peak = PEAK_BF16_TFLOPS.get(kind)
+    log(f"# {flops / 1e9:.1f} GFLOP/call -> {tflops_s:.2f} TFLOP/s"
+        + (f" = {tflops_s / peak * 100:.2f}% of {kind}'s dense bf16 peak "
+           f"({peak} TFLOP/s)" if peak else ""))
+    g2x = "_grid2x" if args.grid2x else ""
+    mode = "_train" if args.train else ""
+    result = {
+        "metric": f"{args.data.lower()}_{cfg.num_cam}cam{mode}{g2x}"
+                  "_scenes_per_sec_per_chip",
+        "value": round(scenes_per_sec, 3),
+        "unit": "scenes/sec",
+        "vs_baseline": None,
+        "tflops_per_sec": round(tflops_s, 2),
+    }
+    if peak:
+        result["mfu"] = round(tflops_s / peak, 4)
+    print(json.dumps(result), flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()

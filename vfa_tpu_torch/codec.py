@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from vfa_tpu_torch.config import DatasetConfig
-from vfa_tpu_torch.utils import Obj2D, Obj3D
+from vfa_tpu_torch.utils import Obj2D, Obj3D, device_constant
 
 
 def gaussian_csl_labels(angles_deg: torch.Tensor, num_class: int = 360,
@@ -50,8 +50,8 @@ def gaussian_csl_labels(angles_deg: torch.Tensor, num_class: int = 360,
 def _normalized_locations(location: torch.Tensor, world_size, grid_shape):
     """location (..., >=2) -> continuous grid coords, reference formula
     `encoder.py:155`: loc / world_size * grid_shape."""
-    ws = torch.tensor(world_size, dtype=torch.float32, device=location.device)
-    gs = torch.tensor(grid_shape, dtype=torch.float32, device=location.device)
+    ws = device_constant(world_size, location.device)
+    gs = device_constant(grid_shape, location.device)
     return location[..., :2] / ws * gs
 
 
@@ -137,7 +137,7 @@ def encode_frame(objects: Dict[str, torch.Tensor], heatmap: torch.Tensor,
     if cfg.mode == "3D":
         if dim_mean is None:
             raise ValueError("3D encode needs dim_mean")
-        mean = torch.as_tensor(np.asarray(dim_mean, np.float32), device=dev)
+        mean = device_constant(dim_mean, dev)
         valid = objects["valid"] > 0
         dim_off = torch.log(objects["dimension"].float() / mean)
         out["dim_offset"] = scatter(
@@ -194,7 +194,7 @@ def decode_frame(pred: Dict[str, torch.Tensor], cfg: DatasetConfig,
             raise ValueError("3D decode needs dim_mean")
         thtwtl = pred["dim_offset"].reshape(Bn, -1, 3)
         dims = torch.exp(torch.gather(thtwtl, 1, idx[..., None].expand(-1, -1, 3)))
-        dims = dims * torch.as_tensor(np.asarray(dim_mean, np.float32), device=dev)
+        dims = dims * device_constant(dim_mean, dev)
         rot = pred["rotation"]
         orient = torch.argmax(rot.reshape(Bn, -1, rot.shape[-1]), dim=-1)
         rot_deg = torch.gather(orient, 1, idx).to(torch.float32)

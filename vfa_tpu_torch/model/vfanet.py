@@ -1,11 +1,14 @@
 """VFANet, the multiview BEV detection model (port of
-`vfa_tpu/model/vfanet.py`, compiled-rig path).
+`vfa_tpu/model/vfanet.py`).
 
 In-graph ImageNet normalization, ResNet-GN pyramid, per-scale 1x1 laterals
-(128/256/512 -> 256) + GN + ReLU, per-scale rig sampling fused with the
-collapse Linear(256*nl -> 256) and summed over cameras and scales in fp32,
-a fuse block (3x3 conv + BN + ReLU, dilated-2 3x3 conv + BN + ReLU), and
-CenterNet-style heads. In training mode the two BatchNorms normalize with
+(128/256/512 -> 256) + GN + ReLU, per-scale voxel sampling with the
+collapse Linear(256*nl -> 256) + ReLU, summed over cameras and scales in
+fp32, a fuse block (3x3 conv + BN + ReLU, dilated-2 3x3 conv + BN + ReLU), and
+CenterNet-style heads. Sampling goes through a compiled rig (the rig
+kernels, or their plain versions), or, with `rig=None`, through the
+reference voxel route of `ops/voxel.py` from the calibrations. In training
+mode the two BatchNorms normalize with
 batch statistics and update their running buffers as flax does. Module
 names follow the reference `.pth` keys (`vfa/model/vfanet.py:14-149`).
 The public edge keeps the JAX layouts:
@@ -15,14 +18,16 @@ images (B, N, H, W, 3); outputs as at `vfa_tpu/model/vfanet.py:321-331`.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, List
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vfa_tpu_torch.config import DatasetConfig
 from vfa_tpu_torch.model.resnet import ResNetGN, group_norm
+from vfa_tpu_torch.ops.voxel import sample_voxels, voxel_boxes
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -110,37 +115,85 @@ class VFANet(nn.Module):
         self.register_buffer("img_std", torch.tensor(IMAGENET_STD),
                              persistent=False)
 
-    def bev_features(self, images: torch.Tensor, rig) -> torch.Tensor:
-        """images (B, N, H, W, 3) in [0, 1] -> BEV features (B, L, W, 256)."""
+    def laterals(self, images: torch.Tensor) -> List[torch.Tensor]:
+        """images (B, N, H, W, 3) in [0, 1] -> the three lateral maps
+        relu(GN(1x1 conv)) of the pyramid, each (B*N, 256, fh, fw)."""
+        B, N = images.shape[:2]
+        x = (images.reshape(B * N, *images.shape[2:]) - self.img_mean) / self.img_std
+        feats = self.base(x.permute(0, 3, 1, 2))
+        return [torch.relu(bn(lat(f))) for f, lat, bn in zip(
+            feats, (self.lat8, self.lat16, self.lat32),
+            (self.bn8, self.bn16, self.bn32))]
+
+    def collapses(self) -> List[nn.Linear]:
+        return [self.vfa8.collapse, self.vfa16.collapse, self.vfa32.collapse]
+
+    def bev_features(self, images: torch.Tensor, rig, calibs=None,
+                     grid=None) -> torch.Tensor:
+        """images (B, N, H, W, 3) in [0, 1] -> BEV features (B, L, W, 256).
+        With `rig` the compiled rig samples (calibs and grid unused); with
+        rig=None the reference voxel route does, from calibs (B, N, 3, 4)
+        and grid (L, W, 3)."""
+        B, N = images.shape[:2]
+        lats = self.laterals(images)
         if rig is None:
-            raise NotImplementedError(
-                "the dynamic voxel path (rig=None, --no_rig) is not ported "
-                "yet; pass a CameraRig (ROADMAP.md Queue 1 item 3)")
+            if calibs is None or grid is None:
+                raise ValueError("the voxel route (rig=None) needs calibs "
+                                 "(B, N, 3, 4) and grid (L, W, 3)")
+            return self.voxel_bev(lats, calibs, grid).to(lats[0].dtype)
         if self.rig_impl == "cuda":
             from vfa_tpu_torch.ops.rig_cuda import rig_sample_scale_cuda as sample
         else:
             from vfa_tpu_torch.ops.rig import rig_sample_scale as sample
-        B, N = images.shape[:2]
-        x = (images.reshape(B * N, *images.shape[2:]) - self.img_mean) / self.img_std
-        f8, f16, f32 = self.base(x.permute(0, 3, 1, 2))
         L, W = rig.grid_shape
         ortho = torch.zeros((B, L * W, 256), dtype=torch.float32,
                             device=images.device)
-        for sr, f, lat, bn, vfa in (
-                (rig.scales[0], f8, self.lat8, self.bn8, self.vfa8),
-                (rig.scales[1], f16, self.lat16, self.bn16, self.vfa16),
-                (rig.scales[2], f32, self.lat32, self.bn32, self.vfa32)):
-            lat5 = torch.relu(bn(lat(f))).permute(0, 2, 3, 1)
-            lat5 = lat5.reshape(B, N, *lat5.shape[1:])
-            lin = vfa.collapse
+        for sr, lat, lin in zip(rig.scales, lats, self.collapses()):
+            lat5 = lat.permute(0, 2, 3, 1).reshape(B, N, *lat.shape[2:], -1)
             ortho = ortho + sample(lat5, sr, lin.weight.t(), lin.bias,
                                    out_dtype=torch.float32, camera_sum=True)
-        return ortho.reshape(B, L, W, 256).to(f8.dtype)
+        return ortho.reshape(B, L, W, 256).to(lats[0].dtype)
 
-    def forward(self, images: torch.Tensor, rig) -> Dict[str, torch.Tensor]:
+    def voxel_bev(self, lats: List[torch.Tensor], calibs: torch.Tensor,
+                  grid: torch.Tensor) -> torch.Tensor:
+        """The reference route (`vfa_tpu/model/vfanet.py:255-300`): the
+        fp32 sum over cameras, taken one at a time as JAX's default
+        camera_reduce='scan' does, of `one_camera`. Under autograd each
+        camera is recomputed in the backward (torch.utils.checkpoint, as
+        jax.checkpoint there), so memory stays constant in N."""
+        B, N = calibs.shape[:2]
+        L, W = grid.shape[:2]
+        cfg = self.cfg
+        ortho = torch.zeros((B, L, W, 256), dtype=torch.float32, device=grid.device)
+        for n in range(N):
+            boxes = voxel_boxes(calibs[:, n], grid, dataset=cfg.name,
+                                grid_height=cfg.grid_h, cube_size=cfg.cube_size,
+                                image_size=cfg.image_size)       # (B, nl, L, W, 4)
+            lat_n = [lat.reshape(B, N, *lat.shape[1:])[:, n] for lat in lats]
+            if torch.is_grad_enabled():
+                contrib = checkpoint(self.one_camera, boxes, *lat_n,
+                                     use_reentrant=False)
+            else:
+                contrib = self.one_camera(boxes, *lat_n)
+            ortho = ortho + contrib
+        return ortho
+
+    def one_camera(self, boxes: torch.Tensor, *lats: torch.Tensor) -> torch.Tensor:
+        """BEV contribution of one camera of every scene: the fp32 sum over
+        the 3 scales of relu(collapse(sample_voxels(lateral, boxes)));
+        lats (B, 256, fh, fw) each, boxes (B, nl, L, W, 4)."""
+        out = 0.0
+        for lat, lin in zip(lats, self.collapses()):
+            out = out + voxel_contribution(lat, boxes, lin)
+        return out
+
+    def forward(self, images: torch.Tensor, rig, calibs=None,
+                grid=None) -> Dict[str, torch.Tensor]:
         """Returns heatmap (B, 1, L, W), loc_offset (B, L, W, 2) and, in 3D
-        mode, dim_offset (B, L, W, 3), rotation (B, L, W, angle_range)."""
-        ortho = self.bev_features(images, rig).permute(0, 3, 1, 2)
+        mode, dim_offset (B, L, W, 3), rotation (B, L, W, angle_range).
+        calibs and grid feed the voxel route (rig=None); see
+        `bev_features`."""
+        ortho = self.bev_features(images, rig, calibs, grid).permute(0, 3, 1, 2)
         fused = self.fuse(ortho)
         nhwc = lambda t: t.permute(0, 2, 3, 1)
         pred = {
@@ -151,6 +204,15 @@ class VFANet(nn.Module):
             pred["dim_offset"] = nhwc(self.thtwtl_pred(ortho))
             pred["rotation"] = nhwc(self.orient_pred(fused))
         return pred
+
+
+def voxel_contribution(lat: torch.Tensor, boxes: torch.Tensor,
+                       collapse: nn.Linear) -> torch.Tensor:
+    """relu(collapse(sample_voxels(lat, boxes))) in fp32: one scale's BEV
+    contribution of one camera, lat (*lead, C, fh, fw) -> (*lead, L, W,
+    n_out)."""
+    vox = sample_voxels(lat, boxes)
+    return torch.relu(F.linear(vox, collapse.weight, collapse.bias)).float()
 
 
 @torch.no_grad()

@@ -18,7 +18,9 @@ taps instead and applies to 2D-cumsum'd features.
 
 The host builder below is numpy and reproduces the JAX build byte for byte
 (same A, starts, inv_perm, window_hw), including its TPU-derived constants:
-`default_tile_v`, the band caps, and the 8/16 alignments.
+`default_tile_v`, the band caps, and the 8/16 alignments. Given a cache
+directory it keeps each rig in an npz keyed by all of its inputs
+(`rig_cache_path`), so a repeated run loads instead of building.
 `rig_sample_scale` is the plain PyTorch version of the hand-written
 kernels (`ops/rig_cuda.py`) plus the shared epilogue; `window_tiles_bwd`
 and `flat_tiles_bwd` are the plain versions of the backward kernels.
@@ -27,6 +29,8 @@ and `flat_tiles_bwd` are the plain versions of the backward kernels.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -581,6 +585,79 @@ def _build_scale_flat(calibs, cfg, grid, feat_hw, crange, tile_v,
     return A_buckets, starts_buckets, inv_perm, nl
 
 
+# Version of the port's builder in the rig cache key: change it whenever
+# the builder's output (A, starts, inv_perm, window_hw, nl) could change,
+# so that no cache file of an older builder is served.
+RIG_CACHE_VERSION = "torch-align8.v1"
+
+
+def rig_cache_path(cache_dir: str, calibs, cfg: DatasetConfig, grid,
+                   feat_shapes, tile_v: int, dtype, crange, fold_prefix: bool,
+                   band_buckets: int, layout: str) -> str:
+    """The npz a rig with these inputs is cached in: a sha1 over the calibs
+    (float64 bytes), the grid (float32 bytes) and every other input of
+    `build_rig`, with `RIG_CACHE_VERSION` (port of the JAX key,
+    `vfa_tpu/ops/rig.py:621-632`; the keys differ, so the two packages never
+    share a file)."""
+    key = hashlib.sha1(
+        np.ascontiguousarray(calibs, np.float64).tobytes()
+        + np.ascontiguousarray(grid, np.float32).tobytes()
+        + repr((cfg.name, cfg.grid_h, tuple(cfg.cube_size),
+                tuple(cfg.image_size),
+                tuple(tuple(int(x) for x in s) for s in feat_shapes),
+                int(tile_v), str(dtype), tuple(float(c) for c in crange),
+                bool(fold_prefix), int(band_buckets), layout,
+                RIG_CACHE_VERSION)).encode()).hexdigest()[:16]
+    return os.path.join(cache_dir, f"torch_rig_{key}.npz")
+
+
+def _save_rig(path: str, rig: CameraRig) -> None:
+    """Write the rig's arrays to `path` uncompressed (A is GBs at full
+    width; zlib is slow), bf16 A as its uint16 bit pattern. The file is
+    written under a temporary name and renamed, so a reader never sees a
+    partial file."""
+    saved = {}
+    for i, sr in enumerate(rig.scales):
+        saved[f"nb{i}"] = len(sr.A)
+        saved[f"nl{i}"] = sr.nl
+        saved[f"p{i}"] = sr.inv_perm.cpu().numpy().astype(np.int32)
+        for b, (a, st) in enumerate(zip(sr.A, sr.starts)):
+            a = a.cpu()
+            saved[f"A{i}_{b}"] = (a.view(torch.int16).numpy().view(np.uint16)
+                                  if a.dtype == torch.bfloat16 else a.numpy())
+            saved[f"s{i}_{b}"] = st.cpu().numpy()
+            if sr.window_hw:
+                saved[f"w{i}_{b}"] = np.asarray(sr.window_hw[b], np.int64)
+    tmp = f"{path[:-4]}.{os.getpid()}.tmp.npz"
+    np.savez(tmp, **saved)
+    os.replace(tmp, path)
+
+
+def _load_rig(path: str, feat_shapes, tile_v: int, fold_prefix: bool,
+              layout: str, grid_shape, device) -> CameraRig:
+    scales = []
+    with np.load(path) as z:
+        for i, (fh, fw) in enumerate(feat_shapes):
+            nb = int(z[f"nb{i}"])
+            A = []
+            for b in range(nb):
+                a = z[f"A{i}_{b}"]
+                A.append(torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+                         .to(device) if a.dtype == np.uint16
+                         else torch.from_numpy(a).to(device))
+            scales.append(ScaleRig(
+                A=tuple(A),
+                starts=tuple(torch.from_numpy(z[f"s{i}_{b}"]).to(device)
+                             for b in range(nb)),
+                inv_perm=torch.from_numpy(z[f"p{i}"].astype(np.int64)).to(device),
+                feat_hw=(fh, fw), nl=int(z[f"nl{i}"]), tile_v=tile_v,
+                on_raw=fold_prefix,
+                window_hw=(tuple(tuple(int(x) for x in z[f"w{i}_{b}"])
+                                 for b in range(nb))
+                           if layout == "window" else ())))
+    return CameraRig(scales=scales, grid_shape=grid_shape)
+
+
 def build_rig(
     calibs: np.ndarray,
     cfg: DatasetConfig,
@@ -593,12 +670,14 @@ def build_rig(
     band_buckets: int = 1,
     layout: str = "window",
     device="cuda",
+    cache_dir: str | None = None,
 ) -> CameraRig:
     """Precompute the sampling matrices on the host (numpy) and place them
     on `device`. layout 'window' (2D image windows, Hilbert cell order,
     requires fold_prefix) or 'flat' (contiguous bands of the flattened
     features; fold_prefix=False keeps the 16-tap integral-image form, one
-    bucket only)."""
+    bucket only). With `cache_dir`, the rig is loaded from the npz that
+    `rig_cache_path` names if it exists, else built and written there."""
     if layout not in ("flat", "window"):
         raise ValueError(f"unknown rig layout {layout!r}")
     if layout == "window" and not fold_prefix:
@@ -607,6 +686,14 @@ def build_rig(
         raise ValueError(f"rig dtype must be float32 or bfloat16, got {dtype}")
     calibs, grid = np.asarray(calibs), np.asarray(grid)
     L, W = grid.shape[0], grid.shape[1]
+    path = None
+    if cache_dir is not None:
+        path = rig_cache_path(cache_dir, calibs, cfg, grid, feat_shapes,
+                              tile_v, dtype, crange, fold_prefix,
+                              band_buckets, layout)
+        if os.path.exists(path):
+            return _load_rig(path, feat_shapes, tile_v, fold_prefix, layout,
+                             (L, W), device)
     place = lambda a: torch.from_numpy(a).to(device=device, dtype=dtype)
     scales = []
     for fh, fw in feat_shapes:
@@ -627,21 +714,31 @@ def build_rig(
             feat_hw=(fh, fw), nl=nl, tile_v=tile_v, on_raw=fold_prefix,
             window_hw=tuple(win_hw),
         ))
-    return CameraRig(scales=scales, grid_shape=(L, W))
+    rig = CameraRig(scales=scales, grid_shape=(L, W))
+    if path is not None:
+        os.makedirs(cache_dir, exist_ok=True)
+        _save_rig(path, rig)
+    return rig
 
 
-def rig_matmul_flops(rig: CameraRig, channels: int = 256, n_out: int = 256) -> int:
-    """Forward FLOPs per scene of the rig sampling + collapse, counted at
-    the allocated (padded) A dims, i.e. the work the kernel performs."""
+def rig_matmul_flops(rig: CameraRig, channels: int = 256, n_out: int = 256,
+                     train: bool = False) -> int:
+    """FLOPs per scene of the rig sampling + collapse, counted at the
+    allocated (padded) A dims, i.e. the work the kernels perform (port of
+    `vfa_tpu/ops/rig.py:849-870`). train=True counts forward and backward:
+    the A products twice (A^T @ dvox; A is constant) and the collapse three
+    times (dvox and dKr)."""
+    a_mul = 4 if train else 2          # 2 FLOPs a MAC, x2 for the backward
+    c_mul = 6 if train else 2
     total = 0
     for sr in rig.scales:
         cam_tiles = 0
         for A in sr.A:
             rows, band = A.shape[-2:]
             lead = int(np.prod(A.shape[:-2]))
-            total += 2 * lead * rows * band * channels
+            total += a_mul * lead * rows * band * channels
             cam_tiles += lead
-        total += 2 * cam_tiles * sr.tile_v * (sr.nl * channels) * n_out
+        total += c_mul * cam_tiles * sr.tile_v * (sr.nl * channels) * n_out
     return total
 
 

@@ -1,9 +1,10 @@
 """Multi-scene inference CLI of the port (mirrors `predict.py`, without the
 figure).
 
-Builds the compiled camera rig once on the host (window layout by default,
-`--rig_layout flat` for the flat one; 12 buckets, fp32), runs VFANet
-through the hand-written rig kernel of that layout, decodes the
+Builds the compiled camera rig once on the host, or loads it from the rig
+cache (window layout by default, `--rig_layout flat` for the flat one; 12
+buckets, fp32), runs VFANet through the hand-written rig kernel of that
+layout (`--no_rig`: through the reference voxel route instead), decodes the
 detections, and reports the time per request (one request = one batch of
 scenes, timed from host input to decoded detections on the host).
 
@@ -41,6 +42,9 @@ def parse_args(argv=None):
     p.add_argument("--rig_impl", default="cuda", choices=["cuda", "plain"],
                    help="cuda: the hand-written rig kernel; plain: its "
                         "plain PyTorch version")
+    p.add_argument("--no_rig", action="store_true",
+                   help="sample through the reference voxel route from the "
+                        "calibrations instead of a compiled rig")
     add_rig_layout_arg(p)
     return p.parse_args(argv)
 
@@ -54,7 +58,7 @@ def main(argv=None, rig=None) -> dict:
     from vfa_tpu_torch.config import get_config
     from vfa_tpu_torch.data.synthetic import make_scene, tiny_config
     from vfa_tpu_torch.model.vfanet import VFANet, init_weights
-    from vfa_tpu_torch.rig_cli import build_cli_rig
+    from vfa_tpu_torch.rig_cli import RIG_CACHE_DIR, build_cli_rig
 
     if not args.synthetic:
         raise NotImplementedError(
@@ -69,9 +73,12 @@ def main(argv=None, rig=None) -> dict:
     scenes = [make_scene(cfg, seed=args.seed + i, num_objects=6)
               for i in range(args.scenes)]
 
-    if rig is None:
+    if args.no_rig:
+        rig = None
+    elif rig is None:
         rig = build_cli_rig(cfg, scenes[0].calibs, device,
-                            layout=args.rig_layout)
+                            layout=args.rig_layout, cache_dir=RIG_CACHE_DIR)
+    grid = torch.from_numpy(scenes[0].grid).to(device)
 
     gen = torch.Generator().manual_seed(args.seed)
     model = init_weights(VFANet(cfg, rig_impl=args.rig_impl), gen)
@@ -84,8 +91,10 @@ def main(argv=None, rig=None) -> dict:
         for i in range(0, len(scenes), args.batch):
             batch = scenes[i:i + args.batch]
             images = np.stack([s.images for s in batch])
+            calibs = np.stack([s.calibs for s in batch])
             t0 = time.perf_counter()
-            pred = model(torch.from_numpy(images).to(device), rig)
+            pred = model(torch.from_numpy(images).to(device), rig,
+                         torch.from_numpy(calibs).to(device), grid)
             dets = encoder.batch_decode(pred, args.cls_thresh)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)

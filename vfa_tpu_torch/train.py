@@ -1,9 +1,10 @@
 """Training CLI of the port (the synthetic route of the root `train.py`).
 
-Builds the compiled camera rig once on the host (window layout by default,
-`--rig_layout flat` for the flat one; 8 buckets, fp32), trains VFANet with
-SGD + OneCycle through the hand-written rig kernels of that layout
-(forward and backward), runs the validation loss after each epoch, and
+Builds the compiled camera rig once on the host, or loads it from the rig
+cache (window layout by default, `--rig_layout flat` for the flat one; 8
+buckets, fp32), trains VFANet with SGD + OneCycle through the hand-written
+rig kernels of that layout (forward and backward; `--no_rig`: through the
+reference voxel route instead), runs the validation loss after each epoch, and
 reports the time per step. With VFA_FUSED_STEM=1 in the environment (as
 in the JAX package) the stem's GroupNorm + ReLU + max-pool run through
 `ops.stem.gn_relu_pool` and its hand-written backward kernels.
@@ -64,7 +65,8 @@ def parse_args(argv=None):
     p.add_argument("--tiny", action="store_true",
                    help="the shrunken test configuration")
     p.add_argument("--no_rig", action="store_true",
-                   help="the dynamic-gather sampling path (not ported yet)")
+                   help="sample through the reference voxel route from the "
+                        "calibrations instead of a compiled rig")
     p.add_argument("--rig_buckets", type=int, default=None,
                    help="max window buckets of the rig (default: the "
                         "training policy of rig_cli, 8)")
@@ -96,8 +98,6 @@ def _refuse_unported(args) -> None:
          "yet (ROADMAP.md Queue 1 item 14)"),
         (args.multihost, "--multihost is not ported yet (ROADMAP.md Queue 1 "
          "item 15)"),
-        (args.no_rig, "--no_rig (the dynamic voxel path) is not ported yet "
-         "(ROADMAP.md Queue 1 item 3)"),
     ]
     for hit, message in unported:
         if hit:
@@ -114,7 +114,7 @@ def main(argv=None, rig=None) -> dict:
     from vfa_tpu_torch.data.synthetic import tiny_config
     from vfa_tpu_torch.data.synthetic_loader import SyntheticSceneLoader
     from vfa_tpu_torch.model.vfanet import VFANet, init_weights
-    from vfa_tpu_torch.rig_cli import build_cli_rig
+    from vfa_tpu_torch.rig_cli import RIG_CACHE_DIR, build_cli_rig
     from vfa_tpu_torch.train_lib import (
         batch_to_device, current_lr, make_eval_step, make_optimizer,
         make_train_step,
@@ -148,10 +148,12 @@ def main(argv=None, rig=None) -> dict:
         cfg, num_frames=max(2, args.synthetic_frames // 8),
         batch_size=args.batch_size, seed=args.seed + 1)
     steps_per_epoch = max(1, len(train_loader))
-    if rig is None:
+    if args.no_rig:
+        rig = None
+    elif rig is None:
         rig = build_cli_rig(cfg, train_loader.scenes[0].calibs, device,
                             buckets=args.rig_buckets, training=True,
-                            layout=args.rig_layout)
+                            layout=args.rig_layout, cache_dir=RIG_CACHE_DIR)
 
     gen = torch.Generator().manual_seed(args.seed)
     model = init_weights(

@@ -154,10 +154,11 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     cfg: DatasetConfig, tcfg: TrainConfig, dim_mean=None):
     """Returns step(batch, rig) -> loss_dict (detached scalars on the
     device): forward in training mode, target encoding, loss, backward and
-    one optimizer update.
+    one optimizer update. rig=None samples through the voxel route.
 
     batch: images (B, N, H, W, 3), heatmap (B, L, W), location (B, M, 3),
-    valid (B, M) and, in 3D mode, dimension (B, M, 3), rotation (B, M)."""
+    valid (B, M), in 3D mode dimension (B, M, 3), rotation (B, M), and for
+    the voxel route calibs (B, N, 3, 4), grid (L, W, 3)."""
     if tcfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype {tcfg.compute_dtype!r}: bf16 training (fp32 "
@@ -167,7 +168,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
 
     def train_step(batch: Dict[str, torch.Tensor], rig) -> Dict[str, torch.Tensor]:
         model.train()
-        pred = model(batch["images"], rig)
+        pred = model(batch["images"], rig, batch.get("calibs"), batch.get("grid"))
         # the rotation loss is evaluated at the object cells, so the dense
         # (B, L, W, angle) CSL target is never built
         rotation_cells = None
@@ -198,7 +199,8 @@ def make_eval_step(model: nn.Module, cfg: DatasetConfig, dim_mean=None):
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor], rig):
         model.eval()
-        pred = {k: v.float() for k, v in model(batch["images"], rig).items()}
+        pred = model(batch["images"], rig, batch.get("calibs"), batch.get("grid"))
+        pred = {k: v.float() for k, v in pred.items()}
         gt = encode_targets(batch, cfg, dim_mean, angle_range)
         if cfg.mode == "3D":
             _, loss_dict = compute_loss3d(pred, gt, cfg.loss_weight)

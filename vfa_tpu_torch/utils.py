@@ -5,6 +5,7 @@ from __future__ import annotations
 from collections import defaultdict, namedtuple
 
 import numpy as np
+import torch
 
 # for MultiviewC-style 3D detection (`vfa/utils.py:10-11`)
 Obj3D = namedtuple("Obj3D", ["classname", "dimension", "location", "rotation", "conf"])
@@ -28,6 +29,15 @@ class MetricDict(defaultdict):
     @property
     def mean(self):
         return {key: self[key] / self.count[key] for key in self.keys()}
+
+
+def device_constant(values, device, dtype=torch.float32) -> torch.Tensor:
+    """Host constants as a tensor on `device`. The copy does not make the
+    host wait for the device (a pageable copy is staged before the call
+    returns): in a step or a request loop a waiting copy would serialise
+    host and device."""
+    return torch.as_tensor(np.asarray(values)).to(device=device, dtype=dtype,
+                                                  non_blocking=True)
 
 
 def pad_objects(objects, max_objects: int, mode: str):
