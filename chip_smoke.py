@@ -38,11 +38,24 @@ result line):
      the rig's BEV features against the reference voxel route (rig=None)
      at batch 1; Wildtrack (7 x 720x1280, 120x360 BEV, nl 8) on one
      12-bucket window rig, K1 against its plain version and serving at
-     batch 2. Their rigs are built on the host by two processes started at
+     batch 2. Their rigs are built on the host by processes started at
      the beginning (into a temporary rig cache, loaded from it here);
+  5b. bf16 serving, the root bench's default dtype, through the bf16
+     variants of the two forward kernels (`rig_window_fwd_bf16`,
+     `rig_flat_fwd_bf16`, csrc/rig_bf16.cuh): each held against its plain
+     version (max abs err within 1e-2 of the plain max, rel-L2 4e-3) on every
+     bucket of the full bf16 MultiviewC window rig (12-bucket policy, tile_v
+     160, R = 800) and of the flat rig cast to bf16, at B = 1, 2, and of the
+     bf16 MultiviewX (B = 1, 2, 8: the vox scratch past 2^31 elements) and
+     Wildtrack rigs; the serving CLI with `--dtype bfloat16` on both layouts
+     (one bf16 launch per bucket per request, no fp32 rig kernel; heatmap
+     rel-L2 1e-2 against the plain route, the detections' overlap printed);
+     the bench with `--dtype bfloat16`, auto batch, on all three datasets.
+     The three bf16 window rigs are built by one more host process;
   6. time each kernel (CUDA events, warmed up) beside its bound and its
-     plain version (the rig kernels' operations are held to 495 / 3 = 165
-     TFLOP/s, fp32-accurate 3xTF32 on the tensor cores; the window backward
+     plain version (the fp32 rig kernels' operations are held to 495 / 3 =
+     165 TFLOP/s, fp32-accurate 3xTF32 on the tensor cores, the bf16 ones to
+     989.4 TFLOP/s, dense bf16; the window backward
      also alone at B = 1; the stem kernels with their GB/s and share of the
      byte bound, and the fused stem backward beside autograd of the unfused
      chain), split each forward's device time between its two passes
@@ -53,6 +66,7 @@ Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -72,8 +86,14 @@ import torch
 # kernels' comparisons run on the CUDA cores.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989.4e12   # dense bf16 on the tensor cores: the bf16 rig kernels
 PEAK_BYTES_PER_S = 3.35e12
 KERNEL_TOL = 1e-4      # max |kernel - plain| / max |plain|, fp32 both sides
+# bf16 rig kernels against their plain versions: max |err| / max |plain| and
+# rel-L2. Both round vox and the tiles to bf16 at the same points; the sums'
+# order flips a rounding by about one bf16 ulp (2^-8 relative) now and then.
+BF16_MAX, BF16_L2 = 1e-2, 4e-3
+BF16_PATH_L2 = 1e-2    # bf16 heatmap, kernel route vs plain route, rel-L2
 PATH_TOL = 1e-3        # heatmap, kernel route vs plain route, relative to max
 LOSS_TOL = 1e-4        # per-step training loss, kernel route vs plain route
 PARAM_RTOL, PARAM_ATOL = 5e-3, 1e-5   # parameters after the last step
@@ -98,9 +118,12 @@ BENCH_ITERS, BENCH_WARMUP = 5, 2
 BENCH = ["--batch", str(BATCH), "--iters", str(BENCH_ITERS), "--warmup",
          str(BENCH_WARMUP)]
 BENCH_CALLS = 1 + BENCH_WARMUP + BENCH_ITERS + 1   # first, warm-up, timed, counted
-# rigs of the 2D configs, built on the host while the card works:
-# (data, buckets); 8 buckets = the training policy, 12 = serving
-PREBUILT = (("MultiviewX", 8), ("Wildtrack", 12))
+# rigs built on the host while the card works, one process per group (a
+# group's rigs one after another): (data, buckets, dtype); 8 buckets = the
+# training policy, 12 = serving; the bf16 rigs are the bf16 serving runs'
+PREBUILT = ((("MultiviewX", 8, "float32"),), (("Wildtrack", 12, "float32"),),
+            (("MultiviewC", 12, "bfloat16"), ("MultiviewX", 12, "bfloat16"),
+             ("Wildtrack", 12, "bfloat16")))
 
 
 def counters():
@@ -113,7 +136,9 @@ def counters():
             "rig_flat_fwd": rig_cuda.rig_flat_fwd,
             "rig_flat_bwd": rig_cuda.rig_flat_bwd,
             "stem_bwd_stats": stem.stem_bwd_stats,
-            "stem_bwd_dx": stem.stem_bwd_dx}
+            "stem_bwd_dx": stem.stem_bwd_dx,
+            "rig_window_fwd_bf16": rig_cuda.rig_window_fwd_bf16,
+            "rig_flat_fwd_bf16": rig_cuda.rig_flat_fwd_bf16}
 
 
 def reset_launches() -> None:
@@ -179,10 +204,11 @@ def phase_build():
 
 
 def full_rig(device, training: bool, layout: str = "window",
-             data: str = "MultiviewC", buckets: int = None, cache_dir=None):
-    """A full-width fp32 rig under the serving (12 buckets) or the training
-    (8 buckets) policy, built once (or loaded from `cache_dir`) and handed
-    to the CLIs and the bench."""
+             data: str = "MultiviewC", buckets: int = None, cache_dir=None,
+             dtype: str = "float32"):
+    """A full-width rig under the serving (12 buckets) or the training
+    (8 buckets) policy, in `dtype` (its tile_v and A), built once (or
+    loaded from `cache_dir`) and handed to the CLIs and the bench."""
     from vfa_tpu_torch.config import get_config
     from vfa_tpu_torch.data.synthetic import make_calibrations
     from vfa_tpu_torch.rig_cli import build_cli_rig
@@ -190,9 +216,10 @@ def full_rig(device, training: bool, layout: str = "window",
     cfg = get_config(data)
     t0 = time.perf_counter()
     rig = build_cli_rig(cfg, make_calibrations(cfg), device, buckets=buckets,
-                        training=training, layout=layout, cache_dir=cache_dir)
-    a_bytes = sum(a.numel() * 4 for s in rig.scales for a in s.A)
-    log(f"full {data} fp32 {layout} "
+                        training=training, layout=layout, cache_dir=cache_dir,
+                        dtype=getattr(torch, dtype))
+    a_bytes = sum(a.numel() * a.element_size() for s in rig.scales for a in s.A)
+    log(f"full {data} {dtype} {layout} "
         f"rig: {[len(s.A) for s in rig.scales]} buckets, "
         f"tile_v {rig.scales[0].tile_v}, nl {rig.scales[0].nl}, A shapes "
         f"{[tuple(s.A[0].shape) for s in rig.scales]} (bucket 0 of each scale), "
@@ -202,16 +229,20 @@ def full_rig(device, training: bool, layout: str = "window",
 
 
 def start_rig_builds(cache_dir):
-    """One host process per PREBUILT rig, each building it on the CPU (no
-    card) into the rig cache at `cache_dir`; returns them running."""
+    """One host process per PREBUILT group, each building its rigs on the
+    CPU (no card) into the rig cache at `cache_dir`, one after another;
+    returns them running."""
     procs = []
-    for data, buckets in PREBUILT:
-        code = ("from vfa_tpu_torch.config import get_config\n"
+    for group in PREBUILT:
+        code = ("import torch\n"
+                "from vfa_tpu_torch.config import get_config\n"
                 "from vfa_tpu_torch.data.synthetic import make_calibrations\n"
-                "from vfa_tpu_torch.rig_cli import build_cli_rig\n"
-                f"cfg = get_config({data!r})\n"
-                f"build_cli_rig(cfg, make_calibrations(cfg), 'cpu', buckets={buckets}, "
-                f"cache_dir={cache_dir!r})\n")
+                "from vfa_tpu_torch.rig_cli import build_cli_rig\n")
+        for data, buckets, dtype in group:
+            code += (f"cfg = get_config({data!r})\n"
+                     f"build_cli_rig(cfg, make_calibrations(cfg), 'cpu', "
+                     f"buckets={buckets}, cache_dir={cache_dir!r}, "
+                     f"dtype=torch.{dtype})\n")
         procs.append(subprocess.Popen(
             [sys.executable, "-c", code], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True,
@@ -220,16 +251,25 @@ def start_rig_builds(cache_dir):
     return procs
 
 
-def prebuilt_rig(procs, i, device, cache_dir):
-    """Wait for rig build `i`, log its host build line, load the rig."""
-    data, buckets = PREBUILT[i]
-    out, _ = procs[i].communicate()
-    if procs[i].returncode:
-        raise RuntimeError(f"the {data} rig build failed:\n{out}")
-    log(f"host build of the {data} rig (a process of its own, no cache): "
-        f"{out.strip().splitlines()[-1]}")
+_BUILD_LOGS = {}
+
+
+def prebuilt_rig(procs, key, device, cache_dir):
+    """Wait for the host process that builds rig `key` = (data, buckets,
+    dtype), log its host build line, load the rig."""
+    data, buckets, dtype = key
+    g = next(i for i, group in enumerate(PREBUILT) if key in group)
+    if g not in _BUILD_LOGS:
+        out, _ = procs[g].communicate()
+        if procs[g].returncode:
+            raise RuntimeError(f"the rig builds {PREBUILT[g]} failed:\n{out}")
+        _BUILD_LOGS[g] = [ln for ln in out.splitlines()
+                          if ln.startswith("compiled rig:")]
+    line = _BUILD_LOGS[g][PREBUILT[g].index(key)]
+    log(f"host build of the {data} {dtype} rig (a process of its own, no "
+        f"cache): {line}")
     return full_rig(device, training=buckets == 8, data=data, buckets=buckets,
-                    cache_dir=cache_dir)
+                    cache_dir=cache_dir, dtype=dtype)
 
 
 def small_taps_rig(device):
@@ -250,6 +290,27 @@ def layout_of(rig) -> str:
     return "window" if rig.scales[0].window_hw else "flat"
 
 
+def is_bf16(rig) -> bool:
+    return rig.scales[0].A[0].dtype == torch.bfloat16
+
+
+def fwd_name(rig) -> str:
+    """The forward kernel a rig's launches go to: its layout's, the bf16
+    variant for a bf16 rig."""
+    return f"rig_{layout_of(rig)}_fwd" + ("_bf16" if is_bf16(rig) else "")
+
+
+def rig_as_bf16(rig):
+    """A flat rig with A cast to bf16: the bf16 flat rig (a flat rig's
+    tile_v does not depend on the dtype and its A is built in fp32 and then
+    cast; tests/test_torch_bf16.py::test_bf16_flat_rig_is_the_fp32_flat_rig_cast)."""
+    if layout_of(rig) != "flat":
+        raise ValueError("only a flat rig is the same in both dtypes")
+    return type(rig)([dataclasses.replace(sr, A=tuple(a.to(torch.bfloat16)
+                                                      for a in sr.A))
+                      for sr in rig.scales], rig.grid_shape)
+
+
 def scale_inputs(sr, B, seed, device):
     g = torch.Generator().manual_seed(seed)
     fh, fw = sr.feat_hw
@@ -259,7 +320,8 @@ def scale_inputs(sr, B, seed, device):
         lat = lat / (fh * fw)      # keeps the 2D cumsum O(1)
     bound = 1.0 / np.sqrt(256 * sr.nl)
     k = ((torch.rand((256 * sr.nl, 256), generator=g) * 2 - 1) * bound).to(device)
-    return lat.to(device), k
+    dtype = sr.A[0].dtype   # a bf16 rig's kernels take bf16 features and Kr
+    return lat.to(device=device, dtype=dtype), k.to(dtype)
 
 
 def plain_tiles(lat, sr, k):
@@ -281,6 +343,24 @@ def check_close(what, got, want, tol=KERNEL_TOL, quiet=False):
     return err, rel
 
 
+def check_bf16(what, got, want, quiet=False):
+    """(max abs err, max err / max |want|) of a bf16 kernel against its
+    plain version; raises past BF16_MAX of the plain max or BF16_L2 rel-L2."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    rel = err / max(float(want.abs().max()), 1e-30)
+    l2 = float(torch.linalg.vector_norm(got - want)
+               / max(float(torch.linalg.vector_norm(want)), 1e-30))
+    if not quiet:
+        log(f"  {what}: max abs err {err:.3e}, max rel err {rel:.3e}, rel-L2 "
+            f"{l2:.3e} (tolerance {BF16_MAX:.0e} of the plain max, rel-L2 "
+            f"{BF16_L2:.0e})")
+    if not (np.isfinite(rel) and rel <= BF16_MAX and l2 <= BF16_L2):
+        raise AssertionError(f"{what} disagrees with its plain version: rel "
+                             f"{rel:.3e}, rel-L2 {l2:.3e}")
+    return err, rel
+
+
 def worst_of(errs):
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
@@ -288,11 +368,15 @@ def worst_of(errs):
 def phase_kernel_vs_plain(rig, device, batches=(1, 2)):
     """The forward kernel against its plain version, bucket by bucket: each
     bucket's rows of the scale's tiles held to the tolerance of its own
-    plain result's max; one line per scale with its worst bucket."""
+    plain result's max (a bf16 rig: the bf16 kernel, BF16_MAX and BF16_L2);
+    one line per scale with its worst bucket."""
     from vfa_tpu_torch.ops.rig_cuda import rig_tiles_cuda
 
-    name = f"rig_{layout_of(rig)}_fwd"
-    errs = []
+    name = fwd_name(rig)
+    bf16 = is_bf16(rig)
+    tol = (f"{BF16_MAX:.0e} of each bucket's plain max, rel-L2 {BF16_L2:.0e}"
+           if bf16 else f"{KERNEL_TOL:.0e} of each bucket's plain max")
+    errs, vox_max = [], 0
     for B in batches:
         for si, sr in enumerate(rig.scales):
             lat, k = scale_inputs(sr, B, 100 * B + si, device)
@@ -305,15 +389,18 @@ def phase_kernel_vs_plain(rig, device, batches=(1, 2)):
             per_bucket, off = [], 0
             for bi, A_b in enumerate(sr.A):
                 rows = slice(off, off + A_b.shape[1] * sr.tile_v)
-                per_bucket.append(check_close(f"{tag} bucket {bi}", got[:, :, rows],
-                                              want[:, :, rows], quiet=True))
+                check = check_bf16 if bf16 else check_close
+                per_bucket.append(check(f"{tag} bucket {bi}", got[:, :, rows],
+                                        want[:, :, rows], quiet=True))
                 off = rows.stop
+                vox_max = max(vox_max, A_b[:, :, :, 0].numel() * B * 256)
             err, rel = worst_of(per_bucket)
             log(f"  {tag}: worst bucket max abs err {err:.3e}, max rel err "
-                f"{rel:.3e} (tolerance {KERNEL_TOL:.0e} of each bucket's plain max)")
+                f"{rel:.3e} (tolerance {tol})")
             errs += per_bucket
             del got, want
-    log(f"phase 2 {name} vs plain: ok")
+    log(f"phase 2 {name} vs plain: ok; the largest launch's vox scratch "
+        f"{vox_max} elements ({'past' if vox_max > 2 ** 31 else 'within'} 2^31)")
     return worst_of(errs)
 
 
@@ -537,21 +624,33 @@ def phase_train_path(rig, device, fused_stem: bool):
 
 
 def phase_main_path(rig, device, scenes: int):
+    """The serving CLI at full width on `rig` (a bf16 rig: `--dtype
+    bfloat16`), counts set to 0 just before and read just after: one launch
+    of the rig's forward kernel per bucket per request and no other kernel;
+    then the same requests through the plain rig version. fp32: heatmaps
+    within PATH_TOL, detections equal; bf16: heatmap rel-L2 within
+    BF16_PATH_L2, the detections' overlap printed."""
     from vfa_tpu_torch import predict
 
     layout = layout_of(rig)
-    fwd = f"rig_{layout}_fwd"
+    fwd = fwd_name(rig)
+    bf16 = is_bf16(rig)
     argv = ["--data", "MultiviewC", "--synthetic", "--scenes", str(scenes),
             "--batch", str(BATCH), "--seed", "0", "--cls_thresh", "0.5",
-            "--device", "cuda", "--rig_layout", layout]
+            "--device", "cuda", "--rig_layout", layout,
+            "--dtype", "bfloat16" if bf16 else "float32"]
+    tag = f"{layout}{', bf16' if bf16 else ''}"
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     res = predict.main(argv, rig=rig)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    log(f"serving path ({layout}) launches: {launches}")
-    if launches[fwd] <= 0:
-        raise AssertionError(f"the serving path never launched {fwd}")
+    buckets = sum(len(s.A) for s in rig.scales)
+    log(f"serving path ({tag}) launches: {launches} ({len(res['ms'])} requests, "
+        f"{buckets} buckets over the 3 scales)")
+    if launches[fwd] != buckets * len(res["ms"]):
+        raise AssertionError(f"the serving path launched {fwd} {launches[fwd]} "
+                             f"times, expected one per bucket per request")
     if any(n for name, n in launches.items() if name != fwd):
         raise AssertionError("the serving path launched another kernel")
     ref = predict.main(argv + ["--rig_impl", "plain"], rig=rig)
@@ -562,20 +661,32 @@ def phase_main_path(rig, device, scenes: int):
         if tuple(h.shape) != (BATCH, 1, 156, 156):
             raise AssertionError(f"request {i}: heatmap shape {tuple(h.shape)}")
         err = float((h - hr).abs().max()) / max(float(hr.abs().max()), 1e-12)
-        log(f"  request {i}: heatmap kernel vs plain route, max rel err {err:.3e} "
-            f"(tolerance {PATH_TOL:.0e})")
-        if err > PATH_TOL:
+        l2 = float(torch.linalg.vector_norm(h - hr) / torch.linalg.vector_norm(hr))
+        tol = f"rel-L2 {BF16_PATH_L2:.0e}" if bf16 else f"{PATH_TOL:.0e}"
+        log(f"  request {i}: heatmap kernel vs plain route, max rel err {err:.3e}, "
+            f"rel-L2 {l2:.3e} (tolerance {tol})")
+        if (l2 > BF16_PATH_L2) if bf16 else (err > PATH_TOL):
             raise AssertionError(f"request {i}: heatmap differs from the plain route")
-    n_det = 0
+    n_det = n_both = n_ref = 0
     for s, (d, dr) in enumerate(zip(res["detections"], ref["detections"])):
-        if len(d) != len(dr):
-            raise AssertionError(f"scene {s}: {len(d)} detections vs {len(dr)} plain")
-        for o, orf in zip(d, dr):
-            np.testing.assert_allclose(o.location, orf.location, rtol=1e-4, atol=0.5)
-            np.testing.assert_allclose(o.conf, orf.conf, rtol=1e-3, atol=1e-4)
+        if bf16:
+            # a detection of the kernel route that the plain route also has
+            # (location within 0.5 per coordinate)
+            n_both += sum(any(np.all(np.abs(np.asarray(o.location)
+                                            - np.asarray(orf.location)) <= 0.5)
+                              for orf in dr) for o in d)
+            n_ref += len(dr)
+        else:
+            if len(d) != len(dr):
+                raise AssertionError(f"scene {s}: {len(d)} detections vs {len(dr)} plain")
+            for o, orf in zip(d, dr):
+                np.testing.assert_allclose(o.location, orf.location, rtol=1e-4, atol=0.5)
+                np.testing.assert_allclose(o.conf, orf.conf, rtol=1e-3, atol=1e-4)
         n_det += len(d)
-    log(f"phase 3 serving path ({layout}): {len(res['ms'])} requests, {n_det} "
-        f"detections (conf > 0.5), equal to the plain route; p50 "
+    same = (f"{n_both} of them also in the plain route's {n_ref}" if bf16
+            else "equal to the plain route")
+    log(f"phase 3 serving path ({tag}): {len(res['ms'])} requests, {n_det} "
+        f"detections (conf > 0.5), {same}; p50 "
         f"{np.median(res['ms']):.2f} ms/request (batch {BATCH}), plain route "
         f"{np.median(ref['ms']):.2f}; peak memory {peak / 2**30:.2f} GiB")
     return launches, res, peak
@@ -700,6 +811,7 @@ def kernel_work(rig, B, backward: bool):
 
     flops = (2 if backward else 1) * B * rig_matmul_flops(rig, 256, 256)
     nbytes = 0
+    e = rig.scales[0].A[0].element_size()   # features, Kr and tiles in A's dtype
     for sr in rig.scales:
         fh, fw = sr.feat_hw
         N = sr.A[0].shape[0]
@@ -708,11 +820,17 @@ def kernel_work(rig, B, backward: bool):
         else:
             pixels = fh * fw + max(a.shape[-1] for a in sr.A)
         rows = sum(a.shape[1] for a in sr.A) * sr.tile_v
-        nbytes += sum(a.numel() * 4 + s.numel() * 4 for a, s in zip(sr.A, sr.starts))
-        nbytes += (3 if backward else 1) * N * B * pixels * 256 * 4    # ii (+ dII)
-        nbytes += (2 if backward else 1) * sr.nl * 256 * 256 * 4       # Kr (+ dKr)
-        nbytes += N * B * rows * 256 * 4                               # tiles or g
+        nbytes += sum(a.numel() * e + s.numel() * 4 for a, s in zip(sr.A, sr.starts))
+        nbytes += (3 if backward else 1) * N * B * pixels * 256 * e    # ii (+ dII)
+        nbytes += (2 if backward else 1) * sr.nl * 256 * 256 * e       # Kr (+ dKr)
+        nbytes += N * B * rows * 256 * e                               # tiles or g
     return flops, nbytes
+
+
+def rig_peak(rig) -> float:
+    """The operation rate a rig kernel is held to: dense bf16 for the bf16
+    variants, the fp32-accurate 3xTF32 rate (495 / 3) for the fp32 ones."""
+    return PEAK_BF16_FLOPS if is_bf16(rig) else PEAK_TF32_FLOPS / 3
 
 
 def bound_ms(flops, nbytes, peak_flops=PEAK_TF32_FLOPS / 3):
@@ -729,7 +847,10 @@ def phase_numbers(rig, device, backward: bool, rounds: int = 2, batch: int = BAT
     kernel and plain version."""
     from vfa_tpu_torch.ops.rig_cuda import rig_scale_bwd, rig_tiles_cuda
 
-    name = f"rig_{layout_of(rig)}_{'bwd' if backward else 'fwd'}"
+    name = f"rig_{layout_of(rig)}_bwd" if backward else fwd_name(rig)
+    peak = rig_peak(rig)
+    rate = ("989.4 TFLOP/s (dense bf16 on the tensor cores" if is_bf16(rig)
+            else "165 TFLOP/s (3xTF32 on the tensor cores")
     if backward:
         inputs, kernel, plain = grad_inputs, rig_scale_bwd, plain_scale_bwd
     else:
@@ -745,26 +866,29 @@ def phase_numbers(rig, device, backward: bool, rounds: int = 2, batch: int = BAT
         log(f"  scale {si} B={batch}: {name} "
             + " / ".join(f"{t:.3f}" for t in k_ms) + " ms, plain "
             + " / ".join(f"{t:.3f}" for t in p_ms)
-            + f" ms, bound {bound_ms(f, b)[0]:.3f} ms at 165 TFLOP/s "
-            f"(3xTF32 on the tensor cores; {bound_ms(f, b, PEAK_FP32_FLOPS)[0]:.3f} "
+            + f" ms, bound {bound_ms(f, b, peak)[0]:.3f} ms at {rate}; "
+            f"{bound_ms(f, b, PEAK_FP32_FLOPS)[0]:.3f} "
             f"ms at the CUDA cores' 67 TFLOP/s; {f / 1e9:.1f} GFLOP, "
             f"{b / 1e9:.3f} GB)")
         ms += min(k_ms)
         plain_ms += min(p_ms)
         del first, rest
-    return (ms, plain_ms, *bound_ms(*kernel_work(rig, batch, backward)))
+    return (ms, plain_ms, *bound_ms(*kernel_work(rig, batch, backward), peak))
 
 
 def phase_pass_shares(rig, device, batch: int = BATCH):
     """Device time of the forward kernel's two passes, pass 1 `rig_vox_mma`
-    (the A product) and pass 2 `rig_collapse_mma`, over one batch-`batch`
-    forward of the rig's three scales, from a torch.profiler capture after
-    a warm-up; logged as ms and as shares of the two passes' sum."""
+    (the A product) and pass 2 `rig_collapse_mma` (bf16: `rig_bfvox_mma`,
+    `rig_bfcollapse_mma`), over one batch-`batch` forward of the rig's three
+    scales, from a torch.profiler capture after a warm-up; logged as ms and
+    as shares of the two passes' sum."""
     from torch.profiler import ProfilerActivity, profile
 
     from vfa_tpu_torch.ops.rig_cuda import rig_tiles_cuda
 
-    name = f"rig_{layout_of(rig)}_fwd"
+    name = fwd_name(rig)
+    passes = (("rig_bfvox_mma", "rig_bfcollapse_mma") if is_bf16(rig)
+              else ("rig_vox_mma", "rig_collapse_mma"))
     inputs = [scale_inputs(sr, batch, 7 + si, device) for si, sr in enumerate(rig.scales)]
 
     def forward():
@@ -776,7 +900,7 @@ def phase_pass_shares(rig, device, batch: int = BATCH):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         forward()
     ms = {p: sum(e.device_time_total for e in prof.key_averages() if p in e.key) / 1e3
-          for p in ("rig_vox_mma", "rig_collapse_mma")}
+          for p in passes}
     total = sum(ms.values())
     if not total > 0:
         raise AssertionError(f"the profiler saw no device time of {name}'s passes")
@@ -927,11 +1051,19 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
     num["rig_flat_fwd"] = phase_numbers(flat_rig, device, backward=False)
     phase_pass_shares(flat_rig, device)
     num["rig_flat_bwd"] = phase_numbers(flat_rig, device, backward=True)
+    # bf16 flat: the same rig with A cast to bf16
+    flat16 = rig_as_bf16(flat_rig)
     del flat_rig
+    torch.cuda.empty_cache()
+    err["rig_flat_fwd_bf16"] = phase_kernel_vs_plain(flat16, device)
+    flat16_launches, flat16_res, flat16_peak = phase_main_path(flat16, device, scenes=6)
+    num["rig_flat_fwd_bf16"] = phase_numbers(flat16, device, backward=False)
+    phase_pass_shares(flat16, device)
+    del flat16
     torch.cuda.empty_cache()
 
     # the 2D configs at full width: MultiviewX on one 8-bucket window rig
-    mx_rig = prebuilt_rig(builds, 0, device, rig_cache)
+    mx_rig = prebuilt_rig(builds, ("MultiviewX", 8, "float32"), device, rig_cache)
     err["rig_window_fwd"] = worst_of([err["rig_window_fwd"], phase_kernel_vs_plain(
         mx_rig, device, batches=(1, 2, 8))])
     err["rig_window_bwd"] = worst_of([err["rig_window_bwd"],
@@ -950,7 +1082,7 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
     del mx_rig
     torch.cuda.empty_cache()
     # Wildtrack on one 12-bucket window rig
-    wt_rig = prebuilt_rig(builds, 1, device, rig_cache)
+    wt_rig = prebuilt_rig(builds, ("Wildtrack", 12, "float32"), device, rig_cache)
     err["rig_window_fwd"] = worst_of([err["rig_window_fwd"],
                                       phase_kernel_vs_plain(wt_rig, device)])
     bench_wt, _ = phase_bench(["--data", "Wildtrack"] + BENCH, wt_rig,
@@ -960,10 +1092,38 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
     del wt_rig
     torch.cuda.empty_cache()
 
+    # bf16 serving, the root bench's default dtype, on the three datasets
+    mc16 = prebuilt_rig(builds, ("MultiviewC", 12, "bfloat16"), device, rig_cache)
+    err["rig_window_fwd_bf16"] = phase_kernel_vs_plain(mc16, device)
+    serve16_launches, serve16_res, serve16_peak = phase_main_path(mc16, device, scenes=6)
+    num["rig_window_fwd_bf16"] = phase_numbers(mc16, device, backward=False)
+    phase_pass_shares(mc16, device)
+    bench16 = {"MultiviewC": phase_bench(
+        ["--data", "MultiviewC", "--dtype", "bfloat16", "--batch", "0", "--iters",
+         "5", "--warmup", "1"], mc16, ["rig_window_fwd_bf16"])[0]}
+    del mc16
+    torch.cuda.empty_cache()
+    num16 = {}
+    for data in ("MultiviewX", "Wildtrack"):
+        rig16 = prebuilt_rig(builds, (data, 12, "bfloat16"), device, rig_cache)
+        err["rig_window_fwd_bf16"] = worst_of([
+            err["rig_window_fwd_bf16"], phase_kernel_vs_plain(
+                rig16, device, batches=(1, 2, 8) if data == "MultiviewX" else (1, 2))])
+        torch.cuda.empty_cache()
+        num16[data] = (phase_numbers(rig16, device, backward=False, rounds=1),
+                       sum(len(s.A) for s in rig16.scales))
+        bench16[data] = phase_bench(
+            ["--data", data, "--dtype", "bfloat16", "--batch", "0", "--iters", "5",
+             "--warmup", "1"], rig16, ["rig_window_fwd_bf16"])[0]
+        del rig16
+        torch.cuda.empty_cache()
+
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    for tag, r, pk in (("window", res, peak), ("flat", flat_res, flat_peak)):
+    for tag, r, pk in (("window", res, peak), ("flat", flat_res, flat_peak),
+                       ("window, bf16", serve16_res, serve16_peak),
+                       ("flat, bf16", flat16_res, flat16_peak)):
         log(f"p50 ms per request ({tag} rig, batch {BATCH}): "
             f"{float(np.median(r['ms'])):.3f}; max_memory_allocated {pk} bytes")
     for tag, r, pk in (("window", train_res, train_peak),
@@ -983,12 +1143,23 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
         log(f"{tag} at B={BATCH}: {n[0]:.3f} ms, plain {n[1]:.3f} ms, bound "
             f"{n[2]:.3f} ms by {n[3]} ({n[2] / n[0]:.1%} of the bound); "
             f"{buckets} launches per {'step' if 'bwd' in tag else 'request'}")
+    for name in ("rig_window_fwd_bf16", "rig_flat_fwd_bf16"):
+        n = num[name]
+        log(f"{name} MultiviewC at B={BATCH}: {n[0]:.3f} ms, plain {n[1]:.3f} ms, "
+            f"bound {n[2]:.3f} ms by {n[3]} ({n[2] / n[0]:.1%} of the bound); "
+            f"fp32 {name[:-5]} {num[name[:-5]][0]:.3f} ms")
+    for data, (n, buckets) in num16.items():
+        log(f"rig_window_fwd_bf16 {data} at B={BATCH}: {n[0]:.3f} ms, plain "
+            f"{n[1]:.3f} ms, bound {n[2]:.3f} ms by {n[3]} ({n[2] / n[0]:.1%} of "
+            f"the bound); {buckets} launches per request")
     for tag, r in (("MultiviewC serving, auto batch", bench_mc),
                    ("MultiviewX serving", bench_mx),
                    ("MultiviewX training", bench_mx_train),
-                   ("Wildtrack serving", bench_wt)):
+                   ("Wildtrack serving", bench_wt),
+                   *((f"{d} bf16 serving, auto batch", r16)
+                     for d, r16 in bench16.items())):
         log(f"bench {tag}: {r['value']} scenes/s, {r['tflops_per_sec']} "
-            f"TFLOP/s, mfu {r['mfu']}")
+            f"TFLOP/s, mfu {r['mfu']}, dtype {r['dtype']}")
     share = mx_ref["sum of the 3 scales"]
     log(f"MultiviewX rig vs reference voxel route (batch 1): max abs err "
         f"{share[0]:.3e}, max rel err {share[1]:.3e}, {share[2]:.3f} of rtol "
@@ -1000,6 +1171,7 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
         ms, plain_ms, b_ms, by, *rate = num[name]
         if rate:
             extra.update(gb_per_s=rate[0], share_of_bound=rate[1])
+        extra.setdefault("dtype", "float32")
         return {"name": name, "route": "cuda",
                 "source": f"vfa_tpu_torch/csrc/{source}.cu", "replaces": replaces,
                 "launches": launches, "max_abs_err": err[name][0],
@@ -1022,6 +1194,10 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
               flat_train_launches["stem_bwd_stats"]),
         entry("stem_bwd_dx", "stem_bwd", "vfa_tpu/ops/stem.py:253",
               flat_train_launches["stem_bwd_dx"]),
+        entry("rig_window_fwd_bf16", "rig_window_fwd", "vfa_tpu/ops/rig_pallas.py:89",
+              serve16_launches["rig_window_fwd_bf16"], dtype="bfloat16"),
+        entry("rig_flat_fwd_bf16", "rig_flat_fwd", "vfa_tpu/ops/rig_pallas.py:31",
+              flat16_launches["rig_flat_fwd_bf16"], dtype="bfloat16"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

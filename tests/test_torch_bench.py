@@ -21,7 +21,7 @@ from vfa_tpu_torch.ops.rig import (
 from vfa_tpu_torch.ops.rig_cuda import rig_window_fwd
 
 TINY = ["--tiny", "--device", "cpu", "--batch", "1", "--iters", "1", "--warmup", "0"]
-KEYS = {"metric", "value", "unit", "vs_baseline", "tflops_per_sec"}
+KEYS = {"metric", "value", "unit", "vs_baseline", "tflops_per_sec", "dtype"}
 
 
 @pytest.fixture(autouse=True)
@@ -53,7 +53,7 @@ def test_bench_prints_one_json_line_with_bench_keys(capsys, extra, metric):
     res, err = _run(capsys, TINY + extra)
     assert set(res) == KEYS               # no card: no mfu key
     assert res["metric"] == metric and res["unit"] == "scenes/sec"
-    assert res["vs_baseline"] is None
+    assert res["vs_baseline"] is None and res["dtype"] == "float32"
     # tflops_per_sec is rounded to 2 decimals, as in bench.py: a slow CPU
     # can print 0.0; the FLOPs of a call are on stderr
     assert res["value"] > 0 and res["tflops_per_sec"] >= 0
@@ -128,7 +128,8 @@ def test_out_of_memory_at_the_last_attempt_is_raised(monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--dtype", "bfloat16"], "item 9"),
+    (["--dtype", "bfloat16", "--train"], "item 9"),
+    (["--dtype", "bfloat16", "--no-rig"], "item 9"),
     (["--remat"], "item 9"),
     (["--stem_remat"], "item 9"),
     (["--chunks", "2"], "item 9"),
@@ -143,6 +144,24 @@ def test_out_of_memory_at_the_last_attempt_is_raised(monkeypatch):
 def test_unported_flags_raise_naming_their_item(flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
         bench.main(TINY + flag)
+
+
+@pytest.mark.parametrize("layout", ["window", "flat"])
+def test_bench_bf16_serving(capsys, layout):
+    """--dtype bfloat16 serves: one JSON line with dtype bfloat16, a bf16
+    rig (JAX's bf16 tile_v: 160 for MultiviewC), no host sync in a warm
+    call, and on the CPU no kernel launch of either dtype."""
+    from vfa_tpu_torch.ops.rig_cuda import rig_flat_fwd_bf16, rig_window_fwd_bf16
+
+    counts = (rig_window_fwd_bf16.launches, rig_flat_fwd_bf16.launches)
+    res, err = _run(capsys, TINY + ["--dtype", "bfloat16", "--layout", layout])
+    assert set(res) == KEYS and res["dtype"] == "bfloat16"
+    assert res["metric"] == "multiviewc_2cam_scenes_per_sec_per_chip"
+    assert res["value"] > 0
+    assert f"compiled rig: 12 buckets, tile_v 160, bf16, {layout} layout" in err
+    assert "# host syncs in one warm call: 0" in err
+    assert "dtype=bfloat16" in err
+    assert counts == (rig_window_fwd_bf16.launches, rig_flat_fwd_bf16.launches)
 
 
 def test_flop_count_sees_the_plain_rig_once():

@@ -57,6 +57,11 @@ assert all(np.isfinite(d["loss"]) for d in out["losses"])
 assert out["model"].base.fused_stem_on() and not out["rig"].scales[0].window_hw
 assert rig_flat_fwd.launches == 0 and rig_flat_bwd.launches == 0
 assert stem.stem_bwd_stats.launches == 0 and stem.stem_bwd_dx.launches == 0
+from vfa_tpu_torch.ops.rig_cuda import rig_window_fwd_bf16
+out = predict.main(["--data", "Wildtrack", "--synthetic", "--tiny", "--device",
+                    "cpu", "--scenes", "1", "--batch", "1", "--dtype", "bfloat16"])
+assert all(torch.isfinite(h).all() for h in out["heatmaps"])
+assert rig_window_fwd_bf16.launches == 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "vfa_tpu")
        and sys.modules[m] is not None]
 assert not bad, bad

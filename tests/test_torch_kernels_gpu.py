@@ -590,3 +590,186 @@ def test_window_kernels_vox_scratch_past_2_31_elements(cuda, backward):
         assert float((a - b).abs().max()) <= tol
         if a.dim() == 5 or a.dim() == 4:
             assert float((a[-1, -1] - b[-1, -1]).abs().max()) <= tol
+
+
+# bf16 variants of K1 / K4. Tolerance: max abs err <= 1e-2 of the plain
+# result's max and rel-L2 <= 4e-3. Both sides round vox and the tiles to
+# bf16 at the same points (`ops/rig._tiles_fwd`); the kernel sums in
+# another order, which flips a rounding by about one bf16 ulp (2^-8
+# relative) here and there.
+BF16_MAX, BF16_L2 = 1e-2, 4e-3
+
+
+def assert_bf16_close(got, want):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    err = float((got - want).abs().max())
+    assert err <= BF16_MAX * float(want.abs().max()), err
+    rel_l2 = float(torch.linalg.vector_norm(got - want)
+                   / torch.linalg.vector_norm(want))
+    assert rel_l2 <= BF16_L2, rel_l2
+
+
+def _bf16_inputs(sr, B, seed, device):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    N = sr.A[0].shape[0]
+    lat = torch.rand((B, N, *sr.feat_hw, 256), generator=gen)
+    k = torch.randn((256 * sr.nl, 256), generator=gen) * 0.05
+    return (lat.to(device=device, dtype=torch.bfloat16),
+            k.to(device=device, dtype=torch.bfloat16))
+
+
+def _bf16_rig(name, tile_v, buckets, layout, device, factor=4):
+    cfg = tiny_config(get_config(name), factor=factor)
+    return trig.build_rig(make_calibrations(cfg), cfg,
+                          make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name),
+                          trig.pyramid_feat_shapes(cfg.resize_size),
+                          tile_v=tile_v, band_buckets=buckets, layout=layout,
+                          dtype=torch.bfloat16, device=device)
+
+
+@pytest.mark.parametrize("layout,name,tile_v,buckets",
+                         [("window", "MultiviewC", 16, 3),
+                          ("window", "MultiviewC", 160, 3),
+                          ("window", "Wildtrack", 64, 3),
+                          ("flat", "MultiviewC", 16, 3),
+                          ("flat", "MultiviewC", 160, 3),
+                          ("flat", "Wildtrack", 16, 3)],
+                         ids=["window-tv16", "window-R800", "window-nl8",
+                              "flat-band8", "flat-R800", "flat-nl8"])
+@pytest.mark.parametrize("B", [1, 2, 8])
+def test_bf16_fwd_kernels_match_plain(cuda, layout, name, tile_v, buckets, B):
+    """The bf16 K1 / K4 on every bucket of bf16 rigs against the plain
+    version in bf16, and the whole scale's output (epilogue and camera sum)
+    against `rig_sample_scale`. R = nl*tile_v = 800 is no multiple of the
+    64-row CTA tile; nl 8 gives a 2048-deep collapse chain; the flat rigs
+    hold bands with band % 16 == 8. Only the bf16 counts move."""
+    from vfa_tpu_torch.ops.rig_cuda import rig_flat_fwd_bf16, rig_window_fwd_bf16
+
+    rig = _bf16_rig(name, tile_v, buckets, layout, cuda)
+    if layout == "flat" and tile_v == 16:
+        assert any(a.shape[-1] % 16 == 8 for sr in rig.scales for a in sr.A)
+    count = rig_window_fwd_bf16 if layout == "window" else rig_flat_fwd_bf16
+    for si, sr in enumerate(rig.scales):
+        assert all(a.dtype == torch.bfloat16 for a in sr.A)
+        lat, k = _bf16_inputs(sr, B, 80 + 10 * B + si, cuda)
+        n0 = count.launches
+        f32 = (rig_window_fwd.launches, rig_flat_fwd.launches)
+        got = rig_tiles_cuda(lat, sr, k)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16
+        assert count.launches == n0 + len(sr.A)
+        assert (rig_window_fwd.launches, rig_flat_fwd.launches) == f32
+        want = trig.scale_tiles(trig.scale_features(lat, sr), sr,
+                                trig.collapse_per_layer(k, 256, sr.nl, lat.dtype))
+        off = 0
+        for A_b in sr.A:
+            rows = slice(off, off + A_b.shape[1] * sr.tile_v)
+            assert_bf16_close(got[:, :, rows], want[:, :, rows])
+            off = rows.stop
+        b = torch.randn((256,), generator=torch.Generator().manual_seed(si)).to(
+            device=cuda, dtype=torch.bfloat16)
+        full = rig_sample_scale_cuda(lat, sr, k, b, out_dtype=torch.float32,
+                                     camera_sum=True)
+        assert_bf16_close(full, trig.rig_sample_scale(
+            lat, sr, k, b, out_dtype=torch.float32, camera_sum=True))
+
+
+@pytest.mark.parametrize("layout", ["window", "flat"])
+def test_bf16_fwd_kernels_write_in_place(cuda, layout):
+    """Each bucket of a bf16 rig into a NaN-filled bf16 `out` at tile
+    offset 2: the launch's rows as the plain version's, every other row
+    still NaN."""
+    rig = _bf16_rig("MultiviewC", 160 if layout == "flat" else 16, 3, layout, cuda)
+    off_t = 2
+    for si, sr in enumerate(rig.scales):
+        lat, k = _bf16_inputs(sr, 2, 95 + si, cuda)
+        ii = trig.scale_features(lat, sr)
+        Kr = trig.collapse_per_layer(k, 256, sr.nl, torch.bfloat16)
+        for bi, (A_b, s_b) in enumerate(zip(sr.A, sr.starts)):
+            T, tile_v = A_b.shape[1], sr.tile_v
+            lo, hi = off_t * tile_v, (off_t + T) * tile_v
+            out = torch.full((A_b.shape[0], 2, hi + tile_v, 256), float("nan"),
+                             dtype=torch.bfloat16, device=cuda)
+            if layout == "window":
+                rig_window_fwd(ii, A_b, s_b, Kr, out, off_t=off_t, tile_v=tile_v,
+                               window=sr.window_hw[bi])
+                want = trig.window_tiles(ii, A_b, s_b, Kr, sr.window_hw[bi], tile_v)
+            else:
+                rig_flat_fwd(ii, A_b, s_b, Kr, out, off_t=off_t, tile_v=tile_v)
+                want = trig.flat_tiles(ii, A_b, s_b, Kr, tile_v)
+            torch.cuda.synchronize()
+            assert_bf16_close(out[:, :, lo:hi], want)
+            assert torch.isnan(out[:, :, :lo]).all()
+            assert torch.isnan(out[:, :, hi:]).all()
+
+
+def test_bf16_kernels_refuse_mixed_dtypes_and_backward(cuda):
+    """A bf16 forward takes bf16 only (no fp32 / bf16 mixing); the backward
+    kernels and the autograd backward refuse bf16, naming bf16 training."""
+    rig = _bf16_rig("MultiviewC", 16, 3, "window", cuda)
+    sr = rig.scales[0]
+    lat, k = _bf16_inputs(sr, 1, 5, cuda)
+    with pytest.raises(TypeError, match="no mixing"):
+        rig_tiles_cuda(lat.float(), sr, k.float())
+    ii = trig.pad_features(lat)
+    Kr = trig.collapse_per_layer(k, 256, sr.nl, torch.bfloat16)
+    rows = sum(a.shape[1] for a in sr.A) * sr.tile_v
+    out = torch.empty((2, 1, rows, 256), device=cuda)
+    with pytest.raises(TypeError, match="no mixing"):
+        rig_window_fwd(ii, sr.A[0], sr.starts[0], Kr, out, off_t=0,
+                       tile_v=sr.tile_v, window=sr.window_hw[0])
+    g = torch.zeros((2, 1, rows, 256), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="Queue 1 item 9"):
+        rig_window_bwd(ii, sr.A[0], sr.starts[0], Kr, g, torch.zeros_like(ii),
+                       torch.zeros_like(Kr), off_t=0, tile_v=sr.tile_v,
+                       window=sr.window_hw[0])
+    la = lat.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        rig_tiles_cuda(la, sr, k).float().sum().backward()
+
+
+def test_bf16_full_multiviewc_window_rig_every_bucket(cuda):
+    """Every bucket of the full bf16 MultiviewC serving rig (the 12-bucket
+    policy, tile_v 160, R = 800) at batch 2 against the plain version."""
+    from vfa_tpu_torch.rig_cli import build_cli_rig
+
+    cfg = get_config("MultiviewC")
+    rig = build_cli_rig(cfg, make_calibrations(cfg), cuda, dtype=torch.bfloat16)
+    for si, sr in enumerate(rig.scales):
+        assert sr.tile_v == 160 and sr.A[0].shape[2] == 800
+        lat, k = _bf16_inputs(sr, 2, 120 + si, cuda)
+        got = rig_tiles_cuda(lat, sr, k)
+        want = trig.scale_tiles(trig.scale_features(lat, sr), sr,
+                                trig.collapse_per_layer(k, 256, sr.nl, lat.dtype))
+        torch.cuda.synchronize()
+        off = 0
+        for A_b in sr.A:
+            rows = slice(off, off + A_b.shape[1] * sr.tile_v)
+            assert_bf16_close(got[:, :, rows], want[:, :, rows])
+            off = rows.stop
+        del got, want
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_bf16_window_kernel_2d_widths_and_past_2_31(cuda, B):
+    """The bf16 K1 at the widths of the bf16 MultiviewX / Wildtrack rigs
+    (nl 8, tile_v 64: 512-row tiles, a 2048-deep collapse chain), 256-wide
+    windows; at B = 8 the launch's vox scratch (2 x 8 x 1100 x 512 x 256 =
+    2.3e9 elements) passes 2^31, as the full MultiviewX rig's largest bucket
+    does at batch 8: the last scene's rows alone too."""
+    N, T, tile_v, window = 2, (1100 if B == 8 else 5), 64, (16, 16)
+    if B == 8:
+        assert N * B * T * 8 * tile_v * 256 > 2 ** 31
+    A, starts, ii, Kr, _ = _window_bucket(N, B, T, window, 24, 48, 130 + B, cuda,
+                                          tile_v=tile_v)
+    A, ii, Kr = (t.to(torch.bfloat16) for t in (A, ii, Kr))
+    out = torch.full((N, B, (T + 1) * tile_v, 256), float("nan"),
+                     dtype=torch.bfloat16, device=cuda)
+    rig_window_fwd(ii, A, starts, Kr, out, off_t=1, tile_v=tile_v, window=window)
+    got = out[:, :, tile_v:]
+    want = trig.window_tiles(ii, A, starts, Kr, window, tile_v)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[:, :, :tile_v]).all()
+    assert_bf16_close(got, want)
+    assert_bf16_close(got[-1, -1], want[-1, -1])

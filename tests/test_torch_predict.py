@@ -5,7 +5,7 @@ import pytest
 import torch
 
 from vfa_tpu_torch import predict
-from vfa_tpu_torch.ops.rig_cuda import rig_window_fwd
+from vfa_tpu_torch.ops.rig_cuda import rig_window_fwd, rig_window_fwd_bf16
 
 
 def test_predict_cli_tiny_cpu(capsys):
@@ -32,6 +32,21 @@ def test_predict_plain_and_kernel_route_agree_on_cpu():
     np.testing.assert_array_equal(a["heatmaps"][0].numpy(), b["heatmaps"][0].numpy())
 
 
+def test_predict_bf16_tiny_cpu(capsys, tmp_path, monkeypatch):
+    """--dtype bfloat16 serves through a bf16 rig and a bf16 model (the
+    plain rig versions on the CPU), fp32 heatmaps out."""
+    monkeypatch.setenv("HOME", str(tmp_path))
+    counts = (rig_window_fwd.launches, rig_window_fwd_bf16.launches)
+    out = predict.main(["--data", "Wildtrack", "--synthetic", "--tiny",
+                        "--device", "cpu", "--scenes", "2", "--batch", "2",
+                        "--dtype", "bfloat16", "--cls_thresh", "0.5"])
+    assert "tile_v 64, bf16, window layout" in capsys.readouterr().out
+    assert counts == (rig_window_fwd.launches, rig_window_fwd_bf16.launches)
+    assert len(out["detections"]) == 2
+    assert all(h.dtype == torch.float32 and torch.isfinite(h).all()
+               for h in out["heatmaps"])
+
+
 def test_predict_no_rig_tiny_cpu(capsys):
     """--no_rig serves through the voxel route, no rig built."""
     out = predict.main(["--data", "MultiviewX", "--synthetic", "--tiny",
@@ -45,3 +60,6 @@ def test_predict_no_rig_tiny_cpu(capsys):
 def test_predict_requires_synthetic():
     with pytest.raises(NotImplementedError, match="--synthetic"):
         predict.main(["--data", "MultiviewC", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        predict.main(["--data", "MultiviewC", "--synthetic", "--device", "cpu",
+                      "--no_rig", "--dtype", "bfloat16"])

@@ -5,6 +5,7 @@ path.
 
     python -m vfa_tpu_torch.bench                         # MultiviewC serving, auto batch
     python -m vfa_tpu_torch.bench --data MultiviewX --train
+    python -m vfa_tpu_torch.bench --dtype bfloat16 --data Wildtrack   # bf16 serving
     python -m vfa_tpu_torch.bench --tiny --device cpu --batch 1 --iters 2 --warmup 1
 
 Inputs are synthetic scenes (`make_scene(cfg, seed=s, num_objects=6)`)
@@ -18,7 +19,10 @@ device and reads one value back. `--batch 0` tries 32/16/8/4/2/1 scenes
 Prints ONE JSON line on stdout with `bench.py`'s keys: metric, value
 (scenes/sec), unit, vs_baseline (null: the root bench divides by targets
 set for a TPU, which are not the port's), tflops_per_sec and mfu (against
-the card's dense bf16 peak, for a known card only). Everything else
+the card's dense bf16 peak, for a known card only), and dtype. bfloat16
+serves as the root bench does: every floating parameter and buffer of the
+model cast to bf16, bf16 images, a rig built in bf16 (its tile_v and A),
+fp32 predictions decoded. Everything else
 (TF32 settings, the card and its power limit, each batch attempt with its
 peak memory, host syncs in a warm call, FLOPs) goes to stderr.
 """
@@ -65,7 +69,9 @@ def parse_args(argv=None):
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
-                   help="compute dtype (bfloat16 is not ported yet)")
+                   help="compute dtype (bfloat16: serving only; the model, "
+                        "the images and the rig cast as the root bench casts "
+                        "them)")
     p.add_argument("--data", default="MultiviewC",
                    choices=["MultiviewC", "MultiviewX", "Wildtrack"])
     p.add_argument("--layout", default="window", choices=["window", "flat"],
@@ -105,8 +111,11 @@ def _refuse_unported(args) -> None:
     memory = "(ROADMAP.md Queue 1 item 9, with bf16)"
     loader = "(ROADMAP.md Queue 1 item 11, the data pipeline)"
     unported = [
-        (args.dtype != "float32", "--dtype bfloat16 is not ported yet "
-         "(ROADMAP.md Queue 1 item 9, bf16)"),
+        (args.dtype == "bfloat16" and args.train, "--dtype bfloat16 --train "
+         "is not ported yet (ROADMAP.md Queue 1 item 9, bf16 training)"),
+        (args.dtype == "bfloat16" and args.no_rig, "--dtype bfloat16 --no-rig "
+         "is not ported yet (ROADMAP.md Queue 1 item 9, the voxel route in "
+         "bf16)"),
         (args.remat, f"--remat is not ported yet {memory}"),
         (args.stem_remat, f"--stem_remat is not ported yet {memory}"),
         (args.chunks is not None, f"--chunks is not ported yet {memory}"),
@@ -126,10 +135,10 @@ def _refuse_unported(args) -> None:
             raise NotImplementedError(message)
 
 
-def make_inputs(cfg, bs: int, device, train: bool):
-    """A batch of `bs` synthetic scenes as tensors on `device`: images,
-    calibs, grid and, for training, the gt heatmap and the objects padded
-    to MAX_OBJECTS (`bench.py:206-219`)."""
+def make_inputs(cfg, bs: int, device, train: bool, dtype=torch.float32):
+    """A batch of `bs` synthetic scenes as tensors on `device`: images (in
+    `dtype`, `bench.py:252`), calibs, grid and, for training, the gt heatmap
+    and the objects padded to MAX_OBJECTS (`bench.py:206-219`)."""
     from vfa_tpu_torch.data.synthetic import make_scene
     from vfa_tpu_torch.utils import pad_objects
 
@@ -142,8 +151,10 @@ def make_inputs(cfg, bs: int, device, train: bool):
         batch["heatmap"] = np.stack([s.heatmap for s in scenes])
         for key in objs[0]:
             batch[key] = np.stack([o[key] for o in objs])
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+           for k, v in batch.items()}
+    out["images"] = out["images"].to(dtype)
+    return out
 
 
 def make_runner(cfg, args, bs: int, rig, device):
@@ -153,12 +164,14 @@ def make_runner(cfg, args, bs: int, rig, device):
     closure and nowhere else, so dropping it frees them."""
     from vfa_tpu_torch.codec import decode_frame
     from vfa_tpu_torch.config import TrainConfig
-    from vfa_tpu_torch.model.vfanet import VFANet, init_weights
+    from vfa_tpu_torch.model.vfanet import VFANet, cast_model, init_weights
     from vfa_tpu_torch.train_lib import make_optimizer, make_train_step
 
-    model = init_weights(VFANet(cfg, rig_impl=args.rig_impl),
-                         torch.Generator().manual_seed(0)).to(device)
-    batch = make_inputs(cfg, bs, device, args.train)
+    dtype = getattr(torch, args.dtype)
+    model = cast_model(init_weights(VFANet(cfg, rig_impl=args.rig_impl),
+                                    torch.Generator().manual_seed(0)).to(device),
+                       dtype)
+    batch = make_inputs(cfg, bs, device, args.train, dtype)
     dim_mean = DIM_MEAN if cfg.mode == "3D" else None
     if args.train:
         tcfg = TrainConfig(pretrained=False)
@@ -243,6 +256,15 @@ def call_flops(counted: int, rig, bs: int, train: bool, device, rig_impl: str) -
     return counted
 
 
+def vox_scratch_line(rig, bs: int) -> str:
+    """The largest vox scratch one rig kernel launch allocates at batch
+    `bs`: (N, B, T, nl*tile_v, C) of the largest bucket, in A's dtype."""
+    elems, size = max((a[..., 0].numel() * bs * 256, a.element_size())
+                      for sr in rig.scales for a in sr.A)
+    return (f"largest vox scratch of one kernel launch at batch {bs}: {elems} "
+            f"elements, {elems * size} bytes")
+
+
 def main(argv=None, rig=None) -> dict:
     """Run the bench and print its JSON line; returns the printed dict.
     `rig` is an already built CameraRig for this configuration (built, or
@@ -278,7 +300,8 @@ def main(argv=None, rig=None) -> dict:
         with contextlib.redirect_stdout(sys.stderr):
             rig = build_cli_rig(cfg, make_calibrations(cfg), device,
                                 buckets=buckets, layout=args.layout,
-                                cache_dir=RIG_CACHE_DIR)
+                                cache_dir=RIG_CACHE_DIR,
+                                dtype=getattr(torch, args.dtype))
         log(f"# rig build: {time.perf_counter() - t0:.1f} s")
     else:
         log(f"# rig: given by the caller, {[len(s.A) for s in rig.scales]} "
@@ -325,6 +348,8 @@ def main(argv=None, rig=None) -> dict:
     log(f"# host syncs in one warm call: {len(syncs)}"
         + "".join(f"\n#   {w.filename}:{w.lineno}: {w.message}" for w in syncs[:5]))
 
+    if rig is not None:
+        log(f"# {vox_scratch_line(rig, bs)}")
     scenes_per_sec = bs / t
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     log(f"# batch={bs} p50={t / bs * 1e3:.2f} ms/scene over {args.iters} iters "
@@ -343,6 +368,7 @@ def main(argv=None, rig=None) -> dict:
         "unit": "scenes/sec",
         "vs_baseline": None,
         "tflops_per_sec": round(tflops_s, 2),
+        "dtype": args.dtype,
     }
     if peak:
         result["mfu"] = round(tflops_s / peak, 4)

@@ -35,6 +35,7 @@
 // across the scene axis is not carried over; the scene is the innermost
 // grid index instead, so the B CTAs that read one A tile share it in L2.
 
+#include "rig_bf16.cuh"
 #include "rig_mma.cuh"
 
 // ii (N, B, pixels, C) fp32 with pixels = fh*fw + max_band; A
@@ -50,4 +51,25 @@ extern "C" int rig_flat_fwd_f32(const float* ii, const float* A,
   return rig_fwd_launch<false>(ii, A, starts, Kr, vox, out, N, B, pixels, 0, C,
                                T, nl, tile_v, band, 0, n_out, off_t,
                                rows_total, stream);
+}
+
+// The bf16 variant: ii, A, Kr, the vox scratch and out all bf16, the same
+// shapes; the rounding points of _kernel on bf16 inputs (see
+// rig_window_fwd_bf16), both passes on the wgmma bf16 tile of rig_bf16.cuh.
+// A band is a multiple of 8 values, one 16-byte quad, so pass 1's last slice
+// is zero-filled past the band in whole quads; nl*tile_v = 800 rows are no
+// multiple of the 64-row CTA tile: rows past it are zeros in A's loader and
+// are not stored.
+extern "C" int rig_flat_fwd_bf16(const void* ii, const void* A,
+                                 const int* starts, const void* Kr, void* vox,
+                                 void* out, int N, int B, int pixels, int C,
+                                 int T, int nl, int tile_v, int band,
+                                 int n_out, int off_t, int rows_total,
+                                 void* stream) {
+  using bft::bf16;
+  return bft::rig_fwd_launch<false>(
+      static_cast<const bf16*>(ii), static_cast<const bf16*>(A), starts,
+      static_cast<const bf16*>(Kr), static_cast<bf16*>(vox),
+      static_cast<bf16*>(out), N, B, pixels, 0, C, T, nl, tile_v, band, 0,
+      n_out, off_t, rows_total, stream);
 }

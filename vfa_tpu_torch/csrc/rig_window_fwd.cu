@@ -41,6 +41,7 @@
 // full rig and batch 2 that is 1.75 GB per scale written and read once,
 // about 1 ms at 3.35 TB/s.
 
+#include "rig_bf16.cuh"
 #include "rig_mma.cuh"
 
 // ii (N, B, Hp, Wp, C) fp32; A (N, T, nl*tile_v, wh*ww) fp32; starts
@@ -56,4 +57,26 @@ extern "C" int rig_window_fwd_f32(const float* ii, const float* A,
   return rig_fwd_launch<true>(ii, A, starts, Kr, vox, out, N, B, Hp * Wp, Wp,
                               C, T, nl, tile_v, wh * ww, ww, n_out, off_t,
                               rows_total, stream);
+}
+
+// The bf16 variant: ii, A, Kr, the vox scratch and out all bf16, the same
+// shapes; vox = A @ window summed in fp32 and rounded to bf16, then the
+// collapse summed in fp32 and rounded to bf16, as _kernel_win rounds on bf16
+// inputs. Both passes on the wgmma bf16 tile of rig_bf16.cuh. What bounds it
+// on the H100 (SXM, 700 W): operations at the dense bf16 rate. The full
+// MultiviewC bf16 rig (tile_v 160, A 1.98 GB) makes a batch-2 forward 1.69
+// TFLOP, 1.71 ms at 989.4 TFLOP/s, against 2.65 GB of A, features, Kr and
+// tiles (0.79 ms at 3.35 TB/s).
+extern "C" int rig_window_fwd_bf16(const void* ii, const void* A,
+                                   const int* starts, const void* Kr,
+                                   void* vox, void* out, int N, int B, int Hp,
+                                   int Wp, int C, int T, int nl, int tile_v,
+                                   int wh, int ww, int n_out, int off_t,
+                                   int rows_total, void* stream) {
+  using bft::bf16;
+  return bft::rig_fwd_launch<true>(
+      static_cast<const bf16*>(ii), static_cast<const bf16*>(A), starts,
+      static_cast<const bf16*>(Kr), static_cast<bf16*>(vox),
+      static_cast<bf16*>(out), N, B, Hp * Wp, Wp, C, T, nl, tile_v, wh * ww,
+      ww, n_out, off_t, rows_total, stream);
 }

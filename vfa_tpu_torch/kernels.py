@@ -28,12 +28,14 @@ P, I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "rig_window_fwd": {
         "rig_window_fwd_f32": [P] * 6 + [I] * 13 + [P],
+        "rig_window_fwd_bf16": [P] * 6 + [I] * 13 + [P],
     },
     "rig_window_bwd": {
         "rig_window_bwd_f32": [P] * 9 + [I] * 13 + [P],
     },
     "rig_flat_fwd": {
         "rig_flat_fwd_f32": [P] * 6 + [I] * 11 + [P],
+        "rig_flat_fwd_bf16": [P] * 6 + [I] * 11 + [P],
     },
     "rig_flat_bwd": {
         "rig_flat_bwd_f32": [P] * 9 + [I] * 11 + [P],

@@ -45,15 +45,36 @@ class VFACollapse(nn.Module):
         self.collapse = nn.Linear(channels * nl, channels)
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that, on bf16 inputs, rounds the convolution to bf16
+    before it adds the bias, as flax's `nn.Conv` does (the product, then
+    `y + bias`: two roundings; a bias fused into the convolution rounds
+    once). Same parameters as nn.Conv2d; fp32 runs unchanged."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.bfloat16 and self.bias is not None:
+            return (self._conv_forward(x, self.weight, None)
+                    + self.bias.view(1, -1, 1, 1))
+        return super().forward(x)
+
+
 class BatchNorm2dBiased(nn.BatchNorm2d):
     """BatchNorm2d whose running variance is updated with the biased batch
     variance, as flax `nn.BatchNorm` does (`nn.BatchNorm2d` uses the
     unbiased one), so a train step leaves the same running statistics as
     the JAX model. flax momentum 0.9 is `momentum=0.1` here. Same
-    parameters and buffers as `nn.BatchNorm2d`."""
+    parameters and buffers as `nn.BatchNorm2d`. In eval mode on bf16
+    inputs (and bf16 statistics, `cast_model`) it normalizes op by op in
+    bf16, as flax's `_normalize` does: (x - mean) * (rsqrt(var + eps) *
+    scale) + bias, each op rounded; `F.batch_norm` would round once."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
+            if x.dtype == torch.bfloat16:
+                shape = (1, -1, 1, 1)
+                mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+                return ((x - self.running_mean.view(shape)) * mul.view(shape)
+                        + self.bias.view(shape))
             return super().forward(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
@@ -85,9 +106,9 @@ class VFANet(nn.Module):
         self.rig_impl = rig_impl
         nl = cfg.num_layers
         self.base = ResNetGN(RESNET_LAYERS[base])
-        self.lat8 = nn.Conv2d(128, 256, 1)
-        self.lat16 = nn.Conv2d(256, 256, 1)
-        self.lat32 = nn.Conv2d(512, 256, 1)
+        self.lat8 = Conv2d(128, 256, 1)
+        self.lat16 = Conv2d(256, 256, 1)
+        self.lat32 = Conv2d(512, 256, 1)
         self.bn8 = group_norm(256)
         self.bn16 = group_norm(256)
         self.bn32 = group_norm(256)
@@ -95,20 +116,20 @@ class VFANet(nn.Module):
         self.vfa16 = VFACollapse(nl)
         self.vfa32 = VFACollapse(nl)
         self.fuse = nn.Sequential(
-            nn.Conv2d(256, 256, 3, padding=1),
+            Conv2d(256, 256, 3, padding=1),
             BatchNorm2dBiased(256, eps=1e-5, momentum=0.1), nn.ReLU(),
-            nn.Conv2d(256, 256, 3, padding=2, dilation=2),
+            Conv2d(256, 256, 3, padding=2, dilation=2),
             BatchNorm2dBiased(256, eps=1e-5, momentum=0.1), nn.ReLU())
         self.map_classifier = nn.Sequential(
             nn.Conv2d(256, 1, 3, padding=4, dilation=4, bias=False))
         self.tytx_pred = nn.Sequential(
-            nn.Conv2d(256, 256, 3, padding=1), group_norm(256), nn.ReLU(),
+            Conv2d(256, 256, 3, padding=1), group_norm(256), nn.ReLU(),
             nn.Conv2d(256, 2, 3, padding=1, bias=False))
         if cfg.mode == "3D":
             self.orient_pred = nn.Sequential(
                 nn.Conv2d(256, angle_range, 3, padding=4, dilation=4, bias=False))
             self.thtwtl_pred = nn.Sequential(
-                nn.Conv2d(256, 256, 3, padding=1), group_norm(256), nn.ReLU(),
+                Conv2d(256, 256, 3, padding=1), group_norm(256), nn.ReLU(),
                 nn.Conv2d(256, 3, 3, padding=1, bias=False))
         self.register_buffer("img_mean", torch.tensor(IMAGENET_MEAN),
                              persistent=False)
@@ -213,6 +234,17 @@ def voxel_contribution(lat: torch.Tensor, boxes: torch.Tensor,
     n_out)."""
     vox = sample_voxels(lat, boxes)
     return torch.relu(F.linear(vox, collapse.weight, collapse.bias)).float()
+
+
+def cast_model(model: nn.Module, dtype) -> nn.Module:
+    """Cast every floating parameter and buffer of `model` to `dtype`, in
+    place, as the root bench casts its variables for a bf16 serving run
+    (`bench.py:260-263`: every fp32 leaf of params and batch_stats): conv
+    and linear weights and biases, norm scales and biases, the BatchNorms'
+    running statistics, and the ImageNet normalisation constants (JAX makes
+    them in the image dtype, `vfa_tpu/model/vfanet.py:151-152`). Integer
+    buffers (`num_batches_tracked`) stay. Returns the model."""
+    return model.to(dtype)
 
 
 @torch.no_grad()

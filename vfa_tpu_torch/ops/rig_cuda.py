@@ -16,7 +16,12 @@ differentiates.
 
 All four kernels run on one tensor-core tile and stay fp32-accurate
 through a 3xTF32 split (`csrc/rig_mma.cuh`; the same arithmetic in plain
-PyTorch is `ops/rig.matmul_3xtf32`).
+PyTorch is `ops/rig.matmul_3xtf32`). The two forwards also have bf16
+variants (`rig_window_fwd_bf16`, `rig_flat_fwd_bf16` in the same sources,
+on the bf16 tile of `csrc/rig_bf16.cuh`), taken when every floating input
+is bfloat16: vox and the tiles are rounded to bf16 where JAX's kernels
+round them. The backwards take float32 only (bf16 training, ROADMAP.md
+Queue 1 item 9).
 
 On a CPU tensor a wrapper runs its kernel's plain version
 (`ops/rig.window_tiles`, `window_tiles_bwd`, `flat_tiles`,
@@ -35,14 +40,15 @@ from vfa_tpu_torch.ops.rig import (
 
 
 def _check_launch(what, ii, tensors, shapes_ok, C, n_out, K, describe,
-                  k_multiple=16):
+                  k_multiple=16, bf16_ok=False):
     """Shared argument checks of the kernels' wrappers: one device,
-    contiguous, float32 (int32 starts), consistent shapes, and the widths
-    the kernels are written for: C = n_out = 256 (the width of the
-    tensor-core CTA tile that every pass runs on) and a band length K that
-    is a multiple of 16 for a window, of 8 for a flat band (both stage
-    16-deep slices and mask whole 16-byte quads past a band; any nl, tile_v
-    and T go)."""
+    contiguous, one floating dtype for every tensor but the int32 starts
+    (float32, or bfloat16 where `bf16_ok`: the forwards have bf16 variants),
+    consistent shapes, and the widths the kernels are written for: C =
+    n_out = 256 (the width of the tensor-core CTA tile that every pass runs
+    on) and a band length K that is a multiple of 16 for a window, of 8 for
+    a flat band (both stage slices and mask whole 16-byte quads past a band;
+    any nl, tile_v and T go). Returns the floating dtype."""
     if ii.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {ii.device}")
     for name, t in tensors.items():
@@ -50,19 +56,29 @@ def _check_launch(what, ii, tensors, shapes_ok, C, n_out, K, describe,
             raise ValueError(f"{what}: {name} on {t.device}, ii on {ii.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-        want = torch.int32 if name == "starts" else torch.float32
-        if t.dtype != want:
-            raise TypeError(
-                f"{what}: {name} must be {str(want).split('.')[-1]}"
-                + (" (the bf16 variants are not ported yet: ROADMAP.md "
-                   "Queue 2)" if want == torch.float32 else "")
-                + f", got {t.dtype}")
+    if tensors["starts"].dtype != torch.int32:
+        raise TypeError(f"{what}: starts must be int32, got "
+                        f"{tensors['starts'].dtype}")
+    dtypes = {n: t.dtype for n, t in tensors.items() if n != "starts"}
+    got = ", ".join(f"{n} {str(d).split('.')[-1]}" for n, d in dtypes.items())
+    if torch.bfloat16 in dtypes.values() and not bf16_ok:
+        raise TypeError(f"{what}: every tensor but starts must be float32 (the "
+                        "bf16 backward kernels come with bf16 training, "
+                        f"ROADMAP.md Queue 1 item 9), got {got}")
+    dtype = ii.dtype
+    if set(dtypes.values()) != {dtype} or dtype not in (torch.float32,
+                                                        torch.bfloat16):
+        raise TypeError(
+            f"{what}: every tensor but starts must be float32"
+            f"{' or bfloat16' if bf16_ok else ''}, all of one dtype (no "
+            f"mixing), got {got}")
     if not shapes_ok:
         raise ValueError(f"{what}: inconsistent shapes {describe}")
     if C != 256 or n_out != 256 or K % k_multiple:
         raise ValueError(f"{what}: the kernel takes C = n_out = 256 and a "
                          f"band length that is a multiple of {k_multiple}, "
                          f"got C {C}, n_out {n_out}, band length {K}")
+    return dtype
 
 
 # depth chunks of the backward's dKr pass (DKR_MAX_SPLITS in csrc/rig_mma.cuh)
@@ -82,9 +98,25 @@ def _bwd_scratch(ii, T, R, nl, n_out):
 
 
 def _launch(name, ii, *args):
+    """Launch the variant of kernel library `name` for ii's dtype."""
     from vfa_tpu_torch.kernels import launch
 
-    launch(name, f"{name}_f32", ii.device, *args)
+    suffix = "bf16" if ii.dtype == torch.bfloat16 else "f32"
+    launch(name, f"{name}_{suffix}", ii.device, *args)
+
+
+class LaunchCount:
+    """The launch count of a kernel variant that has no wrapper of its own:
+    the bf16 forwards launch through `rig_window_fwd` / `rig_flat_fwd`,
+    which count fp32 launches in their own `.launches` and bf16 launches
+    here."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+rig_window_fwd_bf16 = LaunchCount()
+rig_flat_fwd_bf16 = LaunchCount()
 
 
 def rig_window_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
@@ -94,7 +126,10 @@ def rig_window_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
 
     ii (N, B, Hp, Wp, C) padded features; A_b (N, T, nl*tile_v, wh*ww);
     starts_b (N, T, 2) int32; Kr (nl, C, n_out); out (N, B, rows, n_out).
-    `rig_window_fwd.launches` counts kernel launches."""
+    ii, A_b, Kr and out are all float32 or all bfloat16 (the bf16 variant:
+    vox and out rounded to bf16 as `window_tiles` rounds them).
+    `rig_window_fwd.launches` counts fp32 kernel launches,
+    `rig_window_fwd_bf16.launches` bf16 ones."""
     N, B, Hp, Wp, C = ii.shape
     T, R, K = A_b.shape[1:]
     nl, _, n_out = Kr.shape
@@ -105,7 +140,7 @@ def rig_window_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
             ii, A_b, starts_b, Kr, window, tile_v)
         return out
     tensors = {"ii": ii, "A": A_b, "starts": starts_b, "Kr": Kr, "out": out}
-    _check_launch(
+    dtype = _check_launch(
         "rig_window_fwd", ii, tensors,
         A_b.shape[0] == N and R == nl * tile_v and K == wh * ww
         and tuple(starts_b.shape) == (N, T, 2)
@@ -115,13 +150,14 @@ def rig_window_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
         C, n_out, K,
         f"ii {tuple(ii.shape)}, A {tuple(A_b.shape)}, starts "
         f"{tuple(starts_b.shape)}, Kr {tuple(Kr.shape)}, out "
-        f"{tuple(out.shape)}, off_t {off_t}, tile_v {tile_v}, window {window}")
+        f"{tuple(out.shape)}, off_t {off_t}, tile_v {tile_v}, window {window}",
+        bf16_ok=True)
     # vox scratch between the kernel's two passes (A-product, collapse)
-    vox = torch.empty((N, B, T, R, C), dtype=torch.float32, device=ii.device)
+    vox = torch.empty((N, B, T, R, C), dtype=dtype, device=ii.device)
     _launch("rig_window_fwd", ii, ii.data_ptr(), A_b.data_ptr(),
             starts_b.data_ptr(), Kr.data_ptr(), vox.data_ptr(), out.data_ptr(),
             N, B, Hp, Wp, C, T, nl, tile_v, wh, ww, n_out, off_t, rows)
-    rig_window_fwd.launches += 1
+    (rig_window_fwd_bf16 if dtype == torch.bfloat16 else rig_window_fwd).launches += 1
     return out
 
 
@@ -190,7 +226,9 @@ def rig_flat_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
 
     ii (N, B, P + max_band, C) padded flat features; A_b
     (N, T, nl*tile_v, band); starts_b (N, T) int32; Kr (nl, C, n_out); out
-    (N, B, rows, n_out). `rig_flat_fwd.launches` counts kernel launches."""
+    (N, B, rows, n_out); all float32 or all bfloat16, as `rig_window_fwd`.
+    `rig_flat_fwd.launches` counts fp32 kernel launches,
+    `rig_flat_fwd_bf16.launches` bf16 ones."""
     N, B, pixels, C = ii.shape
     T, R, band = A_b.shape[1:]
     nl, _, n_out = Kr.shape
@@ -200,7 +238,7 @@ def rig_flat_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
             ii, A_b, starts_b, Kr, tile_v)
         return out
     tensors = {"ii": ii, "A": A_b, "starts": starts_b, "Kr": Kr, "out": out}
-    _check_launch(
+    dtype = _check_launch(
         "rig_flat_fwd", ii, tensors,
         A_b.shape[0] == N and R == nl * tile_v
         and tuple(starts_b.shape) == (N, T)
@@ -210,12 +248,13 @@ def rig_flat_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
         C, n_out, band,
         f"ii {tuple(ii.shape)}, A {tuple(A_b.shape)}, starts "
         f"{tuple(starts_b.shape)}, Kr {tuple(Kr.shape)}, out "
-        f"{tuple(out.shape)}, off_t {off_t}, tile_v {tile_v}", k_multiple=8)
-    vox = torch.empty((N, B, T, R, C), dtype=torch.float32, device=ii.device)
+        f"{tuple(out.shape)}, off_t {off_t}, tile_v {tile_v}", k_multiple=8,
+        bf16_ok=True)
+    vox = torch.empty((N, B, T, R, C), dtype=dtype, device=ii.device)
     _launch("rig_flat_fwd", ii, ii.data_ptr(), A_b.data_ptr(),
             starts_b.data_ptr(), Kr.data_ptr(), vox.data_ptr(), out.data_ptr(),
             N, B, pixels, C, T, nl, tile_v, band, n_out, off_t, rows)
-    rig_flat_fwd.launches += 1
+    (rig_flat_fwd_bf16 if dtype == torch.bfloat16 else rig_flat_fwd).launches += 1
     return out
 
 
@@ -324,6 +363,10 @@ class RigScaleTiles(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         ii, Kr = ctx.saved_tensors
+        if ii.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "the rig backward in bfloat16 is not ported yet: it comes "
+                "with bf16 training (ROADMAP.md Queue 1 item 9)")
         dII, dKr = rig_scale_bwd(ii, ctx.rig, Kr, g)
         return dII.to(ii.dtype), dKr.to(Kr.dtype), None
 

@@ -119,7 +119,8 @@ def _check_launch(what, x, dy, params):
             raise ValueError(f"{what}: {name} on {t.device}, x on {x.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{what}: {name} must be float32 (the bf16 variants "
-                            f"are not ported yet: ROADMAP.md Queue 2), got {t.dtype}")
+                            f"come with bf16 training, ROADMAP.md Queue 1 item 9), "
+                            f"got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")

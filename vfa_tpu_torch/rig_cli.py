@@ -34,19 +34,24 @@ def add_rig_layout_arg(parser) -> None:
 
 def build_cli_rig(cfg: DatasetConfig, calibs: np.ndarray, device,
                   buckets: int = None, training: bool = False,
-                  layout: str = "window", cache_dir: str = None) -> CameraRig:
-    """The fp32 rig a CLI run samples through, built on the host (or loaded
-    from `cache_dir`, see `ops.rig.build_rig`) and placed on `device`.
-    `calibs` is one scene's (N, 3, 4) projection stack, valid for the whole
-    run because calibrations are rig constants per dataset. `buckets`
-    defaults to the training or inference policy."""
+                  layout: str = "window", cache_dir: str = None,
+                  dtype=torch.float32) -> CameraRig:
+    """The rig a CLI run samples through, built on the host (or loaded from
+    `cache_dir`, see `ops.rig.build_rig`) and placed on `device`. `calibs`
+    is one scene's (N, 3, 4) projection stack, valid for the whole run
+    because calibrations are rig constants per dataset. `buckets` defaults
+    to the training or inference policy. `dtype` is the feature compute
+    dtype: tile_v and A's dtype both follow it, as in
+    `vfa_tpu/rig_cli.py:74-105`, and the cache key carries it."""
     if buckets is None:
         buckets = TRAIN_BUCKETS if training else INFERENCE_BUCKETS
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"rig dtype must be float32 or bfloat16, got {dtype}")
     t0 = time.perf_counter()
-    tile_v = default_tile_v(cfg.num_layers, torch.float32, layout)
+    tile_v = default_tile_v(cfg.num_layers, dtype, layout)
     grid = make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name)
     shapes = pyramid_feat_shapes(cfg.resize_size)
-    keyed = dict(tile_v=tile_v, dtype=torch.float32, crange=(-1.0, 0.95),
+    keyed = dict(tile_v=tile_v, dtype=dtype, crange=(-1.0, 0.95),
                  fold_prefix=True, band_buckets=buckets, layout=layout)
     hit = False
     if cache_dir is not None:
@@ -57,7 +62,8 @@ def build_cli_rig(cfg: DatasetConfig, calibs: np.ndarray, device,
                     cache_dir=cache_dir, **keyed)
     a_bytes = sum(a.numel() * a.element_size() for s in rig.scales for a in s.A)
     how = "cache hit" if hit else "built"
-    print(f"compiled rig: {buckets} buckets, tile_v {tile_v}, fp32, {layout} "
+    name = "bf16" if dtype == torch.bfloat16 else "fp32"
+    print(f"compiled rig: {buckets} buckets, tile_v {tile_v}, {name}, {layout} "
           f"layout, A {a_bytes / 1e9:.3f} GB, {how} in "
           f"{time.perf_counter() - t0:.1f} s")
     return rig
