@@ -52,13 +52,30 @@ result line):
      rel-L2 1e-2 against the plain route, the detections' overlap printed);
      the bench with `--dtype bfloat16`, auto batch, on all three datasets.
      The three bf16 window rigs are built by one more host process;
+  5c. bf16 training (mixed precision, `--dtype bfloat16`) through the bf16
+     variants of the backward kernels (`rig_window_bwd_bf16`,
+     `rig_flat_bwd_bf16`, csrc/rig_bf16_bwd.cuh; `stem_bwd_stats_bf16`,
+     `stem_bwd_dx_bf16`): the stem kernels against their plain versions on
+     bf16 x at (14, 64, 360, 640), the tie case too (with phase 2); each
+     rig backward against its plain version at B = 1, 2 on the flat rig
+     cast to bf16 and on the 8-bucket bf16 MultiviewC window rig, K2-bf16
+     at B = 2 on the 8-bucket bf16 MultiviewX rig (nl 8): dKr within 1e-2
+     of the plain max and rel-L2 4e-3, dII (a bf16 accumulator, one
+     rounding per window add in the atomics' order) no further from the
+     fp32 sums than the plain version's; the training CLI for one step at
+     batch 2 on the flat layout with the fused stem, then on the window
+     layout, counts set to 0 before and read after (one bf16 backward
+     launch per bucket, no fp32 kernel), against the plain route (losses
+     rel 1e-2, update rel-L2 2e-2); the bench `--dtype bfloat16 --train
+     --batch 0` on MultiviewC. Those two rigs come from a fourth host
+     process;
   6. time each kernel (CUDA events, warmed up) beside its bound and its
      plain version (the fp32 rig kernels' operations are held to 495 / 3 =
      165 TFLOP/s, fp32-accurate 3xTF32 on the tensor cores, the bf16 ones to
-     989.4 TFLOP/s, dense bf16; the window backward
-     also alone at B = 1; the stem kernels with their GB/s and share of the
-     byte bound, and the fused stem backward beside autograd of the unfused
-     chain), split each forward's device time between its two passes
+     989.4 TFLOP/s, dense bf16, each product counted once; the window
+     backwards also alone at B = 1; the stem kernels, fp32 and bf16, with
+     their GB/s and share of the byte bound, and the fused stem backward
+     beside autograd of the unfused chain), split each forward's device time between its two passes
      (torch.profiler), and print peak memory, the card's name and power
      limit, the `kernels` JSON line and, last, the `ok` JSON line.
 Imports nothing of JAX and nothing of the JAX package.
@@ -123,7 +140,14 @@ BENCH_CALLS = 1 + BENCH_WARMUP + BENCH_ITERS + 1   # first, warm-up, timed, coun
 # training policy, 12 = serving; the bf16 rigs are the bf16 serving runs'
 PREBUILT = ((("MultiviewX", 8, "float32"),), (("Wildtrack", 12, "float32"),),
             (("MultiviewC", 12, "bfloat16"), ("MultiviewX", 12, "bfloat16"),
-             ("Wildtrack", 12, "bfloat16")))
+             ("Wildtrack", 12, "bfloat16")),
+            (("MultiviewC", 8, "bfloat16"), ("MultiviewX", 8, "bfloat16")))
+# bf16 training, kernel route vs plain route after one step at TRAIN_LR:
+# per-step loss rel; the update of all parameters as one vector within
+# BF16_NOISE_RATIO of the distance between the kernel route's bf16 and
+# fp32 updates (what bf16 rounding itself does to the update), and within
+# BF16_UPDATE_CAP of the plain route's update norm
+BF16_LOSS_TOL, BF16_NOISE_RATIO, BF16_UPDATE_CAP = 1e-2, 1.5, 0.25
 
 
 def counters():
@@ -138,7 +162,11 @@ def counters():
             "stem_bwd_stats": stem.stem_bwd_stats,
             "stem_bwd_dx": stem.stem_bwd_dx,
             "rig_window_fwd_bf16": rig_cuda.rig_window_fwd_bf16,
-            "rig_flat_fwd_bf16": rig_cuda.rig_flat_fwd_bf16}
+            "rig_flat_fwd_bf16": rig_cuda.rig_flat_fwd_bf16,
+            "rig_window_bwd_bf16": rig_cuda.rig_window_bwd_bf16,
+            "rig_flat_bwd_bf16": rig_cuda.rig_flat_bwd_bf16,
+            "stem_bwd_stats_bf16": stem.stem_bwd_stats_bf16,
+            "stem_bwd_dx_bf16": stem.stem_bwd_dx_bf16}
 
 
 def reset_launches() -> None:
@@ -412,14 +440,14 @@ def grad_inputs(sr, B, seed, device):
     lat, k = scale_inputs(sr, B, seed, device)
     rows = sum(a.shape[1] for a in sr.A) * sr.tile_v
     g = torch.randn((sr.A[0].shape[0], B, rows, 256),
-                    generator=torch.Generator().manual_seed(seed + 1)).to(device)
+                    generator=torch.Generator().manual_seed(seed + 1)).to(device, lat.dtype)
     return scale_features(lat, sr), collapse_per_layer(k, 256, sr.nl, lat.dtype), g
 
 
 def plain_scale_bwd(ii, sr, Kr, g):
     from vfa_tpu_torch.ops.rig import flat_tiles_bwd, window_tiles_bwd
 
-    dII, dKr, off = None, torch.zeros_like(Kr), 0
+    dII, dKr, off = None, torch.zeros(Kr.shape, device=Kr.device), 0
     for bi, (A_b, s_b) in enumerate(zip(sr.A, sr.starts)):
         rows = A_b.shape[1] * sr.tile_v
         g_b = g[:, :, off:off + rows]
@@ -433,10 +461,48 @@ def plain_scale_bwd(ii, sr, Kr, g):
     return dII, dKr
 
 
+def bwd_name(rig) -> str:
+    return f"rig_{layout_of(rig)}_bwd" + ("_bf16" if is_bf16(rig) else "")
+
+
+def check_bf16_sum(what, got, plain, exact):
+    """dII of a bf16 backward: a bf16 accumulator that rounds once per
+    window add, the kernel's adds in the atomics' order, the plain
+    version's tile by tile. Logs both against each other (BF16_MAX / BF16_L2
+    printed, not enforced) and against the same sums taken in fp32
+    (`exact`); raises unless the kernel is within 1.5x the plain version's
+    rel-L2 and 2x its max error there (tests/test_torch_kernels_gpu.py::
+    assert_bf16_sum_close says why). Returns the kernel's (max abs err,
+    max rel err) against the plain version."""
+    got, plain, exact = got.float(), plain.float(), exact.float()
+    scale = max(float(plain.abs().max()), 1e-30)
+
+    def errs(a, b):
+        return (float((a - b).abs().max()),
+                float(torch.linalg.vector_norm(a - b)
+                      / max(float(torch.linalg.vector_norm(b)), 1e-30)))
+
+    (d_max, d_l2), (k_max, k_l2), (p_max, p_l2) = (
+        errs(got, plain), errs(got, exact), errs(plain, exact))
+    log(f"  {what}: vs plain max rel err {d_max / scale:.3e}, rel-L2 {d_l2:.3e} "
+        f"({BF16_MAX:.0e} / {BF16_L2:.0e}); vs the fp32 sums: kernel max "
+        f"{k_max / scale:.3e} rel-L2 {k_l2:.3e}, plain max {p_max / scale:.3e} "
+        f"rel-L2 {p_l2:.3e} (kernel within 1.5x the plain rel-L2, 2x its max)")
+    if not (torch.isfinite(got).all() and k_l2 <= 1.5 * p_l2 + 1e-6
+            and k_max <= 2 * p_max + 1e-6 * scale):
+        raise AssertionError(f"{what}: the kernel's bf16 sums are further from "
+                             "the fp32 sums than the plain version's")
+    return d_max, d_max / scale
+
+
 def phase_bwd_kernel_vs_plain(rig, device, batches=(1, 2)):
+    """The backward kernel against its plain version, all buckets of each
+    scale through one dII. fp32: dII and dKr within KERNEL_TOL. bf16: dKr
+    by check_bf16, dII by check_bf16_sum against the plain backward in
+    fp32 on the same (bf16) values."""
     from vfa_tpu_torch.ops.rig_cuda import rig_scale_bwd
 
-    name = f"rig_{layout_of(rig)}_bwd"
+    name = bwd_name(rig)
     errs = []
     for B in batches:
         for si, sr in enumerate(rig.scales):
@@ -444,18 +510,25 @@ def phase_bwd_kernel_vs_plain(rig, device, batches=(1, 2)):
             got = rig_scale_bwd(ii, sr, Kr, g)
             torch.cuda.synchronize()
             want = plain_scale_bwd(ii, sr, Kr, g)
-            for part, a, b in zip(("dII", "dKr"), got, want):
-                errs.append(check_close(
-                    f"{name} B={B} scale {si} ({len(sr.A)} buckets) {part}", a, b))
+            tag = f"{name} B={B} scale {si} ({len(sr.A)} buckets)"
+            if is_bf16(rig):
+                sr32 = dataclasses.replace(sr, A=tuple(a.float() for a in sr.A))
+                exact, _ = plain_scale_bwd(ii.float(), sr32, Kr.float(), g.float())
+                errs.append(check_bf16_sum(f"{tag} dII", got[0], want[0], exact))
+                errs.append(check_bf16(f"{tag} dKr", got[1], want[1]))
+                del sr32, exact
+            else:
+                for part, a, b in zip(("dII", "dKr"), got, want):
+                    errs.append(check_close(f"{tag} {part}", a, b))
             del got, want, ii, Kr, g
     log(f"phase 2 {name} vs plain: ok")
     return worst_of(errs)
 
 
-def stem_inputs(device, integers: bool, shape=STEM_SHAPE):
-    """Seeded x, scale, bias, dy of the stem tail and the forward's
-    GroupNorm statistics. `integers`: integer-valued x with scale 1, bias 0,
-    so that ReLU zeros and equal maxima are everywhere."""
+def stem_inputs(device, integers: bool, shape=STEM_SHAPE, dtype=torch.float32):
+    """Seeded x, scale, bias, dy of the stem tail in `dtype` and the
+    forward's GroupNorm statistics. `integers`: integer-valued x with scale
+    1, bias 0, so that ReLU zeros and equal maxima are everywhere."""
     from vfa_tpu_torch.ops.stem import group_norm_stats
 
     g = torch.Generator().manual_seed(11 + integers)
@@ -465,7 +538,7 @@ def stem_inputs(device, integers: bool, shape=STEM_SHAPE):
     if integers:
         x, scale, bias = x.round(), torch.ones(C), torch.zeros(C)
     dy = torch.randn((M, C, (H + 1) // 2, (W + 1) // 2), generator=g)
-    x, scale, bias, dy = (t.to(device) for t in (x, scale, bias, dy))
+    x, scale, bias, dy = (t.to(device, dtype) for t in (x, scale, bias, dy))
     _, mu, rstd = group_norm_stats(x, scale, bias, 16, 1e-5)
     return x, scale, bias, dy, mu, rstd
 
@@ -522,6 +595,128 @@ def phase_stem_vs_plain(device):
         del got, want, x, dy
     log("phase 2 stem kernels vs plain: ok")
     return {k: worst_of(v) for k, v in errs.items()}
+
+
+def phase_stem_bf16_vs_plain(device):
+    """The bf16 K6 and K7 against their plain versions on bf16 x and dy at
+    STEM_SHAPE: both round z to bf16 before the ReLU and the comparisons
+    and dz at the same points, so acc differs by fp32 sum order only
+    (KERNEL_TOL) and dx by a one-ulp flip now and then (check_bf16); the
+    zero patterns of dz are equal, on the integer-valued input too, and
+    stem_bwd_stats gives the same bits in two runs."""
+    from vfa_tpu_torch.ops import stem
+
+    errs = {"stem_bwd_stats_bf16": [], "stem_bwd_dx_bf16": []}
+    for integers in (False, True):
+        x, scale, bias, dy, mu, rstd = stem_inputs(device, integers,
+                                                   dtype=torch.bfloat16)
+        tag = f"bf16 {tuple(x.shape)}{' integer-valued' if integers else ''}"
+        params = stem.plane_params(mu, rstd, scale, bias)
+        acc = stem.stem_bwd_stats(x, dy, params)
+        torch.cuda.synchronize()
+        errs["stem_bwd_stats_bf16"].append(check_close(
+            f"stem_bwd_stats {tag}", acc, stem.stem_bwd_stats_plain(x, dy, params)))
+        if not torch.equal(acc, stem.stem_bwd_stats(x, dy, params)):
+            raise AssertionError(f"stem_bwd_stats {tag}: two runs give other bits")
+        dz = stem.stem_bwd_dx(x, dy, params)
+        differ = int(((dz == 0) != (stem.stem_bwd_dx_plain(x, dy, params) == 0)).sum())
+        log(f"  stem bf16 {tag}: zero patterns of dz differ at {differ} of "
+            f"{dz.numel()} pixels ({int((dz == 0).sum())} zeros)")
+        if differ:
+            raise AssertionError("the bf16 stem kernels route a gradient to "
+                                 "another pixel than their plain version")
+        c = torch.randn(mu.shape, generator=torch.Generator().manual_seed(5)).to(device) * 1e-3
+        params = stem.plane_params(mu, rstd, scale, bias, c, -c)
+        dx = stem.stem_bwd_dx(x, dy, params)
+        torch.cuda.synchronize()
+        errs["stem_bwd_dx_bf16"].append(check_bf16(
+            f"stem_bwd_dx {tag}", dx, stem.stem_bwd_dx_plain(x, dy, params)))
+        del acc, dx, dz, params, x, dy
+    log("phase 2 bf16 stem kernels vs plain: ok")
+    return {k: worst_of(v) for k, v in errs.items()}
+
+
+def phase_train_path_bf16(rig, rig32, device, fused_stem: bool):
+    """bf16 training (`--dtype bfloat16`, mixed precision) on a bf16 rig:
+    one step at batch 2 through the bf16 kernels of the rig's layout (and,
+    with `fused_stem`, the bf16 stem kernels), counts set to 0 just before
+    and read just after: one bf16 forward and one bf16 backward launch per
+    bucket, the stem's once each, no fp32 kernel; then the same step
+    through the plain versions under autograd (unfused stem), and through
+    the fp32 kernels on `rig32` (the same rig in fp32), the yardstick of
+    bf16 rounding's own effect. Losses within BF16_LOSS_TOL; the update of
+    all parameters (one vector) within BF16_NOISE_RATIO of that effect
+    and within BF16_UPDATE_CAP of the plain route's update norm."""
+    from vfa_tpu_torch import train
+    from vfa_tpu_torch.model.vfanet import VFANet, init_weights
+
+    layout = layout_of(rig)
+    fwd, bwd = fwd_name(rig), bwd_name(rig)
+    tag = f"bf16 {layout}{' + fused stem' if fused_stem else ''}"
+    argv = ["--data", "MultiviewC", "--synthetic", "-e", "1", "--pretrained",
+            "0", "--no_augment", "--seed", "0", "--device", "cuda",
+            "--rig_layout", layout, "--dtype", "bfloat16", "--synthetic_frames",
+            str(BATCH), "-b", str(BATCH), "--lr", TRAIN_LR]
+    os.environ["VFA_FUSED_STEM"] = "1" if fused_stem else "0"
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = train.main(argv, rig=rig)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    buckets = sum(len(s.A) for s in rig.scales)
+    log(f"training path ({tag}) launches: {launches} (1 step, {buckets} "
+        "buckets over the 3 scales, then the validation forward)")
+    stem_n = 1 if fused_stem else 0
+    if len(res["losses"]) != 1 or launches[fwd] <= buckets:
+        raise AssertionError(f"the bf16 training path never launched {fwd}")
+    want = {fwd: None, bwd: buckets, "stem_bwd_stats_bf16": stem_n,
+            "stem_bwd_dx_bf16": stem_n}
+    for name, n in launches.items():
+        if want.get(name, 0) is not None and n != want.get(name, 0):
+            raise AssertionError(f"{name} launched {n} times on the {tag} "
+                                 f"training path, expected {want.get(name, 0)}")
+    os.environ["VFA_FUSED_STEM"] = "0"
+    ref = train.main(argv + ["--rig_impl", "plain"], rig=rig)
+    if launches != read_launches():
+        raise AssertionError("the plain route launched a kernel")
+    os.environ["VFA_FUSED_STEM"] = "1" if fused_stem else "0"
+    fp32 = train.main(argv[:argv.index("--dtype")] + argv[argv.index("--dtype") + 2:],
+                      rig=rig32)
+    del os.environ["VFA_FUSED_STEM"]
+    for i, (a, b) in enumerate(zip(res["losses"] + res["val_losses"],
+                                   ref["losses"] + ref["val_losses"])):
+        if not all(np.isfinite(v) for v in a.values()):
+            raise AssertionError(f"{tag} step {i}: a non-finite loss")
+        rel = abs(a["loss"] - b["loss"]) / max(abs(b["loss"]), 1e-12)
+        log(f"  {tag} step {i}: loss {a['loss']:.6f} kernel route, "
+            f"{b['loss']:.6f} plain route, rel diff {rel:.3e} (tolerance "
+            f"{BF16_LOSS_TOL:.0e})")
+        if rel > BF16_LOSS_TOL:
+            raise AssertionError(f"{tag} step {i}: loss differs from the plain route")
+    init = init_weights(VFANet(res["model"].cfg),
+                        torch.Generator().manual_seed(0)).state_dict()
+    ref_params = dict(ref["model"].named_parameters())
+    fp32_params = dict(fp32["model"].named_parameters())
+    to_plain = to_fp32 = upd_sq = 0.0
+    for name, p in res["model"].named_parameters():
+        if p.dtype != torch.float32 or not torch.isfinite(p).all():
+            raise AssertionError(f"{name}: not a finite fp32 master after the step")
+        b = ref_params[name].detach()
+        to_plain += float(((p.detach() - b).double() ** 2).sum())
+        to_fp32 += float(((p.detach() - fp32_params[name].detach()).double() ** 2).sum())
+        upd_sq += float(((b - init[name].to(b.device)).double() ** 2).sum())
+    to_plain, to_fp32 = (to_plain / upd_sq) ** 0.5, (to_fp32 / upd_sq) ** 0.5
+    log(f"phase 4 training path ({tag}): one step at batch {BATCH}, lr "
+        f"{TRAIN_LR}: update {to_plain:.3e} of the plain route's update norm "
+        f"away from it, the fp32 kernel route's {to_fp32:.3e} (tolerance "
+        f"{BF16_NOISE_RATIO}x that, and {BF16_UPDATE_CAP}); {res['ms'][0]:.2f} "
+        f"ms the step, plain route {ref['ms'][0]:.2f}, fp32 {fp32['ms'][0]:.2f}; "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    if not (to_plain <= BF16_NOISE_RATIO * to_fp32 and to_plain <= BF16_UPDATE_CAP):
+        raise AssertionError(f"{tag}: the update differs from the plain route's "
+                             f"by {to_plain:.3e} of its norm")
+    del ref, fp32, init, ref_params, fp32_params
+    return launches, res, peak
 
 
 def phase_train_path(rig, device, fused_stem: bool):
@@ -847,7 +1042,7 @@ def phase_numbers(rig, device, backward: bool, rounds: int = 2, batch: int = BAT
     kernel and plain version."""
     from vfa_tpu_torch.ops.rig_cuda import rig_scale_bwd, rig_tiles_cuda
 
-    name = f"rig_{layout_of(rig)}_bwd" if backward else fwd_name(rig)
+    name = bwd_name(rig) if backward else fwd_name(rig)
     peak = rig_peak(rig)
     rate = ("989.4 TFLOP/s (dense bf16 on the tensor cores" if is_bf16(rig)
             else "165 TFLOP/s (3xTF32 on the tensor cores")
@@ -929,28 +1124,33 @@ def phase_tf32_arithmetic(device):
         raise AssertionError("the 3xTF32 split does not behave as the kernels assume")
 
 
-def phase_stem_numbers(device):
+def phase_stem_numbers(device, dtype=torch.float32):
     """name -> (ms, plain_ms, bound_ms, bound_by, GB/s, share of the bound)
-    of the two stem kernels at STEM_SHAPE. Neither is a matrix product: a
-    few tens of comparisons and ~10 flops per pixel. Bytes: x and dy read
-    and the (M*C, 8) parameters, acc (stats) or dx (dx) written. Then, as
-    context, the whole fused backward (`gn_relu_pool_bwd`: both kernels and
-    the small reductions between them) beside autograd of the unfused chain
-    from its stored activations (what the fused stem replaces)."""
+    of the two stem kernels at STEM_SHAPE in `dtype` (the bf16 variants'
+    names end in _bf16). Neither is a matrix product: a few tens of
+    comparisons and ~10 flops per pixel. Bytes: x and dy read (in `dtype`)
+    and the (M*C, 8) fp32 parameters, acc (stats, fp32) or dx (dx, in
+    `dtype`) written. Then, as context, the whole fused backward
+    (`gn_relu_pool_bwd`: both kernels and the small reductions between
+    them) beside autograd of the unfused chain from its stored activations
+    (what the fused stem replaces)."""
     from vfa_tpu_torch.ops import stem
 
-    x, scale, bias, dy, mu, rstd = stem_inputs(device, integers=False)
+    x, scale, bias, dy, mu, rstd = stem_inputs(device, integers=False, dtype=dtype)
     params = stem.plane_params(mu, rstd, scale, bias, mu * 1e-3, rstd * 1e-3)
+    e = x.element_size()
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
     out = {}
     for name, kernel, plain, written in (
-            ("stem_bwd_stats", stem.stem_bwd_stats, stem.stem_bwd_stats_plain,
-             x.shape[0] * 4 * x.shape[1]),
-            ("stem_bwd_dx", stem.stem_bwd_dx, stem.stem_bwd_dx_plain, x.numel())):
+            ("stem_bwd_stats" + suffix, stem.stem_bwd_stats,
+             stem.stem_bwd_stats_plain, x.shape[0] * 4 * x.shape[1] * 4),
+            ("stem_bwd_dx" + suffix, stem.stem_bwd_dx, stem.stem_bwd_dx_plain,
+             x.numel() * e)):
         k_ms, p_ms = [], []
         for _ in range(2):
             k_ms.append(cuda_time_ms(lambda: kernel(x, dy, params), reps=10))
             p_ms.append(cuda_time_ms(lambda: plain(x, dy, params), reps=3))
-        nbytes = 4 * (x.numel() + dy.numel() + params.numel() + written)
+        nbytes = e * (x.numel() + dy.numel()) + 4 * params.numel() + written
         flops = 50 * x.numel()
         b_ms, by = bound_ms(flops, nbytes, PEAK_FP32_FLOPS)
         gbps = nbytes / min(k_ms) / 1e6
@@ -969,9 +1169,9 @@ def phase_stem_numbers(device):
         unfused = cuda_time_ms(lambda: torch.autograd.grad(y, leaves, dy,
                                                            retain_graph=True), reps=5)
     del y, leaves
-    log(f"  stem backward at {tuple(x.shape)}: fused (stem_bwd_stats + "
+    log(f"  stem backward at {tuple(x.shape)} {dtype}: fused (stem_bwd_stats + "
         f"stem_bwd_dx + reductions) {fused:.3f} ms, kernels alone "
-        f"{out['stem_bwd_stats'][0] + out['stem_bwd_dx'][0]:.3f} ms; autograd "
+        f"{sum(v[0] for v in out.values()):.3f} ms; autograd "
         f"of the unfused chain from its stored activations {unfused:.3f} ms")
     return out
 
@@ -1003,6 +1203,8 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
     # the stem kernels alone
     err.update(phase_stem_vs_plain(device))
     num.update(phase_stem_numbers(device))
+    err.update(phase_stem_bf16_vs_plain(device))
+    num.update(phase_stem_numbers(device, torch.bfloat16))
     torch.cuda.empty_cache()
 
     # window layout, serving
@@ -1030,6 +1232,26 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
     k3 = phase_numbers(train_rig, device, backward=True, batch=1)
     log(f"rig_window_bwd at B=1 (replaces vfa_tpu/ops/rig_pallas.py:355): "
         f"{k3[0]:.3f} ms, plain {k3[1]:.3f} ms, bound {k3[2]:.3f} ms by {k3[3]}")
+    # bf16 training on the window layout (K2/K3 bf16), on the 8-bucket bf16
+    # MultiviewC rig (tile_v 160), the fp32 training rig the yardstick
+    mc16t = prebuilt_rig(builds, ("MultiviewC", 8, "bfloat16"), device, rig_cache)
+    err["rig_window_bwd_bf16"] = phase_bwd_kernel_vs_plain(mc16t, device)
+    torch.cuda.empty_cache()
+    train16_launches, train16_res, train16_peak = phase_train_path_bf16(
+        mc16t, train_rig, device, fused_stem=False)
+    del train16_res["model"]
+    torch.cuda.empty_cache()
+    num["rig_window_bwd_bf16"] = phase_numbers(mc16t, device, backward=True)
+    k3_16 = phase_numbers(mc16t, device, backward=True, batch=1)
+    log(f"rig_window_bwd_bf16 at B=1 (replaces vfa_tpu/ops/rig_pallas.py:355 "
+        f"on bf16): {k3_16[0]:.3f} ms, plain {k3_16[1]:.3f} ms, bound "
+        f"{k3_16[2]:.3f} ms by {k3_16[3]}")
+    bench16_train = phase_bench(
+        ["--data", "MultiviewC", "--dtype", "bfloat16", "--train", "--batch", "0",
+         "--iters", "5", "--warmup", "1"], mc16t,
+        ["rig_window_fwd_bf16", "rig_window_bwd_bf16"])[0]
+    del mc16t
+    torch.cuda.empty_cache()
     del train_rig
     torch.cuda.empty_cache()
 
@@ -1053,12 +1275,19 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
     num["rig_flat_bwd"] = phase_numbers(flat_rig, device, backward=True)
     # bf16 flat: the same rig with A cast to bf16
     flat16 = rig_as_bf16(flat_rig)
-    del flat_rig
     torch.cuda.empty_cache()
     err["rig_flat_fwd_bf16"] = phase_kernel_vs_plain(flat16, device)
     flat16_launches, flat16_res, flat16_peak = phase_main_path(flat16, device, scenes=6)
     num["rig_flat_fwd_bf16"] = phase_numbers(flat16, device, backward=False)
     phase_pass_shares(flat16, device)
+    # bf16 training on the flat layout with the fused stem (K5, K6, K7 bf16)
+    err["rig_flat_bwd_bf16"] = phase_bwd_kernel_vs_plain(flat16, device)
+    torch.cuda.empty_cache()
+    flat16_train_launches, flat16_train_res, flat16_train_peak = phase_train_path_bf16(
+        flat16, flat_rig, device, fused_stem=True)
+    del flat16_train_res["model"], flat_rig
+    torch.cuda.empty_cache()
+    num["rig_flat_bwd_bf16"] = phase_numbers(flat16, device, backward=True)
     del flat16
     torch.cuda.empty_cache()
 
@@ -1118,6 +1347,16 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
         del rig16
         torch.cuda.empty_cache()
 
+    # K2-bf16 on MultiviewX (nl 8)
+    mx16t = prebuilt_rig(builds, ("MultiviewX", 8, "bfloat16"), device, rig_cache)
+    err["rig_window_bwd_bf16"] = worst_of([
+        err["rig_window_bwd_bf16"], phase_bwd_kernel_vs_plain(mx16t, device, batches=(2,))])
+    torch.cuda.empty_cache()
+    mx16_num = (phase_numbers(mx16t, device, backward=True, rounds=1),
+                sum(len(s.A) for s in mx16t.scales))
+    del mx16t
+    torch.cuda.empty_cache()
+
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -1143,11 +1382,20 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
         log(f"{tag} at B={BATCH}: {n[0]:.3f} ms, plain {n[1]:.3f} ms, bound "
             f"{n[2]:.3f} ms by {n[3]} ({n[2] / n[0]:.1%} of the bound); "
             f"{buckets} launches per {'step' if 'bwd' in tag else 'request'}")
-    for name in ("rig_window_fwd_bf16", "rig_flat_fwd_bf16"):
+    for name in ("rig_window_fwd_bf16", "rig_flat_fwd_bf16", "rig_window_bwd_bf16",
+                 "rig_flat_bwd_bf16", "stem_bwd_stats_bf16", "stem_bwd_dx_bf16"):
         n = num[name]
         log(f"{name} MultiviewC at B={BATCH}: {n[0]:.3f} ms, plain {n[1]:.3f} ms, "
             f"bound {n[2]:.3f} ms by {n[3]} ({n[2] / n[0]:.1%} of the bound); "
             f"fp32 {name[:-5]} {num[name[:-5]][0]:.3f} ms")
+    n, buckets = mx16_num
+    log(f"rig_window_bwd_bf16 MultiviewX at B={BATCH}: {n[0]:.3f} ms, plain "
+        f"{n[1]:.3f} ms, bound {n[2]:.3f} ms by {n[3]} ({n[2] / n[0]:.1%} of the "
+        f"bound); {buckets} launches per step")
+    for tag, r, pk in (("window, bf16", train16_res, train16_peak),
+                       ("flat + fused stem, bf16", flat16_train_res, flat16_train_peak)):
+        log(f"ms for one bf16 training step ({tag}, batch {BATCH}): "
+            f"{r['ms'][0]:.3f}; max_memory_allocated {pk} bytes")
     for data, (n, buckets) in num16.items():
         log(f"rig_window_fwd_bf16 {data} at B={BATCH}: {n[0]:.3f} ms, plain "
             f"{n[1]:.3f} ms, bound {n[2]:.3f} ms by {n[3]} ({n[2] / n[0]:.1%} of "
@@ -1157,7 +1405,8 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
                    ("MultiviewX training", bench_mx_train),
                    ("Wildtrack serving", bench_wt),
                    *((f"{d} bf16 serving, auto batch", r16)
-                     for d, r16 in bench16.items())):
+                     for d, r16 in bench16.items()),
+                   ("MultiviewC bf16 training, auto batch", bench16_train)):
         log(f"bench {tag}: {r['value']} scenes/s, {r['tflops_per_sec']} "
             f"TFLOP/s, mfu {r['mfu']}, dtype {r['dtype']}")
     share = mx_ref["sum of the 3 scales"]
@@ -1198,6 +1447,15 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
               serve16_launches["rig_window_fwd_bf16"], dtype="bfloat16"),
         entry("rig_flat_fwd_bf16", "rig_flat_fwd", "vfa_tpu/ops/rig_pallas.py:31",
               flat16_launches["rig_flat_fwd_bf16"], dtype="bfloat16"),
+        entry("rig_window_bwd_bf16", "rig_window_bwd",
+              "vfa_tpu/ops/rig_pallas.py:194,355",
+              train16_launches["rig_window_bwd_bf16"], dtype="bfloat16"),
+        entry("rig_flat_bwd_bf16", "rig_flat_bwd", "vfa_tpu/ops/rig_pallas.py:434",
+              flat16_train_launches["rig_flat_bwd_bf16"], dtype="bfloat16"),
+        entry("stem_bwd_stats_bf16", "stem_bwd", "vfa_tpu/ops/stem.py:223",
+              flat16_train_launches["stem_bwd_stats_bf16"], dtype="bfloat16"),
+        entry("stem_bwd_dx_bf16", "stem_bwd", "vfa_tpu/ops/stem.py:253",
+              flat16_train_launches["stem_bwd_dx_bf16"], dtype="bfloat16"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

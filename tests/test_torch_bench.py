@@ -128,11 +128,11 @@ def test_out_of_memory_at_the_last_attempt_is_raised(monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--dtype", "bfloat16", "--train"], "item 9"),
-    (["--dtype", "bfloat16", "--no-rig"], "item 9"),
-    (["--remat"], "item 9"),
-    (["--stem_remat"], "item 9"),
-    (["--chunks", "2"], "item 9"),
+    (["--dtype", "bfloat16", "--train", "--no-rig"], "item 17"),
+    (["--dtype", "bfloat16", "--no-rig"], "item 17"),
+    (["--remat"], "item 18"),
+    (["--stem_remat"], "item 18"),
+    (["--chunks", "2"], "item 18"),
     (["--from_disk"], "item 11"),
     (["--disk_dir", "/nonexistent"], "item 11"),
     (["--no_augment"], "item 11"),

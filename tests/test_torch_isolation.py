@@ -62,6 +62,12 @@ out = predict.main(["--data", "Wildtrack", "--synthetic", "--tiny", "--device",
                     "cpu", "--scenes", "1", "--batch", "1", "--dtype", "bfloat16"])
 assert all(torch.isfinite(h).all() for h in out["heatmaps"])
 assert rig_window_fwd_bf16.launches == 0
+from vfa_tpu_torch.ops.rig_cuda import rig_flat_bwd_bf16
+out = train.main(["--data", "MultiviewC", "--synthetic", "--tiny", "-e", "1",
+                  "--synthetic_frames", "1", "--pretrained", "0", "--no_augment",
+                  "--device", "cpu", "--rig_layout", "flat", "--dtype", "bfloat16"])
+assert all(np.isfinite(d["loss"]) for d in out["losses"])
+assert rig_flat_bwd_bf16.launches == 0 and stem.stem_bwd_dx_bf16.launches == 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "vfa_tpu")
        and sys.modules[m] is not None]
 assert not bad, bad

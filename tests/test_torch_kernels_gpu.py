@@ -610,6 +610,28 @@ def assert_bf16_close(got, want):
     assert rel_l2 <= BF16_L2, rel_l2
 
 
+def assert_bf16_sum_close(got, plain, exact):
+    """A bf16 accumulator that takes one rounding per add (dII of the bf16
+    backward) against its plain version, which rounds at the same points
+    in another order: each against the same sums taken in fp32 (`exact`),
+    the kernel within 1.5x the plain version's rel-L2 and 2x its max
+    error. The order alone moves the plain version by up to 2.7e-2 of its
+    max and 1.1e-2 rel-L2 on the tiny rigs, where up to 96 windows overlap
+    on a pixel (its tiles taken in shuffled orders, measured on the CPU),
+    more than BF16_MAX / BF16_L2."""
+    got, plain, exact = got.float(), plain.float(), exact.float()
+    assert torch.isfinite(got).all()
+
+    def errs(a):
+        return (float((a - exact).abs().max()),
+                float(torch.linalg.vector_norm(a - exact)
+                      / torch.linalg.vector_norm(exact)))
+
+    (k_max, k_l2), (p_max, p_l2) = errs(got), errs(plain)
+    assert k_l2 <= 1.5 * p_l2 + 1e-6, (k_l2, p_l2)
+    assert k_max <= 2 * p_max + 1e-6 * float(exact.abs().max()), (k_max, p_max)
+
+
 def _bf16_inputs(sr, B, seed, device):
     gen = torch.Generator(device="cpu").manual_seed(seed)
     N = sr.A[0].shape[0]
@@ -705,8 +727,9 @@ def test_bf16_fwd_kernels_write_in_place(cuda, layout):
 
 
 def test_bf16_kernels_refuse_mixed_dtypes_and_backward(cuda):
-    """A bf16 forward takes bf16 only (no fp32 / bf16 mixing); the backward
-    kernels and the autograd backward refuse bf16, naming bf16 training."""
+    """A bf16 forward takes bf16 only (no fp32 / bf16 mixing); so does a
+    bf16 backward, but for its dKr accumulator, which must be float32, and
+    it takes a tile_v that is a multiple of 8 only."""
     rig = _bf16_rig("MultiviewC", 16, 3, "window", cuda)
     sr = rig.scales[0]
     lat, k = _bf16_inputs(sr, 1, 5, cuda)
@@ -720,13 +743,82 @@ def test_bf16_kernels_refuse_mixed_dtypes_and_backward(cuda):
         rig_window_fwd(ii, sr.A[0], sr.starts[0], Kr, out, off_t=0,
                        tile_v=sr.tile_v, window=sr.window_hw[0])
     g = torch.zeros((2, 1, rows, 256), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="Queue 1 item 9"):
+    kw = dict(off_t=0, tile_v=sr.tile_v, window=sr.window_hw[0])
+    dKr = torch.zeros(Kr.shape, device=cuda)
+    with pytest.raises(TypeError, match="no mixing"):
+        rig_window_bwd(ii, sr.A[0], sr.starts[0], Kr, g, torch.zeros_like(ii).float(),
+                       dKr, **kw)
+    with pytest.raises(TypeError, match="dKr accumulator must be float32"):
         rig_window_bwd(ii, sr.A[0], sr.starts[0], Kr, g, torch.zeros_like(ii),
-                       torch.zeros_like(Kr), off_t=0, tile_v=sr.tile_v,
-                       window=sr.window_hw[0])
-    la = lat.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        rig_tiles_cuda(la, sr, k).float().sum().backward()
+                       torch.zeros_like(Kr), **kw)
+    A12 = sr.A[0][:, :, :sr.nl * 12].contiguous()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rig_window_bwd(ii, A12, sr.starts[0], Kr, g, torch.zeros_like(ii), dKr,
+                       off_t=0, tile_v=12, window=sr.window_hw[0])
+
+
+def _plain_scale_bwd(ii, sr, Kr, g, A=None):
+    """(dII, dKr) of all buckets of a scale through the plain backward, one
+    dII threaded through them (in ii's dtype; A: the rig's, or given)."""
+    dII, dKr, off = None, torch.zeros(Kr.shape, device=ii.device), 0
+    for bi, (A_b, s_b) in enumerate(zip(A or sr.A, sr.starts)):
+        g_b = g[:, :, off:off + A_b.shape[1] * sr.tile_v]
+        if sr.window_hw:
+            dII, d = trig.window_tiles_bwd(ii, A_b, s_b, Kr, g_b,
+                                           sr.window_hw[bi], sr.tile_v, dII=dII)
+        else:
+            dII, d = trig.flat_tiles_bwd(ii, A_b, s_b, Kr, g_b, sr.tile_v, dII=dII)
+        dKr += d
+        off += A_b.shape[1] * sr.tile_v
+    return dII, dKr
+
+
+@pytest.mark.parametrize("layout,name,tile_v,buckets",
+                         [("window", "MultiviewC", 16, 3),
+                          ("window", "MultiviewC", 160, 3),
+                          ("window", "Wildtrack", 64, 3),
+                          ("flat", "MultiviewC", 16, 3),
+                          ("flat", "MultiviewC", 160, 3),
+                          ("flat", "Wildtrack", 16, 3)],
+                         ids=["window-tv16", "window-R800", "window-nl8",
+                              "flat-band8", "flat-R800", "flat-nl8"])
+@pytest.mark.parametrize("B", [1, 2, 8])
+def test_bf16_bwd_kernels_match_plain(cuda, layout, name, tile_v, buckets, B):
+    """The bf16 K2/K3 / K5 on every bucket of bf16 rigs (one bf16 dII
+    threaded through them) against the plain version in bf16. Both keep vox
+    and dvox in fp32 and round dII once per window add; the kernel carries
+    the fp32 operand as hi + lo bf16 and adds overlapping windows in the
+    atomics' order: dKr (fp32 sums) within 1e-2 of the plain max and
+    rel-L2 4e-3, dII as `assert_bf16_sum_close`. Then the autograd
+    function's backward runs the kernels. Only the bf16 counts move."""
+    from vfa_tpu_torch.ops.rig_cuda import rig_flat_bwd_bf16, rig_window_bwd_bf16
+
+    rig = _bf16_rig(name, tile_v, buckets, layout, cuda)
+    count = rig_window_bwd_bf16 if layout == "window" else rig_flat_bwd_bf16
+    for si, sr in enumerate(rig.scales):
+        lat, k = _bf16_inputs(sr, B, 140 + 10 * B + si, cuda)
+        ii = trig.scale_features(lat, sr)
+        Kr = trig.collapse_per_layer(k, 256, sr.nl, torch.bfloat16)
+        rows = sum(a.shape[1] for a in sr.A) * sr.tile_v
+        g = torch.randn((ii.shape[0], B, rows, 256),
+                        generator=torch.Generator().manual_seed(si)).to(
+            device=cuda, dtype=torch.bfloat16)
+        n0 = count.launches
+        f32 = (rig_window_bwd.launches, rig_flat_bwd.launches)
+        dII, dKr = rig_scale_bwd(ii, sr, Kr, g)
+        torch.cuda.synchronize()
+        assert dII.dtype == torch.bfloat16 and dKr.dtype == torch.bfloat16
+        assert count.launches == n0 + len(sr.A)
+        assert (rig_window_bwd.launches, rig_flat_bwd.launches) == f32
+        want_dII, want_dKr = _plain_scale_bwd(ii, sr, Kr, g)
+        exact_dII, _ = _plain_scale_bwd(ii.float(), sr, Kr.float(), g.float(),
+                                        A=[a.float() for a in sr.A])
+        assert_bf16_sum_close(dII, want_dII, exact_dII)
+        assert_bf16_close(dKr, want_dKr)
+        la, ka = lat.clone().requires_grad_(), k.clone().requires_grad_()
+        rig_tiles_cuda(la, sr, ka).backward(g)
+        assert la.grad.dtype == torch.bfloat16 and torch.isfinite(la.grad.float()).all()
+        assert count.launches == n0 + 2 * len(sr.A)
 
 
 def test_bf16_full_multiviewc_window_rig_every_bucket(cuda):
@@ -773,3 +865,59 @@ def test_bf16_window_kernel_2d_widths_and_past_2_31(cuda, B):
     assert torch.isnan(out[:, :, :tile_v]).all()
     assert_bf16_close(got, want)
     assert_bf16_close(got[-1, -1], want[-1, -1])
+
+
+@pytest.mark.parametrize("quantised", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("shape", [(2, 64, 24, 32), (1, 64, 100, 640),
+                                   (2, 32, 61, 260), (1, 16, 9, 12)], ids=str)
+def test_bf16_stem_kernels_match_plain(cuda, shape, quantised):
+    """K6 and K7 on bf16 x and dy against their plain versions on the same
+    parameters: both round z to bf16 before the ReLU and the comparisons and
+    round dz at the same points, so no gradient moves to another pixel
+    (the zero patterns of dx are equal); acc sums in another order (1e-4 of
+    its max), dx is fp32 arithmetic rounded once to bf16 (1e-2 of the max,
+    rel-L2 4e-3: a one-ulp flip where the fp32 values differ in their last
+    bits). On integer-valued input with scale 1, bias 0 ties decide; only
+    the bf16 counts move."""
+    x, scale, bias, g = _stem_inputs(shape, 7, quantised, cuda)
+    x, scale, bias, g = (t.to(torch.bfloat16) for t in (x, scale, bias, g))
+    z, mu, rstd = tstem.group_norm_stats(x, scale, bias, 16, 1e-5)
+    params = tstem.plane_params(mu, rstd, scale, bias)
+    # the kernels' z is the forward's, bit for bit (CUDA's bf16 GroupNorm
+    # normalises with its bf16-rounded statistics)
+    assert torch.equal(tstem.recompute_z(x, params), z)
+    n = (tstem.stem_bwd_stats_bf16.launches, tstem.stem_bwd_dx_bf16.launches,
+         tstem.stem_bwd_stats.launches, tstem.stem_bwd_dx.launches)
+    acc = tstem.stem_bwd_stats(x, g, params)
+    torch.cuda.synchronize()
+    want = tstem.stem_bwd_stats_plain(x, g, params)
+    np.testing.assert_allclose(acc.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+    c = torch.randn(mu.shape, generator=torch.Generator().manual_seed(1)).to(cuda) * 0.1
+    params2 = tstem.plane_params(mu, rstd, scale, bias, c, -c)
+    dx = tstem.stem_bwd_dx(x, g, params2)
+    torch.cuda.synchronize()
+    assert dx.dtype == torch.bfloat16
+    want = tstem.stem_bwd_dx_plain(x, g, params2)
+    assert_bf16_close(dx, want)
+    dz = tstem.stem_bwd_dx(x, g, params)
+    dz_want = tstem.stem_bwd_dx_plain(x, g, params)
+    assert torch.equal(dz == 0, dz_want == 0)
+    assert (tstem.stem_bwd_stats_bf16.launches, tstem.stem_bwd_dx_bf16.launches,
+            tstem.stem_bwd_stats.launches, tstem.stem_bwd_dx.launches) == (
+        n[0] + 1, n[1] + 2, n[2], n[3])
+    xa = x.clone().requires_grad_()
+    tstem.gn_relu_pool(xa, scale, bias).backward(g)
+    assert xa.grad.dtype == torch.bfloat16
+
+
+def test_bf16_stem_kernels_refuse_odd_widths_and_mixing(cuda):
+    x, scale, bias, g = _stem_inputs((1, 16, 8, 10), 0, False, cuda)
+    x, scale, bias, g = (t.to(torch.bfloat16) for t in (x, scale, bias, g))
+    _, mu, rstd = tstem.group_norm_stats(x, scale, bias, 16, 1e-5)
+    params = tstem.plane_params(mu, rstd, scale, bias)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tstem.stem_bwd_stats(x, g, params)
+    x8 = x[..., :8].contiguous()
+    with pytest.raises(TypeError, match="dy must be"):
+        tstem.stem_bwd_dx(x8, g[..., :4].float().contiguous(), params)

@@ -60,6 +60,6 @@ def test_predict_no_rig_tiny_cpu(capsys):
 def test_predict_requires_synthetic():
     with pytest.raises(NotImplementedError, match="--synthetic"):
         predict.main(["--data", "MultiviewC", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
         predict.main(["--data", "MultiviewC", "--synthetic", "--device", "cpu",
                       "--no_rig", "--dtype", "bfloat16"])

@@ -292,7 +292,7 @@ def test_train_cli_tiny_cpu(capsys):
     (["--data", "MultiviewC", "--pretrained", "0", "--no_augment"], "--synthetic"),
     (["--data", "MultiviewC", "--synthetic", "--no_augment"], "--pretrained"),
     (["--data", "MultiviewC", "--synthetic", "--pretrained", "0"], "ColorJitter"),
-    (TINY + ["--dtype", "bfloat16"], "bfloat16"),
+    (TINY + ["--dtype", "bfloat16", "--no_rig"], "bfloat16"),
     (TINY + ["--resume", "run1"], "--resume"),
     (TINY + ["--vis_iter", "5"], "figures"),
     (TINY + ["--multihost"], "--multihost"),
@@ -305,11 +305,19 @@ def test_train_cli_refuses_what_is_not_ported(argv, match):
 
 
 def test_train_step_refuses_bf16_and_cuda_needs_a_card():
+    """A bf16 step refuses the reference voxel route (rig=None), which is
+    not ported in bf16, naming its ROADMAP item; an unknown compute dtype
+    is refused when the step is made."""
     tc = t_tiny_config(get_config("MultiviewC"))
     model = VFANet(tc)
     tcfg = TrainConfig(compute_dtype="bfloat16")        # the dataclass takes it
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttl.make_train_step(model, ttl.make_optimizer(model, tcfg, 1), tc, tcfg)
+    step = ttl.make_train_step(model, ttl.make_optimizer(model, tcfg, 1), tc, tcfg)
+    loader = SyntheticSceneLoader(tc, num_frames=1, batch_size=1, seed=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 17"):
+        step(ttl.batch_to_device(next(iter(loader)), "cpu", torch.bfloat16), None)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        ttl.make_train_step(model, ttl.make_optimizer(model, tcfg, 1), tc,
+                            TrainConfig(compute_dtype="float16"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_cli.main(TINY[:-2])

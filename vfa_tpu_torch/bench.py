@@ -6,6 +6,7 @@ path.
     python -m vfa_tpu_torch.bench                         # MultiviewC serving, auto batch
     python -m vfa_tpu_torch.bench --data MultiviewX --train
     python -m vfa_tpu_torch.bench --dtype bfloat16 --data Wildtrack   # bf16 serving
+    python -m vfa_tpu_torch.bench --dtype bfloat16 --train            # bf16 training
     python -m vfa_tpu_torch.bench --tiny --device cpu --batch 1 --iters 2 --warmup 1
 
 Inputs are synthetic scenes (`make_scene(cfg, seed=s, num_objects=6)`)
@@ -22,7 +23,9 @@ set for a TPU, which are not the port's), tflops_per_sec and mfu (against
 the card's dense bf16 peak, for a known card only), and dtype. bfloat16
 serves as the root bench does: every floating parameter and buffer of the
 model cast to bf16, bf16 images, a rig built in bf16 (its tile_v and A),
-fp32 predictions decoded. Everything else
+fp32 predictions decoded; it trains as the root bench does, in mixed
+precision (fp32 master parameters cast at use, `train_lib`), with bf16
+images and the bf16 rig. Everything else
 (TF32 settings, the card and its power limit, each batch attempt with its
 peak memory, host syncs in a warm call, FLOPs) goes to stderr.
 """
@@ -69,9 +72,9 @@ def parse_args(argv=None):
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
-                   help="compute dtype (bfloat16: serving only; the model, "
-                        "the images and the rig cast as the root bench casts "
-                        "them)")
+                   help="compute dtype (bfloat16: the images and the rig in "
+                        "bf16; serving casts the model, training keeps fp32 "
+                        "master parameters, as the root bench does)")
     p.add_argument("--data", default="MultiviewC",
                    choices=["MultiviewC", "MultiviewX", "Wildtrack"])
     p.add_argument("--layout", default="window", choices=["window", "flat"],
@@ -108,13 +111,11 @@ def parse_args(argv=None):
 def _refuse_unported(args) -> None:
     """Every flag whose path is not ported yet raises, naming its ROADMAP
     item; nothing is silently skipped."""
-    memory = "(ROADMAP.md Queue 1 item 9, with bf16)"
+    memory = "(ROADMAP.md Queue 1 item 18, the memory options)"
     loader = "(ROADMAP.md Queue 1 item 11, the data pipeline)"
     unported = [
-        (args.dtype == "bfloat16" and args.train, "--dtype bfloat16 --train "
-         "is not ported yet (ROADMAP.md Queue 1 item 9, bf16 training)"),
         (args.dtype == "bfloat16" and args.no_rig, "--dtype bfloat16 --no-rig "
-         "is not ported yet (ROADMAP.md Queue 1 item 9, the voxel route in "
+         "is not ported yet (ROADMAP.md Queue 1 item 17, the voxel route in "
          "bf16)"),
         (args.remat, f"--remat is not ported yet {memory}"),
         (args.stem_remat, f"--stem_remat is not ported yet {memory}"),
@@ -168,17 +169,17 @@ def make_runner(cfg, args, bs: int, rig, device):
     from vfa_tpu_torch.train_lib import make_optimizer, make_train_step
 
     dtype = getattr(torch, args.dtype)
-    model = cast_model(init_weights(VFANet(cfg, rig_impl=args.rig_impl),
-                                    torch.Generator().manual_seed(0)).to(device),
-                       dtype)
+    model = init_weights(VFANet(cfg, rig_impl=args.rig_impl),
+                         torch.Generator().manual_seed(0)).to(device)
     batch = make_inputs(cfg, bs, device, args.train, dtype)
     dim_mean = DIM_MEAN if cfg.mode == "3D" else None
     if args.train:
-        tcfg = TrainConfig(pretrained=False)
+        # mixed precision: fp32 masters, cast at use by the step
+        tcfg = TrainConfig(pretrained=False, compute_dtype=args.dtype)
         step = make_train_step(model, make_optimizer(model, tcfg, STEPS_PER_EPOCH),
                                cfg, tcfg, dim_mean=dim_mean)
         return lambda: step(batch, rig)
-    model.eval()
+    model = cast_model(model, dtype).eval()
 
     @torch.no_grad()
     def serve():

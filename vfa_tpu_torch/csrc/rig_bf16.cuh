@@ -3,7 +3,8 @@
 // (sm_90a): one CTA tile on wgmma.mma_async m64n64k16 bf16 with fp32
 // accumulators, and the two passes of a forward launch written on it, for
 // both band layouts. The fp32 kernels keep their own tile (rig_mma.cuh);
-// nothing here is shared with it.
+// nothing here is shared with it. The passes of the bf16 backwards, on this
+// tile, are in rig_bf16_bwd.cuh.
 //
 // What is computed, with JAX's rounding points (vfa_tpu/ops/rig_pallas.py
 // _kernel / _kernel_win, run on bf16 features, A and Kr):
@@ -364,13 +365,19 @@ rig_bfcollapse_mma(const bf16* __restrict__ vox, const bf16* __restrict__ Kr,
 }
 
 template <class Kernel, class... Args>
+inline cudaError_t launch_smem(Kernel kernel, dim3 grid, int smem,
+                               cudaStream_t s, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, THREADS, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
+template <class Kernel, class... Args>
 inline cudaError_t launch_tile(Kernel kernel, dim3 grid, cudaStream_t s,
                                Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, THREADS, SMEM_BYTES, s>>>(args...);
-  return cudaGetLastError();
+  return launch_smem(kernel, grid, SMEM_BYTES, s, args...);
 }
 
 // Both passes of a bf16 forward launch. pixels = rows of one (n, b) image;

@@ -1,5 +1,5 @@
 // Flat-layout compiled-rig backward for NVIDIA Hopper (sm_90a), fp32 in and
-// out, on the tensor cores.
+// out, on the tensor cores; its bf16 variant is at the end of the file.
 //
 // Replaces vfa_tpu/ops/rig_pallas.py::_bwd_kernel (the TPU Pallas kernel
 // launched by the flat branch of _bucket_bwd_call). For one bucket, with g
@@ -39,7 +39,7 @@
 // varies more from run to run: dII agrees to fp32 rounding, not bit for
 // bit. The contention is measured, not designed around.
 
-#include "rig_mma.cuh"
+#include "rig_bf16_bwd.cuh"
 
 // ii, dII (N, B, pixels, C) fp32 with pixels = fh*fw + max_band; A
 // (N, T, nl*tile_v, band) fp32; starts (N*T) int32; KrT (nl, n_out, C)
@@ -57,4 +57,20 @@ extern "C" int rig_flat_bwd_f32(const float* ii, const float* A,
   return rig_bwd_launch<false>(ii, A, starts, KrT, g, vox, ws, dII, dKr, N, B,
                                pixels, 0, C, T, nl, tile_v, band, 0, n_out,
                                off_t, rows_total, stream);
+}
+
+// The bf16 variant: as rig_window_bwd_bf16 (rig_window_bwd.cu), on flat
+// bands.
+extern "C" int rig_flat_bwd_bf16(const void* ii, const void* A,
+                                 const int* starts, const void* KrT,
+                                 const void* g, void* vox, float* ws, void* dII,
+                                 float* dKr, int N, int B, int pixels, int C,
+                                 int T, int nl, int tile_v, int band, int n_out,
+                                 int off_t, int rows_total, void* stream) {
+  using bft::bf16;
+  return bft::rig_bwd_launch<false>(
+      static_cast<const bf16*>(ii), static_cast<const bf16*>(A), starts,
+      static_cast<const bf16*>(KrT), static_cast<const bf16*>(g),
+      static_cast<bf16*>(vox), ws, static_cast<bf16*>(dII), dKr, N, B, pixels,
+      0, C, T, nl, tile_v, band, 0, n_out, off_t, rows_total, stream);
 }

@@ -1,5 +1,5 @@
 // Window-layout compiled-rig backward for NVIDIA Hopper (sm_90a), fp32 in
-// and out, on the tensor cores.
+// and out, on the tensor cores; its bf16 variant is at the end of the file.
 //
 // Replaces vfa_tpu/ops/rig_pallas.py::_bwd_kernel_win_pipe and
 // ::_bwd_kernel_win (the TPU Pallas kernels launched by the window branch
@@ -71,7 +71,7 @@
 // is therefore not fixed from run to run: dII agrees to fp32 rounding, not
 // bit for bit.
 
-#include "rig_mma.cuh"
+#include "rig_bf16_bwd.cuh"
 
 // ii, dII (N, B, Hp, Wp, C) fp32; A (N, T, nl*tile_v, wh*ww) fp32; starts
 // (N*T*2) int32; KrT (nl, n_out, C) fp32; g (N, B, rows_total, n_out) fp32;
@@ -88,4 +88,25 @@ extern "C" int rig_window_bwd_f32(const float* ii, const float* A,
   return rig_bwd_launch<true>(ii, A, starts, KrT, g, vox, ws, dII, dKr, N, B,
                               Hp * Wp, Wp, C, T, nl, tile_v, wh * ww, ww,
                               n_out, off_t, rows_total, stream);
+}
+
+// The bf16 variant: ii, A, KrT, g and dII bf16, the same shapes; the vox
+// scratch the same bytes (two bf16 planes), ws and dKr fp32. The passes of
+// rig_bf16.cuh's backward, with JAX's rounding points on bf16 inputs: vox,
+// dvox and dKr fp32, dII rounded once per window add (in the atomics'
+// order). tile_v a multiple of 8. What bounds it on the H100 (SXM, 700 W):
+// operations at the dense bf16 rate, twice the forward's.
+extern "C" int rig_window_bwd_bf16(const void* ii, const void* A,
+                                   const int* starts, const void* KrT,
+                                   const void* g, void* vox, float* ws,
+                                   void* dII, float* dKr, int N, int B, int Hp,
+                                   int Wp, int C, int T, int nl, int tile_v,
+                                   int wh, int ww, int n_out, int off_t,
+                                   int rows_total, void* stream) {
+  using bft::bf16;
+  return bft::rig_bwd_launch<true>(
+      static_cast<const bf16*>(ii), static_cast<const bf16*>(A), starts,
+      static_cast<const bf16*>(KrT), static_cast<const bf16*>(g),
+      static_cast<bf16*>(vox), ws, static_cast<bf16*>(dII), dKr, N, B, Hp * Wp,
+      Wp, C, T, nl, tile_v, wh * ww, ww, n_out, off_t, rows_total, stream);
 }

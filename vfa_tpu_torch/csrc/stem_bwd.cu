@@ -1,5 +1,6 @@
 // Backward of the fused stem tail GroupNorm(16) + ReLU + 3x3 / stride 2 /
-// pad 1 max-pool for NVIDIA Hopper (sm_90a), fp32, NCHW.
+// pad 1 max-pool for NVIDIA Hopper (sm_90a), NCHW, fp32 and bf16 (x, dy and
+// dx in the element type; the statistics, the sums and the arithmetic fp32).
 //
 // Replaces vfa_tpu/ops/stem.py::_b1_kernel and ::_b2_kernel (the two TPU
 // Pallas kernels launched by _pallas_bwd) and their shared _recompute_dz.
@@ -67,10 +68,26 @@
 // backward does) and carries the odd row's dz to the next window row. Any
 // H, W >= 1 is taken (an odd size pools to ceil): the 16-byte path needs
 // W % 4 == 0 and aligned planes, the scalar path takes the rest.
+//
+// bf16 (stem_bwd_stats_bf16, stem_bwd_dx_bf16; the bf16 instances of
+// _b1_kernel / _b2_kernel): z is rounded to bf16 as the forward stored it,
+// before the ReLU and every comparison; a pixel's dz rounds where
+// _recompute_dz rounds `da` on bf16 (dz_walk says how), which the window
+// sums of the fp32 stem_bwd_stats cannot give, so the bf16 stem_bwd_stats
+// walks the pixels as stem_bwd_dx does and adds their dz; dx is computed in
+// fp32 and rounded once. The ring holds bf16, copied 8 bytes a lane: the
+// 16-byte path's layout with half the bytes (W % 4 == 0 only), so the byte
+// bound halves. Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W) at
+// (14, 64, 360, 640): stem_bwd_stats_bf16 0.664 ms (23 % of its 0.154 ms
+// bound), stem_bwd_dx_bf16 0.690 ms (40 % of 0.277 ms): 8-byte copies a
+// lane, and the bf16 stats kernel's per-pixel walk.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -90,6 +107,38 @@ constexpr int STAGE = 2 * RW + 72;
 constexpr int NPARAM = 8;         // floats per plane in `params`
 constexpr unsigned FULL = 0xffffffffu;
 
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// z as the forward stored it: fp32 for an fp32 x, rounded to bf16 (to
+// nearest even) for a bf16 one
+template <class T>
+__device__ __forceinline__ float stored(float z) {
+  if constexpr (std::is_same_v<T, bf16>)
+    return __bfloat162float(__float2bfloat16_rn(z));
+  else
+    return z;
+}
+
+// Four consecutive elements (16 bytes of fp32, 8 of bf16) as floats.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
 // per-plane scalars: mean, rstd, scale, bias, c1, c2 packed by the caller,
 // a and b derived here
 struct Plane {
@@ -107,7 +156,7 @@ __device__ __forceinline__ Plane load_plane(const float* __restrict__ params,
 // registers, or zeros if !full (src is then not read, but is a valid
 // address all the same).
 template <int N>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          bool full, bool active = true) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int n = full ? N : 0;
@@ -164,18 +213,20 @@ __device__ __forceinline__ Lane lane_of(int lane, int c, int W, int OW,
   return L;
 }
 
+
 // Start the copies of pixel row h (zeros unless `in`) into the row buffer
 // `dst`. `xs` points at the plane's row 0, column c (clamped into the row).
-template <bool VEC>
-__device__ __forceinline__ void fill_row(float* dst, const float* xs,
-                                         const Lane& L, int h, bool in,
-                                         int W) {
-  const float* row = xs + (size_t)(in ? h : 0) * W;
-  if (VEC) {  // W % 4 == 0: four columns are all inside or all outside
-    cp_async<16>(dst + 4 + 4 * L.lane, row, in && L.c < W);
-    cp_async<8>(dst + (L.lane == 0 ? 2 : 132), row + L.hoff, in && L.halo_in,
-                L.halo);
+// A bf16 x takes the 16-byte path only (the launch refuses it otherwise).
+template <bool VEC, class T>
+__device__ __forceinline__ void fill_row(T* dst, const T* xs, const Lane& L,
+                                         int h, bool in, int W) {
+  const T* row = xs + (size_t)(in ? h : 0) * W;
+  if constexpr (VEC) {  // W % 4 == 0: four columns are all inside or all outside
+    cp_async<4 * sizeof(T)>(dst + 4 + 4 * L.lane, row, in && L.c < W);
+    cp_async<2 * sizeof(T)>(dst + (L.lane == 0 ? 2 : 132), row + L.hoff,
+                            in && L.halo_in, L.halo);
   } else {
+    static_assert(sizeof(T) == 4, "the scalar path copies 4-byte elements");
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const bool ok = L.c + k < W;
@@ -191,22 +242,22 @@ __device__ __forceinline__ void fill_row(float* dst, const float* xs,
 // Start the copies of window row oh into the ring stage `st`: pixel rows
 // 2oh and 2oh + 1 and dy's row oh (`dys` at the plane's window c/2, clamped
 // into the row), zeros outside the image and the output.
-template <bool VEC>
-__device__ __forceinline__ void fill_stage(float* st, const float* xs,
-                                           const float* dys, const Lane& L,
-                                           int oh, int H, int W, int OH,
-                                           int OW) {
+template <bool VEC, class T>
+__device__ __forceinline__ void fill_stage(T* st, const T* xs, const T* dys,
+                                           const Lane& L, int oh, int H, int W,
+                                           int OH, int OW) {
   fill_row<VEC>(st, xs, L, 2 * oh, 2 * oh < H, W);
   fill_row<VEC>(st + RW, xs, L, 2 * oh + 1, 2 * oh + 1 < H, W);
   const bool in = oh < OH;
-  const float* row = dys + (size_t)(in ? oh : 0) * OW;
-  float* dst = st + 2 * RW;
-  if (VEC) {  // OW even: two windows are both inside or both outside
-    cp_async<8>(dst + 2 * L.lane, row, in && L.dy_in);
+  const T* row = dys + (size_t)(in ? oh : 0) * OW;
+  T* dst = st + 2 * RW;
+  if constexpr (VEC) {  // OW even: two windows are both inside or both outside
+    cp_async<2 * sizeof(T)>(dst + 2 * L.lane, row, in && L.dy_in);
   } else {
     cp_async<4>(dst + 2 * L.lane, row, in && L.dy_in);
     cp_async<4>(dst + 2 * L.lane + 1, L.dy2_in ? row + 1 : row, in && L.dy2_in);
   }
+  // window c/2 + 2 (bf16: with c/2 + 3, inside whenever it is: OW is even)
   cp_async<4>(dst + 64, L.dy_next_in ? row + 2 : row, in && L.dy_next_in,
               L.dy_next);
 }
@@ -219,12 +270,12 @@ struct Row {
   float x[N], v[N];
 };
 
-template <int N>
-__device__ __forceinline__ Row<N> row_of(const float* row, const Lane& L,
-                                         bool in, const Plane& pl) {
-  const float4 own = *reinterpret_cast<const float4*>(row + 4 + 4 * L.lane);
+template <int N, class T>
+__device__ __forceinline__ Row<N> row_of(const T* row, const Lane& L, bool in,
+                                         const Plane& pl) {
+  const float4 own = load4(row + 4 + 4 * L.lane);
   float left = __shfl_up_sync(FULL, own.w, 1);
-  if (L.lane == 0) left = row[3];
+  if (L.lane == 0) left = to_f32(row[3]);
   Row<N> out;
   out.x[0] = left;
   out.x[1] = own.x;
@@ -235,13 +286,14 @@ __device__ __forceinline__ Row<N> row_of(const float* row, const Lane& L,
     out.x[5] = __shfl_down_sync(FULL, own.x, 1);
     out.x[6] = __shfl_down_sync(FULL, own.y, 1);
     if (L.lane == 31) {
-      out.x[5] = row[132];
-      out.x[6] = row[133];
+      out.x[5] = to_f32(row[132]);
+      out.x[6] = to_f32(row[133]);
     }
   }
 #pragma unroll
   for (int j = 0; j < N; ++j)
-    out.v[j] = in ? fminf(fmaxf(__fmaf_rn(pl.a, out.x[j], pl.b), 0.f), L.lim[j])
+    out.v[j] = in ? fminf(fmaxf(stored<T>(__fmaf_rn(pl.a, out.x[j], pl.b)), 0.f),
+                          L.lim[j])
                   : -INFINITY;
   return out;
 }
@@ -273,13 +325,13 @@ __device__ __forceinline__ int first_max(const Row<N>& t, const Row<N>& m,
 // the ring's last slot (which the walk refills only after reading it), then
 // the ring's first STEM_STAGES - 1 window rows (up to `last`); wait for the
 // first. Returns that row as Row<N>.
-template <bool VEC, int N>
-__device__ __forceinline__ Row<N> start_walk(float* ring, const float* xs,
-                                             const float* dys, const Lane& L,
+template <bool VEC, int N, class T>
+__device__ __forceinline__ Row<N> start_walk(T* ring, const T* xs,
+                                             const T* dys, const Lane& L,
                                              const Plane& pl, int H, int W,
                                              int OH, int OW, int oh0,
                                              int last) {
-  float* top_row = ring + (STEM_STAGES - 1) * STAGE + RW;
+  T* top_row = ring + (STEM_STAGES - 1) * STAGE + RW;
   fill_row<VEC>(top_row, xs, L, 2 * oh0 - 1, oh0 > 0, W);
   cp_async_commit();
 #pragma unroll
@@ -298,13 +350,11 @@ __device__ __forceinline__ Row<N> start_walk(float* ring, const float* xs,
 // Wait for window row oh of the ring (slot `slot`) after starting the copies
 // of window row oh + STEM_STAGES - 1 (if it is at most `last`) into the
 // slot read before.
-template <bool VEC>
-__device__ __forceinline__ const float* next_stage(float* ring, int slot,
-                                                   const float* xs,
-                                                   const float* dys,
-                                                   const Lane& L, int oh,
-                                                   int last, int H, int W,
-                                                   int OH, int OW) {
+template <bool VEC, class T>
+__device__ __forceinline__ const T* next_stage(T* ring, int slot, const T* xs,
+                                               const T* dys, const Lane& L,
+                                               int oh, int last, int H, int W,
+                                               int OH, int OW) {
   if (oh + STEM_STAGES - 1 <= last)
     fill_stage<VEC>(ring + ((slot + STEM_STAGES - 1) % STEM_STAGES) * STAGE, xs,
                     dys, L, oh + STEM_STAGES - 1, H, W, OH, OW);
@@ -314,9 +364,9 @@ __device__ __forceinline__ const float* next_stage(float* ring, int slot,
   return ring + slot * STAGE;
 }
 
-// One warp item of stem_bwd_stats: window rows oh0 .. oh1-1 of the plane,
-// the lane's windows c/2 and c/2 + 1. Returns the lane's sum of the dy its
-// windows give (.x) and of dy * xhat at each window's maximum (.y).
+// One warp item of stem_bwd_stats on fp32: window rows oh0 .. oh1-1 of the
+// plane, the lane's windows c/2 and c/2 + 1. Returns the lane's sum of the
+// dy its windows give (.x) and of dy * xhat at each window's maximum (.y).
 template <bool VEC>
 __device__ __forceinline__ float2 stats_walk(const float* xs, const float* dys,
                                              float* ring, const Lane& L,
@@ -331,7 +381,7 @@ __device__ __forceinline__ float2 stats_walk(const float* xs, const float* dys,
                                       W, OH, OW);
     const Row<5> mid = row_of<5>(st, L, 2 * oh < H, pl);
     const Row<5> bot = row_of<5>(st + RW, L, 2 * oh + 1 < H, pl);
-    const float2 d = *reinterpret_cast<const float2*>(st + 2 * RW + 2 * L.lane);
+    const float2 d = load2(st + 2 * RW + 2 * L.lane);
     __syncwarp();  // the slot is refilled by the next iteration
 #pragma unroll
     for (int w = 0; w < 2; ++w) {
@@ -347,60 +397,45 @@ __device__ __forceinline__ float2 stats_walk(const float* xs, const float* dys,
   return s;
 }
 
-// dx of the lane's four columns of pixel row h from their dz and x.
-template <bool VEC>
-__device__ __forceinline__ void store_dx(float* __restrict__ dxp,
-                                         const Plane& pl, int h, int W, int c,
-                                         const float dz[4], const float* x) {
-  float v[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float xhat = (x[k] - pl.mean) * pl.rstd;
-    v[k] = pl.rstd * (dz[k] * pl.scale - pl.c1 - xhat * pl.c2);
-  }
-  float* row = dxp + (size_t)h * W;
-  if (VEC) {
-    if (c < W)
-      __stcs(reinterpret_cast<float4*>(row + c), make_float4(v[0], v[1], v[2], v[3]));
-  } else {
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (c + k < W) __stcs(row + c + k, v[k]);
-  }
-}
-
-// One warp item of stem_bwd_dx: dx of pixel rows 2*oh0 .. 2*oh1-1 of the
-// plane, the lane's columns c .. c+3. Iteration oh works on the pixel rows
-// 2oh-1 (carried), 2oh, 2oh+1 of window row oh: it adds the dy of the
-// lane's three windows (its two and the next lane's first) to their
-// maxima, finishes row 2oh-1 (if it is the strip's) and row 2oh, and
+// One warp item's dz, pixel row by pixel row: rows 2*oh0 .. 2*oh1-1 of the
+// plane, the lane's columns c .. c+3, handed to sink(h, dz, x) (dz and x of
+// the four columns; the sink skips columns past W). Iteration oh works on
+// the pixel rows 2oh-1 (carried), 2oh, 2oh+1 of window row oh: it adds the
+// dy of the lane's three windows (its two and the next lane's first) to
+// their maxima, finishes row 2oh-1 (if it is the strip's) and row 2oh, and
 // carries row 2oh+1 with the dz it has so far; a last iteration oh = oh1
 // only finishes row 2*oh1-1 (window row oh1 also covers it; the next strip
 // computes that window row again).
-template <bool VEC>
-__device__ __forceinline__ void dx_walk(const float* xs, const float* dys,
-                                        float* __restrict__ dxp, float* ring,
+// The sums round where JAX's _recompute_dz rounds them on a bf16 x: a
+// pixel's gradient is kept in two parts, from the pool window on its left
+// (or the only one, in an even column) and from the one on its right; each
+// part adds the two window rows that meet on an odd pixel row and rounds,
+// then the parts are added and rounded (`stored`; exact on fp32).
+template <bool VEC, class T, class Sink>
+__device__ __forceinline__ void dz_walk(const T* xs, const T* dys, T* ring,
                                         const Lane& L, const Plane& pl, int H,
-                                        int W, int OH, int OW, int oh0,
-                                        int oh1) {
+                                        int W, int OH, int OW, int oh0, int oh1,
+                                        Sink sink) {
   Row<7> top = start_walk<VEC, 7>(ring, xs, dys, L, pl, H, W, OH, OW, oh0, oh1);
-  float pend[4] = {0.f, 0.f, 0.f, 0.f};
+  float pend[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
   for (int oh = oh0, slot = 0; oh <= oh1; ++oh) {
-    const float* st = next_stage<VEC>(ring, slot, xs, dys, L, oh, oh1, H, W,
-                                      OH, OW);
+    const T* st = next_stage<VEC>(ring, slot, xs, dys, L, oh, oh1, H, W, OH,
+                                  OW);
     const Row<7> mid = row_of<7>(st, L, 2 * oh < H, pl);
     const Row<7> bot = row_of<7>(st + RW, L, 2 * oh + 1 < H, pl);
-    const float2 d01 = *reinterpret_cast<const float2*>(st + 2 * RW + 2 * L.lane);
-    const float d[3] = {d01.x, d01.y, st[2 * RW + 2 * L.lane + 2]};
+    const float2 d01 = load2(st + 2 * RW + 2 * L.lane);
+    const float d[3] = {d01.x, d01.y, to_f32(st[2 * RW + 2 * L.lane + 2])};
     __syncwarp();  // the slot is refilled by the next iteration
-    // add[dr][k]: dz of column c + k in the top (dr 0, starting from what
-    // the window row above gave), middle and bottom pixel rows
-    float add[3][4];
+    // add[side][dr][k]: this window row's dy to column c + k of its top
+    // (dr 0), middle and bottom pixel rows, from the window on the left of
+    // the column (side 0; in an even column the only one) or on its right
+    float add[2][3][4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      add[0][k] = pend[k];
-      add[1][k] = add[2][k] = 0.f;
-    }
+    for (int side = 0; side < 2; ++side)
+#pragma unroll
+      for (int dr = 0; dr < 3; ++dr)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) add[side][dr][k] = 0.f;
 #pragma unroll
     for (int w = 0; w < 3; ++w) {  // the window on columns 2w .. 2w+2 of the 7
       float best, xb;
@@ -409,17 +444,59 @@ __device__ __forceinline__ void dx_walk(const float* xs, const float* dys,
 #pragma unroll
       for (int q = 0; q < 9; ++q) {
         const int k = 2 * w + q % 3 - 1;  // own column of position q
-        if (k >= 0 && k < 4) add[q / 3][k] += arg == q ? g : 0.f;
+        if (k >= 0 && k < 4) add[q % 3 == 0][q / 3][k] += arg == q ? g : 0.f;
       }
     }
-    if (oh > oh0 && 2 * oh - 1 < H)
-      store_dx<VEC>(dxp, pl, 2 * oh - 1, W, L.c, add[0], top.x + 1);
-    if (oh == oh1) break;
-    store_dx<VEC>(dxp, pl, 2 * oh, W, L.c, add[1], mid.x + 1);
+    float dz[4];
+    if (oh > oh0 && 2 * oh - 1 < H) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) pend[k] = add[2][k];
+      for (int k = 0; k < 4; ++k)
+        dz[k] = stored<T>(stored<T>(pend[0][k] + add[0][0][k]) +
+                          stored<T>(pend[1][k] + add[1][0][k]));
+      sink(2 * oh - 1, dz, top.x + 1);
+    }
+    if (oh == oh1) break;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      dz[k] = stored<T>(add[0][1][k] + add[1][1][k]);
+      pend[0][k] = add[0][2][k];
+      pend[1][k] = add[1][2][k];
+    }
+    sink(2 * oh, dz, mid.x + 1);
     top = bot;
     slot = (slot + 1) % STEM_STAGES;
+  }
+}
+
+// dx of the lane's four columns of pixel row h from their dz and x,
+// rounded once to T.
+template <bool VEC, class T>
+__device__ __forceinline__ void store_dx(T* __restrict__ dxp, const Plane& pl,
+                                         int h, int W, int c, const float dz[4],
+                                         const float* x) {
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float xhat = (x[k] - pl.mean) * pl.rstd;
+    v[k] = pl.rstd * (dz[k] * pl.scale - pl.c1 - xhat * pl.c2);
+  }
+  T* row = dxp + (size_t)h * W;
+  if constexpr (std::is_same_v<T, bf16>) {   // VEC only
+    if (c < W) {
+      __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+      uint2 u;
+      u.x = *reinterpret_cast<const unsigned*>(&lo);
+      u.y = *reinterpret_cast<const unsigned*>(&hi);
+      __stcs(reinterpret_cast<uint2*>(row + c), u);
+    }
+  } else if (VEC) {
+    if (c < W)
+      __stcs(reinterpret_cast<float4*>(row + c), make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (c + k < W) __stcs(row + c + k, v[k]);
   }
 }
 
@@ -441,34 +518,49 @@ __device__ __forceinline__ Item item_of(int item, int OH, int strips,
 
 // The item's plane of x at row 0, column c, and of dy at window c/2, each
 // clamped into its row (aligned for the 16-byte path).
-template <bool VEC>
-__device__ __forceinline__ void plane_ptrs(const float* x, const float* dy,
+template <bool VEC, class T>
+__device__ __forceinline__ void plane_ptrs(const T* x, const T* dy,
                                            const Item& w, int H, int W,
-                                           int OH, int OW, const float*& xs,
-                                           const float*& dys) {
+                                           int OH, int OW, const T*& xs,
+                                           const T*& dys) {
   xs = x + (size_t)w.plane * H * W + min(w.c, W - (VEC ? 4 : 1));
   dys = dy + (size_t)w.plane * OH * OW + min(w.c >> 1, OW - (VEC ? 2 : 1));
 }
 
 // Stage 1: each warp item's sum dz and sum dz*xhat into partial[item][0..1]
-// (items of one plane are contiguous). One warp an item.
-template <bool VEC>
+// (items of one plane are contiguous). One warp an item. fp32 adds up each
+// window's dy at its maximum; bf16 needs each pixel's rounded dz.
+template <bool VEC, class T>
 __global__ void __launch_bounds__(32 * STEM_WARPS)
-stem_bwd_stats_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+stem_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                       const float* __restrict__ params,
                       float* __restrict__ partial, int H, int W, int OH,
                       int OW, int strips, int segs, int items) {
-  __shared__ __align__(16) float ring[STEM_WARPS][STEM_STAGES * STAGE];
+  __shared__ __align__(16) T ring[STEM_WARPS][STEM_STAGES * STAGE];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int it = blockIdx.x * STEM_WARPS + warp;
   if (it >= items) return;
   const Item w = item_of(it, OH, strips, segs, lane);
-  const Lane L = lane_of<VEC>(lane, w.c, W, OW, false);
   const Plane pl = load_plane(params, w.plane);
-  const float *xs, *dys;
+  const T *xs, *dys;
   plane_ptrs<VEC>(x, dy, w, H, W, OH, OW, xs, dys);
-  float2 s = stats_walk<VEC>(xs, dys, ring[warp], L, pl, H, W, OH, OW, w.oh0,
-                             w.oh1);
+  float2 s = make_float2(0.f, 0.f);
+  if constexpr (std::is_same_v<T, float>) {
+    const Lane L = lane_of<VEC>(lane, w.c, W, OW, false);
+    s = stats_walk<VEC>(xs, dys, ring[warp], L, pl, H, W, OH, OW, w.oh0,
+                        w.oh1);
+  } else {
+    const Lane L = lane_of<VEC>(lane, w.c, W, OW, true);
+    dz_walk<VEC>(xs, dys, ring[warp], L, pl, H, W, OH, OW, w.oh0, w.oh1,
+                 [&](int, const float dz[4], const float* xv) {
+#pragma unroll
+                   for (int k = 0; k < 4; ++k)
+                     if (w.c + k < W) {
+                       s.x += dz[k];
+                       s.y += dz[k] * ((xv[k] - pl.mean) * pl.rstd);
+                     }
+                 });
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     s.x += __shfl_xor_sync(FULL, s.x, off);
@@ -518,23 +610,26 @@ stem_bwd_stats_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
-template <bool VEC>
+template <bool VEC, class T>
 __global__ void __launch_bounds__(32 * STEM_WARPS)
-stem_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dy,
-                   const float* __restrict__ params, float* __restrict__ dx,
+stem_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                   const float* __restrict__ params, T* __restrict__ dx,
                    int H, int W, int OH, int OW, int strips, int segs,
                    int items) {
-  __shared__ __align__(16) float ring[STEM_WARPS][STEM_STAGES * STAGE];
+  __shared__ __align__(16) T ring[STEM_WARPS][STEM_STAGES * STAGE];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int it = blockIdx.x * STEM_WARPS + warp;
   if (it >= items) return;
   const Item w = item_of(it, OH, strips, segs, lane);
   const Lane L = lane_of<VEC>(lane, w.c, W, OW, true);
   const Plane pl = load_plane(params, w.plane);
-  const float *xs, *dys;
+  const T *xs, *dys;
   plane_ptrs<VEC>(x, dy, w, H, W, OH, OW, xs, dys);
-  dx_walk<VEC>(xs, dys, dx + (size_t)w.plane * H * W, ring[warp], L, pl, H, W,
-               OH, OW, w.oh0, w.oh1);
+  T* dxp = dx + (size_t)w.plane * H * W;
+  dz_walk<VEC>(xs, dys, ring[warp], L, pl, H, W, OH, OW, w.oh0, w.oh1,
+               [&](int h, const float dz[4], const float* xv) {
+                 store_dx<VEC>(dxp, pl, h, W, L.c, dz, xv);
+               });
 }
 
 // The launch shape shared by both kernels: STRIP window rows a warp item,
@@ -545,7 +640,7 @@ struct Shape {
 };
 
 Shape shape_of(const void* x, const void* dy, const void* out_rows, int M,
-               int C, int H, int W) {
+               int C, int H, int W, int elem) {
   Shape s{};
   s.ok = M >= 1 && C >= 1 && H >= 1 && W >= 1 &&
          (long long)M * C <= 65535 && (long long)H * W < (1LL << 31);
@@ -558,12 +653,47 @@ Shape shape_of(const void* x, const void* dy, const void* out_rows, int M,
   s.ok = items < (1LL << 31) - STEM_WARPS;
   s.items = (int)items;
   s.grid = (s.items + STEM_WARPS - 1) / STEM_WARPS;
-  // 16-byte rows: W % 4 == 0 (so OW is even) and every plane aligned
+  // whole rows of four columns: W % 4 == 0 (so OW is even) and every plane
+  // aligned (16 bytes of fp32 x, 8 of bf16)
   const uintptr_t bits = reinterpret_cast<uintptr_t>(x) |
                          reinterpret_cast<uintptr_t>(out_rows);
-  s.vec = W % 4 == 0 && bits % 16 == 0 &&
-          reinterpret_cast<uintptr_t>(dy) % 8 == 0;
+  s.vec = W % 4 == 0 && bits % (4 * elem) == 0 &&
+          reinterpret_cast<uintptr_t>(dy) % (2 * elem) == 0;
   return s;
+}
+
+template <class T>
+int stats_launch(const T* x, const T* dy, const float* params, float* partial,
+                 float* acc, int M, int C, int H, int W, void* stream) {
+  const Shape s = shape_of(x, dy, x, M, C, H, W, sizeof(T));
+  if (!s.ok || (sizeof(T) == 2 && !s.vec)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto kernel = stem_bwd_stats_kernel<true, T>;
+  if constexpr (std::is_same_v<T, float>) {
+    if (!s.vec) kernel = stem_bwd_stats_kernel<false, T>;
+  }
+  kernel<<<s.grid, 32 * STEM_WARPS, 0, st>>>(x, dy, params, partial, H, W,
+                                             s.OH, s.OW, s.strips, s.segs,
+                                             s.items);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  stem_bwd_stats_reduce_kernel<<<M * C, 128, 0, st>>>(partial, params, acc, C,
+                                                      s.strips * s.segs);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int dx_launch(const T* x, const T* dy, const float* params, T* dx, int M,
+              int C, int H, int W, void* stream) {
+  const Shape s = shape_of(x, dy, dx, M, C, H, W, sizeof(T));
+  if (!s.ok || (sizeof(T) == 2 && !s.vec)) return (int)cudaErrorInvalidValue;
+  auto kernel = stem_bwd_dx_kernel<true, T>;
+  if constexpr (std::is_same_v<T, float>) {
+    if (!s.vec) kernel = stem_bwd_dx_kernel<false, T>;
+  }
+  kernel<<<s.grid, 32 * STEM_WARPS, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, dy, params, dx, H, W, s.OH, s.OW, s.strips, s.segs, s.items);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -578,18 +708,7 @@ extern "C" int stem_bwd_stats_f32(const float* x, const float* dy,
                                   const float* params, float* partial,
                                   float* acc, int M, int C, int H, int W,
                                   void* stream) {
-  const Shape s = shape_of(x, dy, x, M, C, H, W);
-  if (!s.ok) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto kernel = s.vec ? stem_bwd_stats_kernel<true> : stem_bwd_stats_kernel<false>;
-  kernel<<<s.grid, 32 * STEM_WARPS, 0, st>>>(x, dy, params, partial, H, W,
-                                             s.OH, s.OW, s.strips, s.segs,
-                                             s.items);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  stem_bwd_stats_reduce_kernel<<<M * C, 128, 0, st>>>(partial, params, acc, C,
-                                                      s.strips * s.segs);
-  return (int)cudaGetLastError();
+  return stats_launch(x, dy, params, partial, acc, M, C, H, W, stream);
 }
 
 // As stem_bwd_stats_f32, with c1, c2 filled in; dx (M, C, H, W) fp32,
@@ -597,10 +716,24 @@ extern "C" int stem_bwd_stats_f32(const float* x, const float* dy,
 extern "C" int stem_bwd_dx_f32(const float* x, const float* dy,
                                const float* params, float* dx, int M, int C,
                                int H, int W, void* stream) {
-  const Shape s = shape_of(x, dy, dx, M, C, H, W);
-  if (!s.ok) return (int)cudaErrorInvalidValue;
-  auto kernel = s.vec ? stem_bwd_dx_kernel<true> : stem_bwd_dx_kernel<false>;
-  kernel<<<s.grid, 32 * STEM_WARPS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, dy, params, dx, H, W, s.OH, s.OW, s.strips, s.segs, s.items);
-  return (int)cudaGetLastError();
+  return dx_launch(x, dy, params, dx, M, C, H, W, stream);
+}
+
+// The bf16 variants: x, dy and dx bf16, params, partial and acc fp32; W a
+// multiple of 4 and planes 8-byte aligned (cudaErrorInvalidValue
+// otherwise). z is rounded to bf16 before the ReLU and every comparison, dz
+// where JAX rounds it, the sums and dx are fp32 and dx is rounded once.
+extern "C" int stem_bwd_stats_bf16(const void* x, const void* dy,
+                                   const float* params, float* partial,
+                                   float* acc, int M, int C, int H, int W,
+                                   void* stream) {
+  return stats_launch(static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
+                      params, partial, acc, M, C, H, W, stream);
+}
+
+extern "C" int stem_bwd_dx_bf16(const void* x, const void* dy,
+                                const float* params, void* dx, int M, int C,
+                                int H, int W, void* stream) {
+  return dx_launch(static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
+                   params, static_cast<bf16*>(dx), M, C, H, W, stream);
 }

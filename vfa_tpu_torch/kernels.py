@@ -32,6 +32,7 @@ SIGNATURES = {
     },
     "rig_window_bwd": {
         "rig_window_bwd_f32": [P] * 9 + [I] * 13 + [P],
+        "rig_window_bwd_bf16": [P] * 9 + [I] * 13 + [P],
     },
     "rig_flat_fwd": {
         "rig_flat_fwd_f32": [P] * 6 + [I] * 11 + [P],
@@ -39,10 +40,13 @@ SIGNATURES = {
     },
     "rig_flat_bwd": {
         "rig_flat_bwd_f32": [P] * 9 + [I] * 11 + [P],
+        "rig_flat_bwd_bf16": [P] * 9 + [I] * 11 + [P],
     },
     "stem_bwd": {
         "stem_bwd_stats_f32": [P] * 5 + [I] * 4 + [P],
         "stem_bwd_dx_f32": [P] * 4 + [I] * 4 + [P],
+        "stem_bwd_stats_bf16": [P] * 5 + [I] * 4 + [P],
+        "stem_bwd_dx_bf16": [P] * 4 + [I] * 4 + [P],
     },
 }
 
@@ -117,6 +121,14 @@ class KernelLibrary:
 
 
 LIBRARY = KernelLibrary()
+
+
+class LaunchCount:
+    """The launch count of a kernel variant that has no wrapper of its own
+    (the bf16 variants launch through the fp32 kernels' wrappers)."""
+
+    def __init__(self):
+        self.launches = 0
 
 
 def launch(name: str, fn: str, device, *args) -> None:

@@ -63,19 +63,30 @@ class BatchNorm2dBiased(nn.BatchNorm2d):
     variance, as flax `nn.BatchNorm` does (`nn.BatchNorm2d` uses the
     unbiased one), so a train step leaves the same running statistics as
     the JAX model. flax momentum 0.9 is `momentum=0.1` here. Same
-    parameters and buffers as `nn.BatchNorm2d`. In eval mode on bf16
-    inputs (and bf16 statistics, `cast_model`) it normalizes op by op in
-    bf16, as flax's `_normalize` does: (x - mean) * (rsqrt(var + eps) *
-    scale) + bias, each op rounded; `F.batch_norm` would round once."""
+    parameters and buffers as `nn.BatchNorm2d`.
+
+    On bf16 inputs it rounds as flax does, with the running statistics
+    cast to bf16 at use (a no-op after `cast_model`; fp32 buffers under
+    mixed precision, `train_lib`): in eval mode it normalizes op by op in
+    bf16, as flax's `_normalize` does, (x - mean) * (rsqrt(var + eps) *
+    scale) + bias, each op rounded (`F.batch_norm` would round once); in
+    training mode it takes flax's fp32 batch statistics (E[x^2] - E[x]^2,
+    clipped at 0), normalizes in fp32 and rounds once, and writes back, in
+    the buffers' dtype, flax's update on the bf16 statistics:
+    bf16(bf16(0.9) * stat) + 0.1 * batch_stat, the first product in bf16
+    (the Python scalar takes the array's dtype), the sum in fp32."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             if x.dtype == torch.bfloat16:
                 shape = (1, -1, 1, 1)
-                mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-                return ((x - self.running_mean.view(shape)) * mul.view(shape)
-                        + self.bias.view(shape))
+                mean, var = (t.to(x.dtype).view(shape)
+                             for t in (self.running_mean, self.running_var))
+                mul = torch.rsqrt(var + self.eps) * self.weight.view(shape)
+                return (x - mean) * mul + self.bias.view(shape)
             return super().forward(x)
+        if x.dtype == torch.bfloat16:
+            return self._train_bf16(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
             self.running_mean.lerp_(mean, self.momentum)
@@ -83,6 +94,22 @@ class BatchNorm2dBiased(nn.BatchNorm2d):
             self.num_batches_tracked += 1
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _train_bf16(self, x: torch.Tensor) -> torch.Tensor:
+        # flax casts x to fp32 once for the statistics and once for the
+        # normalisation; autograd rounds each cast's cotangent to bf16
+        xs = x.float()
+        mean = xs.mean((0, 2, 3))
+        var = torch.clamp((xs * xs).mean((0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            keep = torch.tensor(1.0 - self.momentum, dtype=x.dtype)
+            for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
+                buf.copy_((keep * buf.to(x.dtype)).float() + self.momentum * stat)
+            self.num_batches_tracked += 1
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (x.float() - mean.view(shape)) * mul.view(shape) + self.bias.float().view(shape)
+        return y.to(x.dtype)
 
 
 class VFANet(nn.Module):
@@ -140,7 +167,10 @@ class VFANet(nn.Module):
         """images (B, N, H, W, 3) in [0, 1] -> the three lateral maps
         relu(GN(1x1 conv)) of the pyramid, each (B*N, 256, fh, fw)."""
         B, N = images.shape[:2]
-        x = (images.reshape(B * N, *images.shape[2:]) - self.img_mean) / self.img_std
+        # the constants in the image dtype, as JAX makes them
+        # (`vfa_tpu/model/vfanet.py:151-152`)
+        mean, std = (t.to(images.dtype) for t in (self.img_mean, self.img_std))
+        x = (images.reshape(B * N, *images.shape[2:]) - mean) / std
         feats = self.base(x.permute(0, 3, 1, 2))
         return [torch.relu(bn(lat(f))) for f, lat, bn in zip(
             feats, (self.lat8, self.lat16, self.lat32),

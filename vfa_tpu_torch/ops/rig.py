@@ -820,10 +820,17 @@ def _tiles_fwd(ii, A_b, pix, Kr, tile_v):
 
 
 def _tiles_bwd(ii, A_b, pix, Kr, g_b, tile_v, dII):
-    """(dII, dKr) of `_tiles_fwd`, written out (no autograd), both fp32:
-    dII, shaped as ii, is the given accumulator with this bucket's bands
-    added (a new zero-filled one if None), dKr (nl, C, n_out) is this
-    bucket's contribution."""
+    """(dII, dKr) of `_tiles_fwd`, written out (no autograd). vox, dvox,
+    the window gradients A^T @ dvox and dKr (nl, C, n_out), this bucket's
+    contribution, are fp32 whatever ii's dtype: on bf16 inputs the products
+    of bf16 values are exact in fp32, and JAX's backward kernels keep vox
+    and dvox unrounded (`vfa_tpu/ops/rig_pallas.py:311-336, 477-502`).
+    dII, shaped as ii and in ii's dtype, is the given accumulator with this
+    bucket's bands added (a new zero-filled one if None). fp32: one
+    `index_add_`. bf16: the accumulator rounds as JAX's does, once per
+    (tile, scene) window add, tile by tile in the order of JAX's grid
+    (camera and scene slices of dII are disjoint, so only the tile order
+    matters)."""
     N, B, C = ii.shape[0], ii.shape[1], ii.shape[-1]
     T, R, K = A_b.shape[1:]
     nl, _, n_out = Kr.shape
@@ -834,6 +841,19 @@ def _tiles_bwd(ii, A_b, pix, Kr, g_b, tile_v, dII):
     dband = torch.matmul(A_b.float().transpose(-1, -2),
                          dvox.reshape(N, T, R, B * C))
     pixels = ii[0, 0].numel() // C
+    if ii.dtype == torch.bfloat16:
+        if dII is None:
+            dII = torch.zeros_like(ii)
+        acc = dII.reshape(N, B, pixels, C).permute(0, 2, 1, 3).reshape(
+            N * pixels, B * C)
+        for t in range(T):
+            rows = pix[:, t].reshape(-1)
+            cur = acc.index_select(0, rows).float() + dband[:, t].reshape(
+                N * K, B * C)
+            acc.index_copy_(0, rows, cur.to(torch.bfloat16))
+        dII.copy_(acc.reshape(N, pixels, B, C).permute(0, 2, 1, 3)
+                  .reshape(ii.shape))
+        return dII, dKr
     dflat = torch.zeros((N * pixels, B * C), dtype=torch.float32,
                         device=ii.device)
     dflat.index_add_(0, pix.reshape(-1), dband.reshape(N * T * K, B * C))
@@ -862,10 +882,11 @@ def window_tiles_bwd(ii: torch.Tensor, A_b: torch.Tensor,
     """Plain PyTorch version of the window backward kernel for one bucket.
 
     Inputs as `window_tiles`, plus g_b (N, B, T*tile_v, n_out), the
-    cotangent of the bucket's tiles. Returns (dII, dKr), both fp32: dII
-    (N, B, Hp, Wp, C) is the given accumulator with this bucket's windows
-    added (a new zero-filled one if None), dKr (nl, C, n_out) is this
-    bucket's contribution."""
+    cotangent of the bucket's tiles. Returns (dII, dKr): dII
+    (N, B, Hp, Wp, C), in ii's dtype, is the given accumulator with this
+    bucket's windows added (a new zero-filled one if None), dKr
+    (nl, C, n_out), fp32, is this bucket's contribution (`_tiles_bwd` says
+    where bf16 inputs round)."""
     N, B, Hp, Wp, C = ii.shape
     pix = _window_pixels(starts_b, N, A_b.shape[1], Hp, Wp, window)
     return _tiles_bwd(ii, A_b, pix, Kr, g_b, tile_v, dII)

@@ -20,8 +20,10 @@ PyTorch is `ops/rig.matmul_3xtf32`). The two forwards also have bf16
 variants (`rig_window_fwd_bf16`, `rig_flat_fwd_bf16` in the same sources,
 on the bf16 tile of `csrc/rig_bf16.cuh`), taken when every floating input
 is bfloat16: vox and the tiles are rounded to bf16 where JAX's kernels
-round them. The backwards take float32 only (bf16 training, ROADMAP.md
-Queue 1 item 9).
+round them. So do the two backwards (`rig_window_bwd_bf16`,
+`rig_flat_bwd_bf16`, the passes of `csrc/rig_bf16_bwd.cuh`): vox,
+dvox and dKr stay fp32, and the bf16 dII accumulator rounds once per
+window add, as `ops/rig._tiles_bwd` says.
 
 On a CPU tensor a wrapper runs its kernel's plain version
 (`ops/rig.window_tiles`, `window_tiles_bwd`, `flat_tiles`,
@@ -33,6 +35,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from vfa_tpu_torch.kernels import LaunchCount
 from vfa_tpu_torch.ops.rig import (
     ScaleRig, collapse_per_layer, flat_tiles, flat_tiles_bwd, rig_epilogue,
     scale_features, window_tiles, window_tiles_bwd,
@@ -40,10 +43,10 @@ from vfa_tpu_torch.ops.rig import (
 
 
 def _check_launch(what, ii, tensors, shapes_ok, C, n_out, K, describe,
-                  k_multiple=16, bf16_ok=False):
+                  k_multiple=16):
     """Shared argument checks of the kernels' wrappers: one device,
-    contiguous, one floating dtype for every tensor but the int32 starts
-    (float32, or bfloat16 where `bf16_ok`: the forwards have bf16 variants),
+    contiguous, one floating dtype, float32 or bfloat16, for every tensor
+    but the int32 starts and the float32 dKr accumulator of a backward,
     consistent shapes, and the widths the kernels are written for: C =
     n_out = 256 (the width of the tensor-core CTA tile that every pass runs
     on) and a band length K that is a multiple of 16 for a window, of 8 for
@@ -59,19 +62,18 @@ def _check_launch(what, ii, tensors, shapes_ok, C, n_out, K, describe,
     if tensors["starts"].dtype != torch.int32:
         raise TypeError(f"{what}: starts must be int32, got "
                         f"{tensors['starts'].dtype}")
-    dtypes = {n: t.dtype for n, t in tensors.items() if n != "starts"}
+    if "dKr" in tensors and tensors["dKr"].dtype != torch.float32:
+        raise TypeError(f"{what}: the dKr accumulator must be float32, got "
+                        f"{tensors['dKr'].dtype}")
+    dtypes = {n: t.dtype for n, t in tensors.items()
+              if n not in ("starts", "dKr")}
     got = ", ".join(f"{n} {str(d).split('.')[-1]}" for n, d in dtypes.items())
-    if torch.bfloat16 in dtypes.values() and not bf16_ok:
-        raise TypeError(f"{what}: every tensor but starts must be float32 (the "
-                        "bf16 backward kernels come with bf16 training, "
-                        f"ROADMAP.md Queue 1 item 9), got {got}")
     dtype = ii.dtype
     if set(dtypes.values()) != {dtype} or dtype not in (torch.float32,
                                                         torch.bfloat16):
         raise TypeError(
-            f"{what}: every tensor but starts must be float32"
-            f"{' or bfloat16' if bf16_ok else ''}, all of one dtype (no "
-            f"mixing), got {got}")
+            f"{what}: every tensor but starts (and dKr) must be float32 or "
+            f"bfloat16, all of one dtype (no mixing), got {got}")
     if not shapes_ok:
         raise ValueError(f"{what}: inconsistent shapes {describe}")
     if C != 256 or n_out != 256 or K % k_multiple:
@@ -87,9 +89,10 @@ DKR_MAX_SPLITS = 16
 
 def _bwd_scratch(ii, T, R, nl, n_out):
     """Scratch of one backward launch: vox (the recomputed A product, then
-    dvox written over it) and the dKr pass's workspace (one partial dKr per
-    depth chunk, added into dKr in a fixed order by the pass's second
-    stage)."""
+    dvox written over it; fp32, or for the bf16 kernels the same bytes as
+    two bf16 planes, the hi and lo parts of each fp32 value) and the dKr
+    pass's workspace (one partial dKr per depth chunk, added into dKr in a
+    fixed order by the pass's second stage)."""
     N, B, C = ii.shape[0], ii.shape[1], ii.shape[-1]
     vox = torch.empty((N, B, T, R, C), dtype=torch.float32, device=ii.device)
     ws = torch.empty((DKR_MAX_SPLITS, nl, C, n_out), dtype=torch.float32,
@@ -105,18 +108,12 @@ def _launch(name, ii, *args):
     launch(name, f"{name}_{suffix}", ii.device, *args)
 
 
-class LaunchCount:
-    """The launch count of a kernel variant that has no wrapper of its own:
-    the bf16 forwards launch through `rig_window_fwd` / `rig_flat_fwd`,
-    which count fp32 launches in their own `.launches` and bf16 launches
-    here."""
-
-    def __init__(self):
-        self.launches = 0
-
-
+# the bf16 variants launch through the fp32 kernels' wrappers, which count
+# fp32 launches in their own `.launches` and bf16 launches here
 rig_window_fwd_bf16 = LaunchCount()
 rig_flat_fwd_bf16 = LaunchCount()
+rig_window_bwd_bf16 = LaunchCount()
+rig_flat_bwd_bf16 = LaunchCount()
 
 
 def rig_window_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
@@ -150,8 +147,7 @@ def rig_window_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
         C, n_out, K,
         f"ii {tuple(ii.shape)}, A {tuple(A_b.shape)}, starts "
         f"{tuple(starts_b.shape)}, Kr {tuple(Kr.shape)}, out "
-        f"{tuple(out.shape)}, off_t {off_t}, tile_v {tile_v}, window {window}",
-        bf16_ok=True)
+        f"{tuple(out.shape)}, off_t {off_t}, tile_v {tile_v}, window {window}")
     # vox scratch between the kernel's two passes (A-product, collapse)
     vox = torch.empty((N, B, T, R, C), dtype=dtype, device=ii.device)
     _launch("rig_window_fwd", ii, ii.data_ptr(), A_b.data_ptr(),
@@ -172,10 +168,13 @@ def rig_window_bwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
 
     ii, A_b, starts_b, Kr as `rig_window_fwd`; g (N, B, rows, n_out) is the
     cotangent of the whole tiles buffer (the bucket reads its rows at
-    off_t); dII (N, B, Hp, Wp, C) and dKr (nl, C, n_out) are fp32
-    accumulators that are added to in place. KrT is Kr with its last two
-    axes swapped, contiguous (made here if not given). Returns (dII, dKr).
-    `rig_window_bwd.launches` counts kernel launches."""
+    off_t); dII (N, B, Hp, Wp, C) and dKr (nl, C, n_out) are accumulators
+    that are added to in place, dII in ii's dtype, dKr float32. ii, A_b,
+    Kr, KrT, g and dII are all float32 or all bfloat16 (the bf16 variant,
+    with the rounding points of `ops/rig._tiles_bwd`). KrT is Kr with its
+    last two axes swapped, contiguous (made here if not given). Returns
+    (dII, dKr). `rig_window_bwd.launches` counts fp32 kernel launches,
+    `rig_window_bwd_bf16.launches` bf16 ones."""
     N, B, Hp, Wp, C = ii.shape
     T, R, K = A_b.shape[1:]
     nl, _, n_out = Kr.shape
@@ -192,7 +191,7 @@ def rig_window_bwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
         KrT = Kr.transpose(1, 2).contiguous()
     tensors = {"ii": ii, "A": A_b, "starts": starts_b, "Kr": Kr, "KrT": KrT,
                "g": g, "dII": dII, "dKr": dKr}
-    _check_launch(
+    dtype = _check_launch(
         "rig_window_bwd", ii, tensors,
         A_b.shape[0] == N and R == nl * tile_v and K == wh * ww
         and tuple(starts_b.shape) == (N, T, 2)
@@ -206,12 +205,13 @@ def rig_window_bwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
         f"{tuple(starts_b.shape)}, Kr {tuple(Kr.shape)}, g {tuple(g.shape)}, "
         f"dII {tuple(dII.shape)}, dKr {tuple(dKr.shape)}, off_t {off_t}, "
         f"tile_v {tile_v}, window {window}")
+    _check_bf16_tile_v("rig_window_bwd", dtype, tile_v)
     vox, ws = _bwd_scratch(ii, T, R, nl, n_out)
     _launch("rig_window_bwd", ii, ii.data_ptr(), A_b.data_ptr(),
             starts_b.data_ptr(), KrT.data_ptr(), g.data_ptr(), vox.data_ptr(),
             ws.data_ptr(), dII.data_ptr(), dKr.data_ptr(), N, B, Hp, Wp, C, T,
             nl, tile_v, wh, ww, n_out, off_t, rows)
-    rig_window_bwd.launches += 1
+    (rig_window_bwd_bf16 if dtype == torch.bfloat16 else rig_window_bwd).launches += 1
     return dII, dKr
 
 
@@ -248,8 +248,7 @@ def rig_flat_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
         C, n_out, band,
         f"ii {tuple(ii.shape)}, A {tuple(A_b.shape)}, starts "
         f"{tuple(starts_b.shape)}, Kr {tuple(Kr.shape)}, out "
-        f"{tuple(out.shape)}, off_t {off_t}, tile_v {tile_v}", k_multiple=8,
-        bf16_ok=True)
+        f"{tuple(out.shape)}, off_t {off_t}, tile_v {tile_v}", k_multiple=8)
     vox = torch.empty((N, B, T, R, C), dtype=dtype, device=ii.device)
     _launch("rig_flat_fwd", ii, ii.data_ptr(), A_b.data_ptr(),
             starts_b.data_ptr(), Kr.data_ptr(), vox.data_ptr(), out.data_ptr(),
@@ -267,8 +266,8 @@ def rig_flat_bwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
                  KrT: torch.Tensor = None):
     """Add one flat bucket's gradients into the scale's accumulators: as
     `rig_window_bwd`, with ii and dII (N, B, P + max_band, C) (dII's last
-    max_band rows are padding). `rig_flat_bwd.launches` counts kernel
-    launches."""
+    max_band rows are padding). `rig_flat_bwd.launches` counts fp32 kernel
+    launches, `rig_flat_bwd_bf16.launches` bf16 ones."""
     N, B, pixels, C = ii.shape
     T, R, band = A_b.shape[1:]
     nl, _, n_out = Kr.shape
@@ -283,7 +282,7 @@ def rig_flat_bwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
         KrT = Kr.transpose(1, 2).contiguous()
     tensors = {"ii": ii, "A": A_b, "starts": starts_b, "Kr": Kr, "KrT": KrT,
                "g": g, "dII": dII, "dKr": dKr}
-    _check_launch(
+    dtype = _check_launch(
         "rig_flat_bwd", ii, tensors,
         A_b.shape[0] == N and R == nl * tile_v
         and tuple(starts_b.shape) == (N, T)
@@ -297,16 +296,26 @@ def rig_flat_bwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
         f"{tuple(starts_b.shape)}, Kr {tuple(Kr.shape)}, g {tuple(g.shape)}, "
         f"dII {tuple(dII.shape)}, dKr {tuple(dKr.shape)}, off_t {off_t}, "
         f"tile_v {tile_v}", k_multiple=8)
+    _check_bf16_tile_v("rig_flat_bwd", dtype, tile_v)
     vox, ws = _bwd_scratch(ii, T, R, nl, n_out)
     _launch("rig_flat_bwd", ii, ii.data_ptr(), A_b.data_ptr(),
             starts_b.data_ptr(), KrT.data_ptr(), g.data_ptr(), vox.data_ptr(),
             ws.data_ptr(), dII.data_ptr(), dKr.data_ptr(), N, B, pixels, C, T,
             nl, tile_v, band, n_out, off_t, rows)
-    rig_flat_bwd.launches += 1
+    (rig_flat_bwd_bf16 if dtype == torch.bfloat16 else rig_flat_bwd).launches += 1
     return dII, dKr
 
 
 rig_flat_bwd.launches = 0
+
+
+def _check_bf16_tile_v(what, dtype, tile_v):
+    """The bf16 backward keeps vox channel-major, a tile's tile_v cells
+    in 16-byte rows: tile_v must be a multiple of 8 (JAX's bf16 tile_v 160
+    and 64 are)."""
+    if dtype == torch.bfloat16 and tile_v % 8:
+        raise ValueError(f"{what}: the bf16 kernel takes a tile_v that is a "
+                         f"multiple of 8, got {tile_v}")
 
 
 def _buckets(rig: ScaleRig):
@@ -319,9 +328,11 @@ def _buckets(rig: ScaleRig):
 
 def rig_scale_bwd(ii: torch.Tensor, rig: ScaleRig, Kr: torch.Tensor,
                   g: torch.Tensor):
-    """(dII, dKr) of one scale's tiles: one zero-filled dII threaded through
-    every bucket's launch, dKr summed over buckets, both fp32."""
-    dII = torch.zeros(ii.shape, dtype=torch.float32, device=ii.device)
+    """(dII, dKr) of one scale's tiles, as `_make_scale_op`'s VJP
+    (`vfa_tpu/ops/rig_pallas.py:846-867`) returns them: one zero-filled dII
+    in ii's dtype threaded through every bucket's launch, dKr summed over
+    buckets in fp32 and returned in Kr's dtype."""
+    dII = torch.zeros_like(ii)
     dKr = torch.zeros(Kr.shape, dtype=torch.float32, device=ii.device)
     KrT = Kr.transpose(1, 2).contiguous()
     g = g.contiguous()
@@ -332,7 +343,7 @@ def rig_scale_bwd(ii: torch.Tensor, rig: ScaleRig, Kr: torch.Tensor,
         else:
             rig_window_bwd(ii, A_b, s_b, Kr, g, dII, dKr, off_t=off_t,
                            tile_v=rig.tile_v, window=win, KrT=KrT)
-    return dII, dKr
+    return dII, dKr.to(Kr.dtype)
 
 
 class RigScaleTiles(torch.autograd.Function):
@@ -363,12 +374,8 @@ class RigScaleTiles(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         ii, Kr = ctx.saved_tensors
-        if ii.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "the rig backward in bfloat16 is not ported yet: it comes "
-                "with bf16 training (ROADMAP.md Queue 1 item 9)")
         dII, dKr = rig_scale_bwd(ii, ctx.rig, Kr, g)
-        return dII.to(ii.dtype), dKr.to(Kr.dtype), None
+        return dII, dKr, None
 
 
 def rig_tiles_cuda(lat: torch.Tensor, rig: ScaleRig,

@@ -25,7 +25,11 @@ them, but there the same expression yields the same bits; a second
 reduction in another order does not, and a group mean that is 0 in one and
 1e-9 in the other flips every x == 0 pixel of the group), and the kernels
 evaluate z = a*x + b, a = rstd*scale, b = -a*mean + bias with the roundings
-of `native_group_norm`'s CUDA kernel.
+of `native_group_norm`'s CUDA kernel. On bf16 (x, dy and dx bf16, the
+statistics, the sums and the arithmetic fp32: the bf16 instances of the
+JAX kernels) z is rounded to bf16 as the forward stored it, before the ReLU
+and every comparison, and a pixel's gradient rounds where JAX's
+`_recompute_dz` rounds it (`_dz_plain`).
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. `gn_relu_pool_bwd_plain` is autograd of the
@@ -38,6 +42,8 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from vfa_tpu_torch.kernels import LaunchCount
+
 
 def _chain(x, scale, bias, num_groups, eps):
     """The unfused stem tail, op for op."""
@@ -47,10 +53,20 @@ def _chain(x, scale, bias, num_groups, eps):
 
 def group_norm_stats(x, scale, bias, num_groups: int, eps: float):
     """(group_norm(x), mean, rstd) as `F.group_norm` computes them (it
-    dispatches to the same `native_group_norm`); mean, rstd are (M, G)."""
+    dispatches to the same `native_group_norm`); mean, rstd are (M, G), the
+    statistics z was normalised with. On a CUDA tensor those are the ones
+    the call returns (in x's dtype: the kernel rounds them before use); on
+    a bf16 CPU tensor the kernel normalises with fp32 statistics and
+    returns them rounded, so the fp32 ones are taken here
+    (`tools/probe_gn_stats.py` shows both)."""
     M, C, H, W = x.shape
-    return torch.native_group_norm(x.contiguous(), scale, bias, M, C, H * W,
-                                   num_groups, eps)
+    z, mu, rstd = torch.native_group_norm(x.contiguous(), scale, bias, M, C,
+                                          H * W, num_groups, eps)
+    if x.device.type == "cpu" and x.dtype != torch.float32:
+        _, mu, rstd = torch.native_group_norm(
+            x.float().contiguous(), scale.float(), bias.float(), M, C, H * W,
+            num_groups, eps)
+    return z, mu, rstd
 
 
 def plane_params(mu, rstd, scale, bias, c1=None, c2=None) -> torch.Tensor:
@@ -74,17 +90,51 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def _dz_plain(x, dy, params):
-    """Cotangent of z = a*x + b through relu and the pool, by autograd of
-    those two ops alone; z rounded as the kernels (and the forward's
-    GroupNorm on the card) round it."""
+def recompute_z(x, params) -> torch.Tensor:
+    """z = a*x + b in x's dtype, a = rstd*scale, b = -a*mean + bias, rounded
+    as the kernels (and `native_group_norm`'s CUDA kernel on bf16) round it:
+    a one product, b and z one fused multiply-add each, then to x's dtype."""
     p = lambda i: params[:, :, i, None, None]
     a = p(1) * p(2)
-    z = _fma(a, x.float(), _fma(-a, p(0), p(3))).requires_grad_()
-    with torch.enable_grad():
-        y = F.max_pool2d(torch.relu(z), 3, 2, 1)
-        (dz,) = torch.autograd.grad(y, z, dy.float())
-    return dz
+    return _fma(a, x.float(), _fma(-a, p(0), p(3))).to(x.dtype)
+
+
+def _dz_plain(x, dy, params):
+    """Cotangent of z = a*x + b through relu and the pool, fp32: z rounded
+    as the kernels (and the forward's GroupNorm on the card) round it, then
+    to x's dtype, as the forward stored it; each pool window's dy goes to its
+    first maximum in row-major order, if that passes the ReLU (found, as JAX
+    does, as the first maximum along W, then along H). A pixel's gradient
+    sums the windows that chose it as JAX's `_recompute_dz` does, rounded to
+    x's dtype where it rounds `da` on bf16: first the two window rows that
+    meet on an odd row (per window column), then the two window columns that
+    meet on an odd column."""
+    rnd = lambda t: t.to(x.dtype).float()
+    act = torch.relu(recompute_z(x, params).float())
+    H, W = x.shape[-2:]
+    OH, OW = dy.shape[-2:]
+    # window (l, q) covers rows 2l .. 2l+2 and columns 2q .. 2q+2 of `ap`
+    ap = F.pad(act, (1, 2 * OW - W, 1, 2 * OH - H), value=float("-inf"))
+
+    def first_max(v0, v1, v2):
+        m = torch.maximum(torch.maximum(v0, v1), v2)
+        return m, torch.where(v0 >= m, 0, torch.where(v1 >= m, 1, 2))
+
+    pw, col = first_max(ap[..., 0:2 * OW:2], ap[..., 1:2 * OW:2],
+                        ap[..., 2::2])                    # (.., 2OH+1, OW)
+    mx, row = first_max(pw[..., 0:2 * OH:2, :], pw[..., 1:2 * OH:2, :],
+                        pw[..., 2::2, :])                 # (.., OH, OW)
+    g = torch.where(mx > 0, dy.float(), 0.0)
+    pick = lambda sel, v, i: torch.where(sel == i, v, 0.0)
+    dpw = torch.zeros_like(pw)
+    dpw[..., 1::2, :] = pick(row, g, 1)
+    dpw[..., 0::2, :] = rnd(F.pad(pick(row, g, 0), (0, 0, 0, 1))
+                            + F.pad(pick(row, g, 2), (0, 0, 1, 0)))
+    da = torch.zeros_like(ap)
+    da[..., 1::2] = pick(col, dpw, 1)
+    da[..., 0::2] = rnd(F.pad(pick(col, dpw, 0), (0, 1))
+                        + F.pad(pick(col, dpw, 2), (1, 0)))
+    return da[..., 1:H + 1, 1:W + 1]
 
 
 def _xhat(x, params):
@@ -101,25 +151,32 @@ def stem_bwd_stats_plain(x, dy, params) -> torch.Tensor:
 
 
 def stem_bwd_dx_plain(x, dy, params) -> torch.Tensor:
-    """Plain PyTorch version of `stem_bwd_dx`: dx (M, C, H, W) fp32."""
+    """Plain PyTorch version of `stem_bwd_dx`: dx (M, C, H, W), computed in
+    fp32 and rounded once to x's dtype."""
     dz = _dz_plain(x, dy, params)
     p = lambda i: params[:, :, i, None, None]
-    return p(1) * (dz * p(2) - p(4) - _xhat(x, params) * p(5))
+    return (p(1) * (dz * p(2) - p(4) - _xhat(x, params) * p(5))).to(x.dtype)
 
 
 def _check_launch(what, x, dy, params):
+    """One device, contiguous, the shapes of one stem tail; x and dy both
+    float32 or both bfloat16 (then W a multiple of 4), params float32."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     M, C, H, W = x.shape
-    want = {"x": (x, (M, C, H, W)),
-            "dy": (dy, (M, C, (H - 1) // 2 + 1, (W - 1) // 2 + 1)),
-            "params": (params, (M, C, 8))}
-    for name, (t, shape) in want.items():
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: x must be float32 or bfloat16, got {x.dtype}")
+    if x.dtype == torch.bfloat16 and W % 4:
+        raise ValueError(f"{what}: the bf16 kernels take a width that is a "
+                         f"multiple of 4, got {W}")
+    want = {"x": (x, (M, C, H, W), x.dtype),
+            "dy": (dy, (M, C, (H - 1) // 2 + 1, (W - 1) // 2 + 1), x.dtype),
+            "params": (params, (M, C, 8), torch.float32)}
+    for name, (t, shape, dtype) in want.items():
         if t.device != x.device:
             raise ValueError(f"{what}: {name} on {t.device}, x on {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: {name} must be float32 (the bf16 variants "
-                            f"come with bf16 training, ROADMAP.md Queue 1 item 9), "
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: {name} must be {dtype} (x is {x.dtype}), "
                             f"got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
@@ -137,9 +194,11 @@ STRIP = 5
 
 
 def _launch(fn, x, dy, params, *outs):
+    """Launch the variant of kernel `fn` for x's dtype."""
     from vfa_tpu_torch.kernels import launch
 
-    launch("stem_bwd", fn, x.device, x.data_ptr(), dy.data_ptr(),
+    suffix = "bf16" if x.dtype == torch.bfloat16 else "f32"
+    launch("stem_bwd", f"{fn}_{suffix}", x.device, x.data_ptr(), dy.data_ptr(),
            params.data_ptr(), *(t.data_ptr() for t in outs), *x.shape)
 
 
@@ -148,8 +207,10 @@ def stem_bwd_stats(x: torch.Tensor, dy: torch.Tensor,
     """Pass 1 of the backward: acc (M, 4, C) fp32 with, per (image,
     channel), sum dz*scale, sum dz*scale*xhat, sum dz*xhat, sum dz.
 
-    x (M, C, H, W), dy (M, C, ceil(H/2), ceil(W/2)), params from
-    `plane_params` (c1, c2 are not read). `stem_bwd_stats.launches` counts kernel launches."""
+    x (M, C, H, W), dy (M, C, ceil(H/2), ceil(W/2)), both float32 or both
+    bfloat16, params from `plane_params` (c1, c2 are not read).
+    `stem_bwd_stats.launches` counts fp32 kernel launches,
+    `stem_bwd_stats_bf16.launches` bf16 ones."""
     if x.device.type == "cpu":
         return stem_bwd_stats_plain(x, dy, params)
     _check_launch("stem_bwd_stats", x, dy, params)
@@ -159,8 +220,8 @@ def stem_bwd_stats(x: torch.Tensor, dy: torch.Tensor,
     partial = torch.empty((M * C, items, 2),
                           dtype=torch.float32, device=x.device)
     acc = torch.empty((M, 4, C), dtype=torch.float32, device=x.device)
-    _launch("stem_bwd_stats_f32", x, dy, params, partial, acc)
-    stem_bwd_stats.launches += 1
+    _launch("stem_bwd_stats", x, dy, params, partial, acc)
+    (stem_bwd_stats_bf16 if x.dtype == torch.bfloat16 else stem_bwd_stats).launches += 1
     return acc
 
 
@@ -169,19 +230,22 @@ stem_bwd_stats.launches = 0
 
 def stem_bwd_dx(x: torch.Tensor, dy: torch.Tensor,
                 params: torch.Tensor) -> torch.Tensor:
-    """Pass 2 of the backward: dx = rstd * (dz*scale - c1 - xhat*c2), fp32,
-    with c1, c2 in `params`. `stem_bwd_dx.launches` counts kernel
-    launches."""
+    """Pass 2 of the backward: dx = rstd * (dz*scale - c1 - xhat*c2),
+    computed in fp32 and written in x's dtype, with c1, c2 in `params`.
+    `stem_bwd_dx.launches` counts fp32 kernel launches,
+    `stem_bwd_dx_bf16.launches` bf16 ones."""
     if x.device.type == "cpu":
         return stem_bwd_dx_plain(x, dy, params)
     _check_launch("stem_bwd_dx", x, dy, params)
-    dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    _launch("stem_bwd_dx_f32", x, dy, params, dx)
-    stem_bwd_dx.launches += 1
+    dx = torch.empty_like(x)
+    _launch("stem_bwd_dx", x, dy, params, dx)
+    (stem_bwd_dx_bf16 if x.dtype == torch.bfloat16 else stem_bwd_dx).launches += 1
     return dx
 
 
 stem_bwd_dx.launches = 0
+stem_bwd_stats_bf16 = LaunchCount()
+stem_bwd_dx_bf16 = LaunchCount()
 
 
 def gn_relu_pool_bwd(x, scale, bias, dy, mu, rstd):
@@ -197,7 +261,7 @@ def gn_relu_pool_bwd(x, scale, bias, dy, mu, rstd):
     c1 = acc[:, 0].reshape(M, G, gs).sum(2) / n
     c2 = acc[:, 1].reshape(M, G, gs).sum(2) / n
     dx = stem_bwd_dx(x, dy, plane_params(mu, rstd, scale, bias, c1, c2))
-    return (dx.to(x.dtype), acc[:, 2].sum(0).to(scale.dtype),
+    return (dx, acc[:, 2].sum(0).to(scale.dtype),
             acc[:, 3].sum(0).to(bias.dtype))
 
 

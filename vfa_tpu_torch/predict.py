@@ -71,7 +71,7 @@ def main(argv=None, rig=None) -> dict:
     if args.no_rig and args.dtype == "bfloat16":
         raise NotImplementedError(
             "--no_rig --dtype bfloat16 is not ported yet (ROADMAP.md Queue 1 "
-            "item 9, the voxel route in bf16)")
+            "item 17, the voxel route in bf16)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available")

@@ -1,13 +1,15 @@
 """Where one training step of the PyTorch/CUDA port spends its time.
 
-Runs the full-width MultiviewC fp32 train step of `vfa_tpu_torch.train_lib`
+Runs the full-width MultiviewC train step of `vfa_tpu_torch.train_lib`
 (7 x 720x1280 cameras, 8-bucket rig of the given layout, batch 2, random
-seeded weights, TF32 off as in chip_smoke.py) on one GPU, warms up, then
+seeded weights, TF32 off as in chip_smoke.py; fp32, or with `--dtype
+bfloat16` mixed precision on a bf16 rig and bf16 images) on one GPU, warms up, then
 traces two steps with torch.profiler and prints the device time by kernel,
 the device busy share of the traced wall time, the host wall time per step
 and the card's name and power limit.
 
     python -m vfa_tpu_torch.prof_train
+    python -m vfa_tpu_torch.prof_train --dtype bfloat16
     VFA_FUSED_STEM=1 python -m vfa_tpu_torch.prof_train --rig_layout flat
 """
 
@@ -29,6 +31,8 @@ def main(argv=None):
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_rig_layout_arg(parser)
+    parser.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                        help="training compute dtype (bfloat16: mixed precision)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -48,16 +52,18 @@ def main(argv=None):
     cfg = get_config("MultiviewC")
     loader = SyntheticSceneLoader(cfg, num_frames=BATCH, batch_size=BATCH, seed=0)
     batch = next(iter(loader))
+    image_dtype = getattr(torch, args.dtype)
     rig = build_cli_rig(cfg, loader.scenes[0].calibs, dev, training=True,
-                        layout=args.rig_layout)
+                        layout=args.rig_layout, dtype=getattr(torch, args.dtype))
     model = init_weights(VFANet(cfg), torch.Generator().manual_seed(0)).to(dev)
     # a small peak lr: the trace repeats one batch and must not diverge
-    tcfg = TrainConfig(epochs=40, batch_size=BATCH, lr=0.002, pretrained=False)
+    tcfg = TrainConfig(epochs=40, batch_size=BATCH, lr=0.002, pretrained=False,
+                       compute_dtype=args.dtype)
     step = make_train_step(model, make_optimizer(model, tcfg, 1), cfg, tcfg,
                            dim_mean=loader.dim_mean)
 
     def one_step():
-        loss = step(batch_to_device(batch, dev), rig)["loss"]
+        loss = step(batch_to_device(batch, dev, image_dtype), rig)["loss"]
         torch.cuda.synchronize()
         return float(loss)
 
@@ -78,7 +84,7 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {card.splitlines()[0]}")
-    print(f"rig layout {args.rig_layout}, fused stem "
+    print(f"rig layout {args.rig_layout}, dtype {args.dtype}, fused stem "
           f"{'on' if model.base.fused_stem_on() else 'off'}")
     print(f"last loss {loss:.5f}; host wall ms per step (batch {BATCH}): "
           + " ".join(f"{w:.2f}" for w in walls))

@@ -2,16 +2,20 @@
 
 Builds the compiled camera rig once on the host, or loads it from the rig
 cache (window layout by default, `--rig_layout flat` for the flat one; 8
-buckets, fp32), trains VFANet with SGD + OneCycle through the hand-written
+buckets, in the compute dtype), trains VFANet with SGD + OneCycle through the hand-written
 rig kernels of that layout (forward and backward; `--no_rig`: through the
 reference voxel route instead), runs the validation loss after each epoch, and
 reports the time per step. With VFA_FUSED_STEM=1 in the environment (as
 in the JAX package) the stem's GroupNorm + ReLU + max-pool run through
 `ops.stem.gn_relu_pool` and its hand-written backward kernels.
+`--dtype bfloat16` trains in mixed precision, as the JAX CLI does: fp32
+master parameters and momentum, bf16 compute (`train_lib`), bf16 images,
+a bf16 rig and the bf16 variants of the kernels.
 
     python -m vfa_tpu_torch.train --data MultiviewC --synthetic -e 1 -b 2 --pretrained 0 --no_augment
     VFA_FUSED_STEM=1 python -m vfa_tpu_torch.train --data MultiviewC --synthetic -e 1 -b 2 --pretrained 0 --no_augment --rig_layout flat
     python -m vfa_tpu_torch.train --data MultiviewC --synthetic --tiny -e 1 --pretrained 0 --no_augment --device cpu
+    python -m vfa_tpu_torch.train --data MultiviewC --synthetic --tiny -e 1 --pretrained 0 --no_augment --device cpu --dtype bfloat16
 """
 
 from __future__ import annotations
@@ -47,7 +51,8 @@ def parse_args(argv=None):
                         "ported yet; 0 disables)")
     p.add_argument("--dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="training compute dtype (bfloat16 is not ported yet)")
+                   help="training compute dtype (bfloat16: mixed precision, "
+                        "fp32 master parameters)")
     p.add_argument("--fix_scheduler", action="store_true",
                    help="step OneCycle per iteration instead of replicating "
                         "the reference's per-epoch quirk")
@@ -90,8 +95,9 @@ def _refuse_unported(args) -> None:
          "is not ported yet; pass --pretrained 0 (ROADMAP.md Queue 1 item 10)"),
         (not args.no_augment, "the ColorJitter augmentation is not ported "
          "yet; pass --no_augment (ROADMAP.md Queue 1 item 11)"),
-        (args.dtype != "float32", "--dtype bfloat16 is not ported yet "
-         "(ROADMAP.md Queue 1 item 9, bf16)"),
+        (args.dtype == "bfloat16" and args.no_rig, "--no_rig --dtype "
+         "bfloat16 (the reference voxel route in bf16) is not ported yet "
+         "(ROADMAP.md Queue 1 item 17)"),
         (args.resume is not None, "--resume and checkpoints are not ported "
          "yet (ROADMAP.md Queue 1 item 10)"),
         (bool(args.vis_iter), "training figures (--vis_iter) are not ported "
@@ -153,7 +159,8 @@ def main(argv=None, rig=None) -> dict:
     elif rig is None:
         rig = build_cli_rig(cfg, train_loader.scenes[0].calibs, device,
                             buckets=args.rig_buckets, training=True,
-                            layout=args.rig_layout, cache_dir=RIG_CACHE_DIR)
+                            layout=args.rig_layout, cache_dir=RIG_CACHE_DIR,
+                            dtype=getattr(torch, args.dtype))
 
     gen = torch.Generator().manual_seed(args.seed)
     model = init_weights(
@@ -162,10 +169,15 @@ def main(argv=None, rig=None) -> dict:
     print(f"training from random weights (seed {args.seed}), "
           f"rig_impl {args.rig_impl}, fused stem "
           f"{'on' if model.base.fused_stem_on() else 'off'}")
+    image_dtype = None
+    if args.dtype == "bfloat16":
+        image_dtype = torch.bfloat16
+        print("mixed precision: bfloat16 compute, float32 master params")
     optimizer = make_optimizer(model, tcfg, steps_per_epoch)
     train_step = make_train_step(model, optimizer, cfg, tcfg,
                                  dim_mean=train_loader.dim_mean)
-    eval_step = make_eval_step(model, cfg, dim_mean=train_loader.dim_mean)
+    eval_step = make_eval_step(model, cfg, dim_mean=train_loader.dim_mean,
+                               compute_dtype=args.dtype)
 
     def sync():
         if device.type == "cuda":
@@ -176,7 +188,7 @@ def main(argv=None, rig=None) -> dict:
         epoch_loss = MetricDict()
         for i, batch in enumerate(train_loader):
             t0 = time.perf_counter()
-            loss_dict = train_step(batch_to_device(batch, device), rig)
+            loss_dict = train_step(batch_to_device(batch, device, image_dtype), rig)
             loss_dict = {k: float(v) for k, v in loss_dict.items()}
             sync()
             step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -189,7 +201,7 @@ def main(argv=None, rig=None) -> dict:
                       flush=True)
         val_loss = MetricDict()
         for batch in val_loader:
-            loss_dict, _ = eval_step(batch_to_device(batch, device), rig)
+            loss_dict, _ = eval_step(batch_to_device(batch, device, image_dtype), rig)
             val_loss += {k: float(v) for k, v in loss_dict.items()}
         val_losses.append(val_loss.mean)
         lr = current_lr(tcfg, steps_per_epoch, optimizer.count - 1)

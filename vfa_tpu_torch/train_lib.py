@@ -10,7 +10,13 @@ False steps per iteration as the configuration implies.
 
 The steps are plain functions over an `nn.Module`, an optimizer and a dict
 batch of tensors on the model's device. Losses are computed in fp32.
-bf16 compute (fp32 master parameters, bf16 at use) is not ported yet.
+`compute_dtype` 'bfloat16' is mixed precision, as
+`vfa_tpu/train_lib.py:241-335`: the parameters and the SGD momentum stay
+fp32 masters in the model and the optimizer, and each step casts the
+parameters to bf16 at use, differentiably (`torch.func.functional_call`),
+so their gradients arrive in fp32; the BatchNorms cast their fp32 running
+statistics at use and write the update back in fp32
+(`model/vfanet.py::BatchNorm2dBiased`); the images go in as bf16.
 """
 
 from __future__ import annotations
@@ -115,11 +121,19 @@ def make_optimizer(model: nn.Module, tcfg: TrainConfig,
     return ScheduledSGD(model.parameters(), tcfg, steps_per_epoch)
 
 
-def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
+def batch_to_device(batch: Dict, device, image_dtype=None) -> Dict[str, torch.Tensor]:
     """A loader's numpy batch as tensors on `device` (python-object and
-    bookkeeping entries dropped)."""
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()
-            if k not in ("objects", "index", "frame")}
+    bookkeeping entries dropped), the images cast to `image_dtype` on the
+    host first when it is given (bf16 halves the copy)."""
+    out = {}
+    for k, v in batch.items():
+        if k in ("objects", "index", "frame"):
+            continue
+        t = torch.as_tensor(v)
+        if k == "images" and image_dtype is not None:
+            t = t.to(image_dtype)
+        out[k] = t.to(device)
+    return out
 
 
 def encode_targets(batch: Dict[str, torch.Tensor], cfg: DatasetConfig,
@@ -150,6 +164,28 @@ def _angle_range(model: nn.Module) -> int:
     return model.orient_pred[0].out_channels if model.cfg.mode == "3D" else 360
 
 
+def _compute_dtype(name: str) -> torch.dtype:
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', got {name!r}")
+    return getattr(torch, name)
+
+
+def _forward(model: nn.Module, dtype: torch.dtype, batch, rig):
+    """The model on the batch, its parameters and images cast to `dtype`
+    at use (a no-op cast in fp32); the cast is differentiable, so the fp32
+    masters receive the gradients. The voxel route (rig=None) takes fp32
+    only."""
+    args = (batch["images"].to(dtype), rig, batch.get("calibs"), batch.get("grid"))
+    if dtype == torch.float32:
+        return model(*args)
+    if rig is None:
+        raise NotImplementedError(
+            "the reference voxel route (rig=None) in bfloat16 is not ported "
+            "yet (ROADMAP.md Queue 1 item 17)")
+    params = {name: p.to(dtype) for name, p in model.named_parameters()}
+    return torch.func.functional_call(model, params, args)
+
+
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     cfg: DatasetConfig, tcfg: TrainConfig, dim_mean=None):
     """Returns step(batch, rig) -> loss_dict (detached scalars on the
@@ -158,17 +194,15 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
 
     batch: images (B, N, H, W, 3), heatmap (B, L, W), location (B, M, 3),
     valid (B, M), in 3D mode dimension (B, M, 3), rotation (B, M), and for
-    the voxel route calibs (B, N, 3, 4), grid (L, W, 3)."""
-    if tcfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {tcfg.compute_dtype!r}: bf16 training (fp32 "
-            "master parameters, bf16 variants of the window kernels) is not "
-            "ported yet; see ROADMAP.md Queue 1 item 9 (bf16)")
+    the voxel route calibs (B, N, 3, 4), grid (L, W, 3). With
+    `tcfg.compute_dtype` 'bfloat16' the step is mixed precision (module
+    docstring) and the rig must be a bf16 one."""
+    dtype = _compute_dtype(tcfg.compute_dtype)
     angle_range = _angle_range(model)
 
     def train_step(batch: Dict[str, torch.Tensor], rig) -> Dict[str, torch.Tensor]:
         model.train()
-        pred = model(batch["images"], rig, batch.get("calibs"), batch.get("grid"))
+        pred = _forward(model, dtype, batch, rig)
         # the rotation loss is evaluated at the object cells, so the dense
         # (B, L, W, angle) CSL target is never built
         rotation_cells = None
@@ -191,15 +225,19 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     return train_step
 
 
-def make_eval_step(model: nn.Module, cfg: DatasetConfig, dim_mean=None):
+def make_eval_step(model: nn.Module, cfg: DatasetConfig, dim_mean=None,
+                   compute_dtype: str = "float32"):
     """Returns step(batch, rig) -> (loss_dict, pred): the loss under running
-    BatchNorm statistics with dense rotation targets, no update."""
+    BatchNorm statistics with dense rotation targets, no update.
+    compute_dtype 'bfloat16' casts the parameters, the running statistics
+    and the images at use, as the mixed-precision train step does."""
+    dtype = _compute_dtype(compute_dtype)
     angle_range = _angle_range(model)
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor], rig):
         model.eval()
-        pred = model(batch["images"], rig, batch.get("calibs"), batch.get("grid"))
+        pred = _forward(model, dtype, batch, rig)
         pred = {k: v.float() for k, v in pred.items()}
         gt = encode_targets(batch, cfg, dim_mean, angle_range)
         if cfg.mode == "3D":
