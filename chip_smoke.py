@@ -6,7 +6,8 @@ Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
   1. build every hand-written kernel from csrc/ with nvcc (one process per
      source, all started together) and print ptxas' registers and spills
-     per kernel (fails if a tensor-core pass `rig_*_mma` spills);
+     per kernel (fails if a tensor-core pass, `rig_*_mma` or a pass
+     `rig_ws*` of csrc/rig_ws.cuh, spills);
   2. hold each kernel against its plain PyTorch version at B = 1 and B = 2
      on the full MultiviewC fp32 rigs (7 x 720x1280 cameras, 156x156 BEV,
      nl 5), all 3 scales, every bucket (the forwards bucket by bucket): the
@@ -16,7 +17,8 @@ result line):
      8-bucket flat rig (tile_v 160) and on a small 16-tap rig (cumsum'd
      features); all rig kernels run 3xTF32 on the tensor cores; and the two
      stem backward kernels at (14, 64, 360, 640), also on an integer-valued
-     input where ties decide (stem_bwd_stats twice: the same bits);
+     input where ties decide (stem_bwd_stats twice: the same bits), and
+     their recomputed fp32 z equal to the forward's on every element (F3);
   3. drive the serving path, `python -m vfa_tpu_torch.predict` at full
      width with random seeded weights, once per rig layout, with every
      kernel's launch count set to 0 just before and read just after; then
@@ -41,17 +43,20 @@ result line):
      batch 2. Their rigs are built on the host by processes started at
      the beginning (into a temporary rig cache, loaded from it here);
   5b. bf16 serving, the root bench's default dtype, through the bf16
-     variants of the two forward kernels (`rig_window_fwd_bf16`,
-     `rig_flat_fwd_bf16`, csrc/rig_bf16.cuh): each held against its plain
-     version (max abs err within 1e-2 of the plain max, rel-L2 4e-3) on every
-     bucket of the full bf16 MultiviewC window rig (12-bucket policy, tile_v
-     160, R = 800) and of the flat rig cast to bf16, at B = 1, 2, and of the
-     bf16 MultiviewX (B = 1, 2, 8: the vox scratch past 2^31 elements) and
-     Wildtrack rigs; the serving CLI with `--dtype bfloat16` on both layouts
-     (one bf16 launch per bucket per request, no fp32 rig kernel; heatmap
-     rel-L2 1e-2 against the plain route, the detections' overlap printed);
-     the bench with `--dtype bfloat16`, auto batch, on all three datasets.
-     The three bf16 window rigs are built by one more host process;
+     variants of the two forward kernels (`rig_window_fwd_bf16`, one launch
+     per scale over all its buckets on the warp-specialised TMA + wgmma tile
+     of csrc/rig_ws.cuh; `rig_flat_fwd_bf16`, per bucket, csrc/rig_bf16.cuh):
+     each held against its plain version (max abs err within 1e-2 of the
+     plain max, rel-L2 4e-3) on every bucket of the full bf16 MultiviewC
+     window rig (12-bucket policy, tile_v 160, R = 800) and of the flat rig
+     cast to bf16, at B = 1, 2, and of the bf16 MultiviewX (B = 1, 2, 8: the
+     vox scratch past 2^31 elements) and Wildtrack rigs; the serving CLI
+     with `--dtype bfloat16` on both layouts (one bf16 window launch per
+     scale, one flat launch per bucket, per request, no fp32 rig kernel;
+     heatmap rel-L2 1e-2 against the plain route, the detections' overlap
+     printed); the bench with `--dtype bfloat16`, auto batch, on all three
+     datasets. The three bf16 window rigs are built by one more host
+     process;
   5c. bf16 training (mixed precision, `--dtype bfloat16`) through the bf16
      variants of the backward kernels (`rig_window_bwd_bf16`,
      `rig_flat_bwd_bf16`, csrc/rig_bf16_bwd.cuh; `stem_bwd_stats_bf16`,
@@ -60,12 +65,17 @@ result line):
      rig backward against its plain version at B = 1, 2 on the flat rig
      cast to bf16 and on the 8-bucket bf16 MultiviewC window rig, K2-bf16
      at B = 2 on the 8-bucket bf16 MultiviewX rig (nl 8): dKr within 1e-2
-     of the plain max and rel-L2 4e-3, dII (a bf16 accumulator, one
-     rounding per window add in the atomics' order) no further from the
-     fp32 sums than the plain version's; the training CLI for one step at
+     of the plain max and rel-L2 4e-3; the window kernel's dII (a bf16
+     accumulator, rounded where JAX rounds it, per window or, on the
+     buckets JAX runs serially, per layer, in a fixed order) within the
+     same bounds and with the same bits on a second run, the flat kernel's
+     dII (in the atomics' order) no further from the fp32 sums than the
+     plain version's; each bucket's rounding of the bf16 training rig
+     printed ("pipelined" or "serial", B = 1, 2, 8); the training CLI for one step at
      batch 2 on the flat layout with the fused stem, then on the window
      layout, counts set to 0 before and read after (one bf16 backward
-     launch per bucket, no fp32 kernel), against the plain route (losses
+     launch per bucket, the window forward one a scale, no fp32 kernel),
+     against the plain route (losses
      rel 1e-2, update rel-L2 2e-2); the bench `--dtype bfloat16 --train
      --batch 0` on MultiviewC. Those two rigs come from a fourth host
      process;
@@ -76,7 +86,9 @@ result line):
      backwards also alone at B = 1; the stem kernels, fp32 and bf16, with
      their GB/s and share of the byte bound, and the fused stem backward
      beside autograd of the unfused chain), split each forward's device time between its two passes
-     (torch.profiler), and print peak memory, the card's name and power
+     (torch.profiler; K1-bf16's two and K2-bf16's five at B = 2 and 1, with
+     the wall clock and host gap, by tools/prof_bf16_window.py in a process
+     of its own), and print peak memory, the card's name and power
      limit, the `kernels` JSON line and, last, the `ok` JSON line.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -226,7 +238,7 @@ def phase_build():
         for kernel, regs, spill in ptxas_kernels(LIBRARY.ptxas_log.get(name, "")):
             log(f"  ptxas[{name}]: {kernel}: {regs} registers, {spill} bytes "
                 "spilled")
-            if spill and re.match(r"rig_\w+_mma", kernel):
+            if spill and re.match(r"rig_(\w+_mma|ws\w+)", kernel):
                 raise AssertionError(f"{kernel} spills {spill} bytes")
     log(f"phase 1 build: {names} in {time.perf_counter() - t0:.1f} s")
 
@@ -322,6 +334,14 @@ def is_bf16(rig) -> bool:
     return rig.scales[0].A[0].dtype == torch.bfloat16
 
 
+def fwd_launches(rig) -> int:
+    """Forward launches per request: the bf16 window forward runs once per
+    scale over all its buckets, the others once per bucket."""
+    if is_bf16(rig) and layout_of(rig) == "window":
+        return len(rig.scales)
+    return sum(len(s.A) for s in rig.scales)
+
+
 def fwd_name(rig) -> str:
     """The forward kernel a rig's launches go to: its layout's, the bf16
     variant for a bf16 rig."""
@@ -398,6 +418,7 @@ def phase_kernel_vs_plain(rig, device, batches=(1, 2)):
     bucket's rows of the scale's tiles held to the tolerance of its own
     plain result's max (a bf16 rig: the bf16 kernel, BF16_MAX and BF16_L2);
     one line per scale with its worst bucket."""
+    from vfa_tpu_torch.bench import launch_vox_elems
     from vfa_tpu_torch.ops.rig_cuda import rig_tiles_cuda
 
     name = fwd_name(rig)
@@ -421,7 +442,7 @@ def phase_kernel_vs_plain(rig, device, batches=(1, 2)):
                 per_bucket.append(check(f"{tag} bucket {bi}", got[:, :, rows],
                                         want[:, :, rows], quiet=True))
                 off = rows.stop
-                vox_max = max(vox_max, A_b[:, :, :, 0].numel() * B * 256)
+            vox_max = max(vox_max, launch_vox_elems(sr, B))
             err, rel = worst_of(per_bucket)
             log(f"  {tag}: worst bucket max abs err {err:.3e}, max rel err "
                 f"{rel:.3e} (tolerance {tol})")
@@ -498,8 +519,11 @@ def check_bf16_sum(what, got, plain, exact):
 def phase_bwd_kernel_vs_plain(rig, device, batches=(1, 2)):
     """The backward kernel against its plain version, all buckets of each
     scale through one dII. fp32: dII and dKr within KERNEL_TOL. bf16: dKr
-    by check_bf16, dII by check_bf16_sum against the plain backward in
-    fp32 on the same (bf16) values."""
+    by check_bf16; dII of the window kernel, which adds in the plain
+    version's order at its rounding points, by check_bf16 too and with the
+    same bits on a second run; dII of the flat kernel, which adds in the
+    atomics' order, by check_bf16_sum against the plain backward in fp32
+    on the same (bf16) values."""
     from vfa_tpu_torch.ops.rig_cuda import rig_scale_bwd
 
     name = bwd_name(rig)
@@ -511,7 +535,16 @@ def phase_bwd_kernel_vs_plain(rig, device, batches=(1, 2)):
             torch.cuda.synchronize()
             want = plain_scale_bwd(ii, sr, Kr, g)
             tag = f"{name} B={B} scale {si} ({len(sr.A)} buckets)"
-            if is_bf16(rig):
+            if is_bf16(rig) and sr.window_hw:
+                errs.append(check_bf16(f"{tag} dII", got[0], want[0]))
+                errs.append(check_bf16(f"{tag} dKr", got[1], want[1]))
+                again = rig_scale_bwd(ii, sr, Kr, g)[0]
+                torch.cuda.synchronize()
+                if not torch.equal(again, got[0]):
+                    raise AssertionError(f"{tag}: two runs gave different dII bits")
+                log(f"  {tag} dII: a second run gives the same bits")
+                del again
+            elif is_bf16(rig):
                 sr32 = dataclasses.replace(sr, A=tuple(a.float() for a in sr.A))
                 exact, _ = plain_scale_bwd(ii.float(), sr32, Kr.float(), g.float())
                 errs.append(check_bf16_sum(f"{tag} dII", got[0], want[0], exact))
@@ -546,7 +579,9 @@ def stem_inputs(device, integers: bool, shape=STEM_SHAPE, dtype=torch.float32):
 def phase_stem_vs_plain(device):
     """K6 and K7 against their plain versions on the same parameters, the
     whole backward against autograd of the unfused chain, and the identical
-    zero pattern of dx on the integer-valued input."""
+    zero pattern of dx on the integer-valued input; on the random input the
+    kernels' recomputed z (`recompute_z`) equals the z of the forward's
+    GroupNorm on every element (F3)."""
     from vfa_tpu_torch.ops import stem
 
     errs = {"stem_bwd_stats": [], "stem_bwd_dx": []}
@@ -554,6 +589,15 @@ def phase_stem_vs_plain(device):
         x, scale, bias, dy, mu, rstd = stem_inputs(device, integers)
         tag = f"{tuple(x.shape)}{' integer-valued' if integers else ''}"
         params = stem.plane_params(mu, rstd, scale, bias)
+        if not integers:
+            z = stem.group_norm_stats(x, scale, bias, 16, 1e-5)[0]
+            differ = int((stem.recompute_z(x, params) != z).sum())
+            log(f"  stem recomputed z vs the forward's {tag}: {differ} of "
+                f"{z.numel()} elements differ")
+            if differ:
+                raise AssertionError("the stem kernels' recomputed z differs "
+                                     "from the forward's GroupNorm (F3)")
+            del z
         acc = stem.stem_bwd_stats(x, dy, params)
         torch.cuda.synchronize()
         errs["stem_bwd_stats"].append(check_close(
@@ -640,8 +684,9 @@ def phase_train_path_bf16(rig, rig32, device, fused_stem: bool):
     """bf16 training (`--dtype bfloat16`, mixed precision) on a bf16 rig:
     one step at batch 2 through the bf16 kernels of the rig's layout (and,
     with `fused_stem`, the bf16 stem kernels), counts set to 0 just before
-    and read just after: one bf16 forward and one bf16 backward launch per
-    bucket, the stem's once each, no fp32 kernel; then the same step
+    and read just after: bf16 forward launches (`fwd_launches` a pass) and
+    one bf16 backward launch per bucket, the stem's once each, no fp32
+    kernel; then the same step
     through the plain versions under autograd (unfused stem), and through
     the fp32 kernels on `rig32` (the same rig in fp32), the yardstick of
     bf16 rounding's own effect. Losses within BF16_LOSS_TOL; the update of
@@ -667,7 +712,7 @@ def phase_train_path_bf16(rig, rig32, device, fused_stem: bool):
     log(f"training path ({tag}) launches: {launches} (1 step, {buckets} "
         "buckets over the 3 scales, then the validation forward)")
     stem_n = 1 if fused_stem else 0
-    if len(res["losses"]) != 1 or launches[fwd] <= buckets:
+    if len(res["losses"]) != 1 or launches[fwd] <= fwd_launches(rig):
         raise AssertionError(f"the bf16 training path never launched {fwd}")
     want = {fwd: None, bwd: buckets, "stem_bwd_stats_bf16": stem_n,
             "stem_bwd_dx_bf16": stem_n}
@@ -820,8 +865,10 @@ def phase_train_path(rig, device, fused_stem: bool):
 
 def phase_main_path(rig, device, scenes: int):
     """The serving CLI at full width on `rig` (a bf16 rig: `--dtype
-    bfloat16`), counts set to 0 just before and read just after: one launch
-    of the rig's forward kernel per bucket per request and no other kernel;
+    bfloat16`), counts set to 0 just before and read just after:
+    `fwd_launches` launches of the rig's forward kernel per request (one a
+    scale for the bf16 window kernel, one a bucket otherwise) and no other
+    kernel;
     then the same requests through the plain rig version. fp32: heatmaps
     within PATH_TOL, detections equal; bf16: heatmap rel-L2 within
     BF16_PATH_L2, the detections' overlap printed."""
@@ -841,11 +888,12 @@ def phase_main_path(rig, device, scenes: int):
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     buckets = sum(len(s.A) for s in rig.scales)
+    per = fwd_launches(rig)
     log(f"serving path ({tag}) launches: {launches} ({len(res['ms'])} requests, "
-        f"{buckets} buckets over the 3 scales)")
-    if launches[fwd] != buckets * len(res["ms"]):
+        f"{buckets} buckets over the 3 scales, {per} launches a request)")
+    if launches[fwd] != per * len(res["ms"]):
         raise AssertionError(f"the serving path launched {fwd} {launches[fwd]} "
-                             f"times, expected one per bucket per request")
+                             f"times, expected {per} per request")
     if any(n for name, n in launches.items() if name != fwd):
         raise AssertionError("the serving path launched another kernel")
     ref = predict.main(argv + ["--rig_impl", "plain"], rig=rig)
@@ -1071,19 +1119,25 @@ def phase_numbers(rig, device, backward: bool, rounds: int = 2, batch: int = BAT
     return (ms, plain_ms, *bound_ms(*kernel_work(rig, batch, backward), peak))
 
 
+def fwd_passes(rig):
+    if not is_bf16(rig):
+        return ("rig_vox_mma", "rig_collapse_mma")
+    if layout_of(rig) == "window":
+        return ("rig_wsvox", "rig_wscollapse")
+    return ("rig_bfvox_mma", "rig_bfcollapse_mma")
+
+
 def phase_pass_shares(rig, device, batch: int = BATCH):
-    """Device time of the forward kernel's two passes, pass 1 `rig_vox_mma`
-    (the A product) and pass 2 `rig_collapse_mma` (bf16: `rig_bfvox_mma`,
-    `rig_bfcollapse_mma`), over one batch-`batch` forward of the rig's three
-    scales, from a torch.profiler capture after a warm-up; logged as ms and
-    as shares of the two passes' sum."""
+    """Device time of the forward kernel's two passes (`fwd_passes`) over
+    one batch-`batch` forward of the rig's three scales, from a
+    torch.profiler capture after a warm-up; logged as ms and as shares of
+    the two passes' sum."""
     from torch.profiler import ProfilerActivity, profile
 
     from vfa_tpu_torch.ops.rig_cuda import rig_tiles_cuda
 
     name = fwd_name(rig)
-    passes = (("rig_bfvox_mma", "rig_bfcollapse_mma") if is_bf16(rig)
-              else ("rig_vox_mma", "rig_collapse_mma"))
+    passes = fwd_passes(rig)
     inputs = [scale_inputs(sr, batch, 7 + si, device) for si, sr in enumerate(rig.scales)]
 
     def forward():
@@ -1094,14 +1148,68 @@ def phase_pass_shares(rig, device, batch: int = BATCH):
     forward()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         forward()
-    ms = {p: sum(e.device_time_total for e in prof.key_averages() if p in e.key) / 1e3
+    events = prof.key_averages()
+    ms = {p: sum(e.device_time_total for e in events if p in e.key) / 1e3
           for p in passes}
     total = sum(ms.values())
     if not total > 0:
-        raise AssertionError(f"the profiler saw no device time of {name}'s passes")
+        top = sorted(events, key=lambda e: -e.device_time_total)[:8]
+        raise AssertionError(
+            f"the profiler saw no device time of {name}'s passes {passes}; "
+            "its largest: " + "; ".join(f"{e.key[:80]} {e.device_time_total}"
+                                       for e in top))
     log(f"{name} passes at B={batch} (torch.profiler, one forward over the 3 "
         "scales): " + ", ".join(f"{p} {t:.3f} ms ({t / total:.1%})" for p, t in ms.items()))
     return ms
+
+
+def phase_bf16_window_passes(rig_cache):
+    """Device time by pass, wall clock and host gap of K1-bf16 (one batch-2
+    forward, the 12-bucket bf16 rig) and K2-bf16 (one backward at batch 2
+    and at batch 1, the 8-bucket bf16 rig) over the 3 MultiviewC scales:
+    `tools/prof_bf16_window.py` in a process of its own on the rigs of the
+    run's cache (torch.profiler in this process stops seeing kernels after
+    a few captures). Returns its JSON."""
+    proc = subprocess.run(
+        [sys.executable, "tools/prof_bf16_window.py", "--b1", "--no_plain",
+         "--json", "--cache_dir", rig_cache], capture_output=True, text=True,
+        timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    if proc.returncode or not lines or not lines[-1].startswith("{"):
+        raise RuntimeError(f"tools/prof_bf16_window.py failed:\n{proc.stdout}"
+                           f"\n{proc.stderr[-3000:]}")
+    for ln in lines[:-1]:
+        log(f"  {ln}")
+    res = json.loads(lines[-1])
+    for key, r in res.items():
+        total = sum(r["passes_ms"].values())
+        if not total > 0:
+            raise AssertionError(f"{key}: the profiler saw no device time of the passes")
+        log(f"{'rig_window_fwd_bf16' if key == 'fwd' else 'rig_window_bwd_bf16'} "
+            f"{key} passes (torch.profiler): "
+            + ", ".join(f"{p} {t:.3f} ms ({t / total:.1%})"
+                        for p, t in r["passes_ms"].items())
+            + f"; device {r['device_ms']:.3f} ms, wall clock {r['wall_ms']:.3f} "
+            f"ms, host gap {r['wall_ms'] - r['device_ms']:.3f} ms")
+    return res
+
+
+def phase_bf16_rounding(rig):
+    """Each bucket of the bf16 window training rig with the rounding of
+    its bf16 dII at B = 1, 2, 8 (`ops/rig.window_bwd_serial`, JAX's choice
+    of kernel): "pipelined" (once per window) or "serial" (once per
+    layer)."""
+    from vfa_tpu_torch.ops.rig import window_bwd_serial
+
+    for si, sr in enumerate(rig.scales):
+        for bi, A_b in enumerate(sr.A):
+            T, R, K = A_b.shape[1:]
+            how = {B: "serial" if window_bwd_serial(B, K, R, A_b.element_size(),
+                                                    A_b.element_size(), 256)
+                   else "pipelined" for B in (1, 2, 8)}
+            log(f"  bf16 dII rounding, scale {si} bucket {bi} (T {T}, rows {R}, "
+                f"band {K} = {sr.window_hw[bi][0]}x{sr.window_hw[bi][1]}): "
+                + ", ".join(f"B={B} {h}" for B, h in how.items()))
 
 
 def phase_tf32_arithmetic(device):
@@ -1242,6 +1350,7 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
     del train16_res["model"]
     torch.cuda.empty_cache()
     num["rig_window_bwd_bf16"] = phase_numbers(mc16t, device, backward=True)
+    phase_bf16_rounding(mc16t)
     k3_16 = phase_numbers(mc16t, device, backward=True, batch=1)
     log(f"rig_window_bwd_bf16 at B=1 (replaces vfa_tpu/ops/rig_pallas.py:355 "
         f"on bf16): {k3_16[0]:.3f} ms, plain {k3_16[1]:.3f} ms, bound "
@@ -1326,7 +1435,8 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
     err["rig_window_fwd_bf16"] = phase_kernel_vs_plain(mc16, device)
     serve16_launches, serve16_res, serve16_peak = phase_main_path(mc16, device, scenes=6)
     num["rig_window_fwd_bf16"] = phase_numbers(mc16, device, backward=False)
-    phase_pass_shares(mc16, device)
+    torch.cuda.empty_cache()
+    passes16 = phase_bf16_window_passes(rig_cache)
     bench16 = {"MultiviewC": phase_bench(
         ["--data", "MultiviewC", "--dtype", "bfloat16", "--batch", "0", "--iters",
          "5", "--warmup", "1"], mc16, ["rig_window_fwd_bf16"])[0]}
@@ -1340,7 +1450,7 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
                 rig16, device, batches=(1, 2, 8) if data == "MultiviewX" else (1, 2))])
         torch.cuda.empty_cache()
         num16[data] = (phase_numbers(rig16, device, backward=False, rounds=1),
-                       sum(len(s.A) for s in rig16.scales))
+                       fwd_launches(rig16))
         bench16[data] = phase_bench(
             ["--data", data, "--dtype", "bfloat16", "--batch", "0", "--iters", "5",
              "--warmup", "1"], rig16, ["rig_window_fwd_bf16"])[0]
@@ -1388,6 +1498,14 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
         log(f"{name} MultiviewC at B={BATCH}: {n[0]:.3f} ms, plain {n[1]:.3f} ms, "
             f"bound {n[2]:.3f} ms by {n[3]} ({n[2] / n[0]:.1%} of the bound); "
             f"fp32 {name[:-5]} {num[name[:-5]][0]:.3f} ms")
+    for name, key in (("rig_window_fwd_bf16", "fwd"),
+                      ("rig_window_bwd_bf16", f"bwd_b{BATCH}"),
+                      ("rig_window_bwd_bf16", "bwd_b1")):
+        r = passes16[key]
+        log(f"{name} MultiviewC passes ({key}): "
+            + ", ".join(f"{p} {t:.3f} ms" for p, t in r["passes_ms"].items())
+            + f"; device {r['device_ms']:.3f} ms, wall clock {r['wall_ms']:.3f} "
+            f"ms, host gap {r['wall_ms'] - r['device_ms']:.3f} ms")
     n, buckets = mx16_num
     log(f"rig_window_bwd_bf16 MultiviewX at B={BATCH}: {n[0]:.3f} ms, plain "
         f"{n[1]:.3f} ms, bound {n[2]:.3f} ms by {n[3]} ({n[2] / n[0]:.1%} of the "
@@ -1396,10 +1514,10 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
                        ("flat + fused stem, bf16", flat16_train_res, flat16_train_peak)):
         log(f"ms for one bf16 training step ({tag}, batch {BATCH}): "
             f"{r['ms'][0]:.3f}; max_memory_allocated {pk} bytes")
-    for data, (n, buckets) in num16.items():
+    for data, (n, launches) in num16.items():
         log(f"rig_window_fwd_bf16 {data} at B={BATCH}: {n[0]:.3f} ms, plain "
             f"{n[1]:.3f} ms, bound {n[2]:.3f} ms by {n[3]} ({n[2] / n[0]:.1%} of "
-            f"the bound); {buckets} launches per request")
+            f"the bound); {launches} launches per request")
     for tag, r in (("MultiviewC serving, auto batch", bench_mc),
                    ("MultiviewX serving", bench_mx),
                    ("MultiviewX training", bench_mx_train),
@@ -1444,12 +1562,17 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
         entry("stem_bwd_dx", "stem_bwd", "vfa_tpu/ops/stem.py:253",
               flat_train_launches["stem_bwd_dx"]),
         entry("rig_window_fwd_bf16", "rig_window_fwd", "vfa_tpu/ops/rig_pallas.py:89",
-              serve16_launches["rig_window_fwd_bf16"], dtype="bfloat16"),
+              serve16_launches["rig_window_fwd_bf16"], dtype="bfloat16",
+              passes_ms=passes16["fwd"]["passes_ms"],
+              host_gap_ms=passes16["fwd"]["wall_ms"] - passes16["fwd"]["device_ms"]),
         entry("rig_flat_fwd_bf16", "rig_flat_fwd", "vfa_tpu/ops/rig_pallas.py:31",
               flat16_launches["rig_flat_fwd_bf16"], dtype="bfloat16"),
         entry("rig_window_bwd_bf16", "rig_window_bwd",
               "vfa_tpu/ops/rig_pallas.py:194,355",
-              train16_launches["rig_window_bwd_bf16"], dtype="bfloat16"),
+              train16_launches["rig_window_bwd_bf16"], dtype="bfloat16",
+              passes_ms=passes16[f"bwd_b{BATCH}"]["passes_ms"],
+              passes_ms_b1=passes16["bwd_b1"]["passes_ms"], ms_b1=k3_16[0],
+              plain_ms_b1=k3_16[1], bound_ms_b1=k3_16[2]),
         entry("rig_flat_bwd_bf16", "rig_flat_bwd", "vfa_tpu/ops/rig_pallas.py:434",
               flat16_train_launches["rig_flat_bwd_bf16"], dtype="bfloat16"),
         entry("stem_bwd_stats_bf16", "stem_bwd", "vfa_tpu/ops/stem.py:223",

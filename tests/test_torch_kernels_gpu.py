@@ -665,7 +665,8 @@ def test_bf16_fwd_kernels_match_plain(cuda, layout, name, tile_v, buckets, B):
     version in bf16, and the whole scale's output (epilogue and camera sum)
     against `rig_sample_scale`. R = nl*tile_v = 800 is no multiple of the
     64-row CTA tile; nl 8 gives a 2048-deep collapse chain; the flat rigs
-    hold bands with band % 16 == 8. Only the bf16 counts move."""
+    hold bands with band % 16 == 8. The window forward counts one launch a
+    scale, the flat one a bucket; only the bf16 counts move."""
     from vfa_tpu_torch.ops.rig_cuda import rig_flat_fwd_bf16, rig_window_fwd_bf16
 
     rig = _bf16_rig(name, tile_v, buckets, layout, cuda)
@@ -680,7 +681,8 @@ def test_bf16_fwd_kernels_match_plain(cuda, layout, name, tile_v, buckets, B):
         got = rig_tiles_cuda(lat, sr, k)
         torch.cuda.synchronize()
         assert got.dtype == torch.bfloat16
-        assert count.launches == n0 + len(sr.A)
+        # the window forward: one launch per scale over all its buckets
+        assert count.launches == n0 + (1 if layout == "window" else len(sr.A))
         assert (rig_window_fwd.launches, rig_flat_fwd.launches) == f32
         want = trig.scale_tiles(trig.scale_features(lat, sr), sr,
                                 trig.collapse_per_layer(k, 256, sr.nl, lat.dtype))
@@ -786,11 +788,15 @@ def _plain_scale_bwd(ii, sr, Kr, g, A=None):
 def test_bf16_bwd_kernels_match_plain(cuda, layout, name, tile_v, buckets, B):
     """The bf16 K2/K3 / K5 on every bucket of bf16 rigs (one bf16 dII
     threaded through them) against the plain version in bf16. Both keep vox
-    and dvox in fp32 and round dII once per window add; the kernel carries
-    the fp32 operand as hi + lo bf16 and adds overlapping windows in the
-    atomics' order: dKr (fp32 sums) within 1e-2 of the plain max and
-    rel-L2 4e-3, dII as `assert_bf16_sum_close`. Then the autograd
-    function's backward runs the kernels. Only the bf16 counts move."""
+    and dvox in fp32 and round dII at JAX's points (per window, or per
+    layer where JAX's window backward is serial: every bucket at B = 1);
+    the kernel carries the fp32 operand as hi + lo bf16. dKr (fp32 sums)
+    within 1e-2 of the plain max and rel-L2 4e-3. The window kernel adds
+    dII in the plain version's order (`ops/rig.window_dii_index`): dII
+    within the same bounds, and the same bits on a second run; the flat
+    one adds overlapping bands in the atomics' order: dII as
+    `assert_bf16_sum_close`. Then the autograd function's backward runs the
+    kernels. Only the bf16 counts move."""
     from vfa_tpu_torch.ops.rig_cuda import rig_flat_bwd_bf16, rig_window_bwd_bf16
 
     rig = _bf16_rig(name, tile_v, buckets, layout, cuda)
@@ -811,9 +817,14 @@ def test_bf16_bwd_kernels_match_plain(cuda, layout, name, tile_v, buckets, B):
         assert count.launches == n0 + len(sr.A)
         assert (rig_window_bwd.launches, rig_flat_bwd.launches) == f32
         want_dII, want_dKr = _plain_scale_bwd(ii, sr, Kr, g)
-        exact_dII, _ = _plain_scale_bwd(ii.float(), sr, Kr.float(), g.float(),
-                                        A=[a.float() for a in sr.A])
-        assert_bf16_sum_close(dII, want_dII, exact_dII)
+        if layout == "window":
+            assert_bf16_close(dII, want_dII)
+            assert torch.equal(rig_scale_bwd(ii, sr, Kr, g)[0], dII)
+            n0 += len(sr.A)
+        else:
+            exact_dII, _ = _plain_scale_bwd(ii.float(), sr, Kr.float(),
+                                            g.float(), A=[a.float() for a in sr.A])
+            assert_bf16_sum_close(dII, want_dII, exact_dII)
         assert_bf16_close(dKr, want_dKr)
         la, ka = lat.clone().requires_grad_(), k.clone().requires_grad_()
         rig_tiles_cuda(la, sr, ka).backward(g)
@@ -823,7 +834,9 @@ def test_bf16_bwd_kernels_match_plain(cuda, layout, name, tile_v, buckets, B):
 
 def test_bf16_full_multiviewc_window_rig_every_bucket(cuda):
     """Every bucket of the full bf16 MultiviewC serving rig (the 12-bucket
-    policy, tile_v 160, R = 800) at batch 2 against the plain version."""
+    policy, tile_v 160, R = 800) at batch 2 through one grouped launch a
+    scale against the per-bucket plain tiles."""
+    from vfa_tpu_torch.ops.rig_cuda import rig_window_fwd_bf16
     from vfa_tpu_torch.rig_cli import build_cli_rig
 
     cfg = get_config("MultiviewC")
@@ -831,7 +844,9 @@ def test_bf16_full_multiviewc_window_rig_every_bucket(cuda):
     for si, sr in enumerate(rig.scales):
         assert sr.tile_v == 160 and sr.A[0].shape[2] == 800
         lat, k = _bf16_inputs(sr, 2, 120 + si, cuda)
+        n0 = rig_window_fwd_bf16.launches
         got = rig_tiles_cuda(lat, sr, k)
+        assert rig_window_fwd_bf16.launches == n0 + 1
         want = trig.scale_tiles(trig.scale_features(lat, sr), sr,
                                 trig.collapse_per_layer(k, 256, sr.nl, lat.dtype))
         torch.cuda.synchronize()
@@ -841,6 +856,75 @@ def test_bf16_full_multiviewc_window_rig_every_bucket(cuda):
             assert_bf16_close(got[:, :, rows], want[:, :, rows])
             off = rows.stop
         del got, want
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_bf16_window_bwd_full_training_rig_every_bucket(cuda, B):
+    """K2-bf16 / K3-bf16 on every bucket of the full bf16 MultiviewC
+    training rig (8-bucket policy, tile_v 160, R = 800), each bucket into a
+    zeroed dII, against the plain bf16 backward: dII and dKr within 1e-2 of
+    the plain max and rel-L2 4e-3 (the same rounding points in the same
+    order: JAX's serial rounding on scale 0 buckets 6 and 7 at every B and
+    on every bucket at B = 1), and dII with the same bits on a second run."""
+    from vfa_tpu_torch.rig_cli import build_cli_rig
+
+    cfg = get_config("MultiviewC")
+    rig = build_cli_rig(cfg, make_calibrations(cfg), cuda, training=True,
+                        dtype=torch.bfloat16)
+    serial = []
+    for si, sr in enumerate(rig.scales):
+        lat, k = _bf16_inputs(sr, B, 160 + si, cuda)
+        ii = trig.scale_features(lat, sr)
+        Kr = trig.collapse_per_layer(k, 256, sr.nl, torch.bfloat16)
+        gen = torch.Generator().manual_seed(170 + si)
+        off = 0
+        for bi, (A_b, s_b) in enumerate(zip(sr.A, sr.starts)):
+            T, R, K = A_b.shape[1:]
+            serial.append(trig.window_bwd_serial(B, K, R, 2, 2, 256))
+            g = (torch.randn((A_b.shape[0], B, (off + T) * sr.tile_v, 256),
+                             generator=gen) * 0.1).to(cuda, torch.bfloat16)
+            runs = []
+            for _ in range(2):
+                dII = torch.zeros_like(ii)
+                dKr = torch.zeros(Kr.shape, device=cuda)
+                rig_window_bwd(ii, A_b, s_b, Kr, g, dII, dKr, off_t=off,
+                               tile_v=sr.tile_v, window=sr.window_hw[bi])
+                runs.append((dII, dKr))
+            want_dII, want_dKr = trig.window_tiles_bwd(
+                ii, A_b, s_b, Kr, g[:, :, off * sr.tile_v:], sr.window_hw[bi],
+                sr.tile_v)
+            torch.cuda.synchronize()
+            assert torch.equal(runs[0][0], runs[1][0])
+            assert_bf16_close(runs[0][0], want_dII)
+            assert_bf16_close(runs[0][1], want_dKr)
+            off += T
+            del runs, want_dII, want_dKr, g
+    if B == 1:
+        assert all(serial)
+    else:
+        assert serial[6] and serial[7] and sum(serial) == 2, serial
+
+
+def test_stem_fp32_recompute_equals_forward_full_size(cuda):
+    """F3: on fp32 the stem kernels' recomputed z (`recompute_z`, the
+    kernels' rounding) equals the z that CUDA's GroupNorm returns, the fused
+    stem's forward, on every element of the full stem (14, 64, 360, 640) of
+    random input; and the fp32 kernels, routing on it, match their plain
+    versions there."""
+    gen = torch.Generator().manual_seed(0)
+    shape = (14, 64, 360, 640)
+    x = torch.randn(shape, generator=gen).to(cuda)
+    s = (torch.rand(64, generator=gen) + 0.5).to(cuda)
+    b = (torch.rand(64, generator=gen) - 0.5).to(cuda)
+    z, mu, rstd = tstem.group_norm_stats(x, s, b, 16, 1e-5)
+    params = tstem.plane_params(mu, rstd, s, b)
+    assert int((tstem.recompute_z(x, params) != z).sum()) == 0
+    del z
+    dy = torch.randn((14, 64, 180, 320), generator=gen).to(cuda)
+    acc = tstem.stem_bwd_stats(x, dy, params)
+    ref = tstem.stem_bwd_stats_plain(x, dy, params)
+    np.testing.assert_allclose(acc.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4 * float(ref.abs().max()))
 
 
 @pytest.mark.parametrize("B", [1, 8])

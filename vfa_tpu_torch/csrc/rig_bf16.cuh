@@ -1,13 +1,13 @@
-// Tensor-core passes of the bf16 compiled-rig forwards (rig_window_fwd.cu,
-// rig_flat_fwd.cu: rig_window_fwd_bf16, rig_flat_fwd_bf16) for NVIDIA Hopper
-// (sm_90a): one CTA tile on wgmma.mma_async m64n64k16 bf16 with fp32
-// accumulators, and the two passes of a forward launch written on it, for
-// both band layouts. The fp32 kernels keep their own tile (rig_mma.cuh);
-// nothing here is shared with it. The passes of the bf16 backwards, on this
-// tile, are in rig_bf16_bwd.cuh.
+// Tensor-core passes of the bf16 compiled-rig flat forward (rig_flat_fwd.cu:
+// rig_flat_fwd_bf16, K4-bf16) for NVIDIA Hopper (sm_90a): one CTA tile on
+// wgmma.mma_async m64n64k16 bf16 with fp32 accumulators, and the two passes
+// of a forward launch written on it. The fp32 kernels keep their own tile
+// (rig_mma.cuh); the bf16 window forward (K1-bf16) runs on the
+// warp-specialised tile of rig_ws.cuh. The passes of the bf16 backwards on
+// this tile are in rig_bf16_bwd.cuh.
 //
 // What is computed, with JAX's rounding points (vfa_tpu/ops/rig_pallas.py
-// _kernel / _kernel_win, run on bf16 features, A and Kr):
+// _kernel, run on bf16 features, A and Kr):
 //   pass 1: vox = A_tile @ band, bf16 products summed in fp32, vox rounded
 //           to bf16 (to nearest even) into the device scratch;
 //   pass 2: out = sum_l vox_l @ Kr_l over all cells of the bucket, summed in
@@ -39,14 +39,13 @@
 // 4 wgmma. The accumulators are stored through shared memory: each thread
 // writes its 128 values as bf16 into a [row][channel] staging tile, then
 // the CTA copies whole 16-byte quads of rows out.
-// Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W): a batch-2 window
-// forward over the full MultiviewC bf16 rig takes 10.70 ms against a 1.71 ms
-// bound (16 %), the flat one 13.09 against 2.23 ms; 186-192 registers, no
-// spill, one WARPGROUP.DEPBAR per 8 HGMMA in the SASS.
+// Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W): a batch-2 flat
+// forward over the full MultiviewC rig cast to bf16 takes 13.09 ms against
+// a 2.23 ms bound; 186-192 registers, no spill, one WARPGROUP.DEPBAR per 8
+// HGMMA in the SASS.
 // What is left on the table: each 64-row CTA reads the whole 256-channel B
-// slice for 1 MFLOP of products (20 KB a slice), so a CTA of two or more
-// warpgroups sharing one B slice, TMA and warp specialisation, N = 64 per
-// wgmma, and the vox round trip through device memory (a fused collapse).
+// slice for 1 MFLOP of products (20 KB a slice); rig_ws.cuh's tile (two
+// warpgroups sharing one TMA-fed slice, m64n256k16) is the way for K4-bf16.
 
 #pragma once
 
@@ -263,37 +262,23 @@ __device__ __forceinline__ void store_tile(const float (&acc)[4][8][4],
   }
 }
 
-// Row of the (n, b) image that holds pixel k of a band: WINDOW, pixel k of
-// the (wh, ww) window at (s0, s1) of an image Wp wide; flat, pixel k of the
-// band that starts at row s0.
-template <bool WINDOW>
-__device__ __forceinline__ size_t band_row(int k, int s0, int s1, int Wp,
-                                           int ww) {
-  if constexpr (WINDOW) {
-    return (size_t)(s0 + k / ww) * Wp + s1 + k % ww;
-  } else {
-    return (size_t)(s0 + k);
-  }
-}
-
-// Pass 1: vox[n, b, t] = A[n, t] @ band(n, b, t), rows m0 .. m0 + 63 of it,
+// Pass 1: vox[n, b, t] = A[n, t] @ band(n, b, t) (pixels starts[n*T + t] ..
+// of the (n, b) image), rows m0 .. m0 + 63 of it,
 // rounded to bf16. K is a multiple of 8, so a ragged last slice ends on a
 // quad; rows past R are zeros and are not stored. grid vox_grid(): the scene
 // is the innermost index, so the B CTAs that read one A tile run together
 // and share it through L2.
-template <bool WINDOW>
 __global__ void __launch_bounds__(THREADS)
 rig_bfvox_mma(const bf16* __restrict__ ii, const bf16* __restrict__ A,
               const int* __restrict__ starts, bf16* __restrict__ vox, int B,
-              int pixels, int Wp, int T, int R, int K, int ww) {
+              int pixels, int T, int R, int K) {
   const int n = blockIdx.z;
   const int b = blockIdx.x % B;
   const int t = blockIdx.y;
   const int m0 = (blockIdx.x / B) * BM;
   const int i = n * T + t;
   const int nb = n * B + b;
-  const int s0 = WINDOW ? starts[2 * i] : starts[i];
-  const int s1 = WINDOW ? starts[2 * i + 1] : 0;
+  const int s0 = starts[i];
   const bf16* A_t = A + (size_t)i * R * K;
   const bf16* img = ii + (size_t)nb * pixels * CH;
   int k0 = 0;
@@ -306,8 +291,7 @@ rig_bfvox_mma(const bf16* __restrict__ ii, const bf16* __restrict__ A,
                                         : nullptr;
       },
       [&](int k) -> const bf16* {
-        return k0 + k < K ? img + band_row<WINDOW>(k0 + k, s0, s1, Wp, ww) * CH
-                          : nullptr;
+        return k0 + k < K ? img + (size_t)(s0 + k0 + k) * CH : nullptr;
       },
       acc);
   bf16* dst0 = vox + ((size_t)nb * T + t) * R * CH;
@@ -380,23 +364,21 @@ inline cudaError_t launch_tile(Kernel kernel, dim3 grid, cudaStream_t s,
   return launch_smem(kernel, grid, SMEM_BYTES, s, args...);
 }
 
-// Both passes of a bf16 forward launch. pixels = rows of one (n, b) image;
-// WINDOW: K = wh*ww, Wp and ww as in band_row; flat: K = band, Wp = ww = 0.
-// Kr (nl, C, n_out); vox the (N, B, T, nl*tile_v, C) bf16 scratch; out the
-// scale's (N, B, rows_total, n_out) bf16 tiles, written at tile offset off_t.
-template <bool WINDOW>
+// Both passes of a flat bf16 forward launch. pixels = rows of one (n, b)
+// image, K = band. Kr (nl, C, n_out); vox the (N, B, T, nl*tile_v, C) bf16
+// scratch; out the scale's (N, B, rows_total, n_out) bf16 tiles, written at
+// tile offset off_t.
 inline int rig_fwd_launch(const bf16* ii, const bf16* A, const int* starts,
                           const bf16* Kr, bf16* vox, bf16* out, int N, int B,
-                          int pixels, int Wp, int C, int T, int nl, int tile_v,
-                          int K, int ww, int n_out, int off_t, int rows_total,
-                          void* stream) {
+                          int pixels, int C, int T, int nl, int tile_v, int K,
+                          int n_out, int off_t, int rows_total, void* stream) {
   const int R = nl * tile_v;
-  if (C != CH || n_out != CH || K < 1 || K % (WINDOW ? 16 : 8) != 0 || T < 1 ||
-      T > 65535 || N < 1 || N > 65535 || N * B > 65535 || B < 1 || R < 1)
+  if (C != CH || n_out != CH || K < 1 || K % 8 != 0 || T < 1 || T > 65535 ||
+      N < 1 || N > 65535 || N * B > 65535 || B < 1 || R < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_tile(rig_bfvox_mma<WINDOW>, vox_grid(R, T, N, B), s,
-                                ii, A, starts, vox, B, pixels, Wp, T, R, K, ww);
+  cudaError_t err = launch_tile(rig_bfvox_mma, vox_grid(R, T, N, B), s, ii, A,
+                                starts, vox, B, pixels, T, R, K);
   if (err != cudaSuccess) return (int)err;
   err = launch_tile(rig_bfcollapse_mma,
                     dim3((T * tile_v + BM - 1) / BM, 1, N * B), s, vox, Kr,

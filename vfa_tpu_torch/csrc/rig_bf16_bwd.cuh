@@ -1,19 +1,22 @@
-// Tensor-core passes of the bf16 compiled-rig backwards (rig_window_bwd.cu,
-// rig_flat_bwd.cu: rig_window_bwd_bf16, rig_flat_bwd_bf16) for NVIDIA Hopper
-// (sm_90a), on the wgmma bf16 tile of rig_bf16.cuh, with JAX's
-// rounding points (vfa_tpu/ops/rig_pallas.py _bwd_kernel_win_pipe,
-// _bwd_kernel_win, _bwd_kernel and _make_scale_op's VJP on bf16 features,
-// A, Kr and cotangent):
+// Tensor-core passes of the bf16 compiled-rig flat backward for NVIDIA
+// Hopper (sm_90a) (rig_flat_bwd.cu: rig_flat_bwd_bf16, K5-bf16), on the
+// wgmma bf16 tile of rig_bf16.cuh; the window backward (rig_window_bwd_bf16)
+// runs on rig_ws.cuh. JAX's rounding points
+// (vfa_tpu/ops/rig_pallas.py _bwd_kernel, _bwd_kernel_win_pipe,
+// _bwd_kernel_win and _make_scale_op's VJP on bf16 features, A, Kr and
+// cotangent):
 //   pass 1: vox = A_tile @ band, bf16 products summed in fp32, NOT rounded;
 //   pass 2: dKr_l += vox_l^T @ g, an fp32 operand times a bf16 one, summed in
 //           fp32 (per depth chunk into a workspace, then added in a fixed
 //           order, as the fp32 kernels do);
 //   pass 3: dvox_l = g @ Kr_l^T, bf16 products summed in fp32, not rounded;
-//   pass 4: dband = A_tile^T @ dvox, a bf16 operand times an fp32 one, summed
-//           in fp32, then added into the bf16 dII: each element's old value
-//           plus its fp32 dband, rounded once to bf16, by a compare-and-swap
-//           loop on 8 bytes (4 channels) -- the window adds of overlapping
-//           tiles meet in the atomics' order, where the TPU grid fixed one.
+//   pass 4 (flat): dband = A_tile^T @ dvox, a bf16 operand times an fp32
+//           one, summed in fp32, then added into the bf16 dII: each
+//           element's old value plus its fp32 dband, rounded once to bf16,
+//           by a compare-and-swap loop on 8 bytes (4 channels) -- the adds
+//           of overlapping bands meet in the atomics' order, where the TPU
+//           grid fixed one (the window backward's dII pass, rig_ws.cuh's
+//           rig_wsdband + rig_dii_reduce, adds in a fixed order).
 // The fp32 operand of passes 2 and 4 is kept as two bf16 planes, hi = x
 // rounded to bf16 and lo = x - hi rounded to bf16 (16 significant bits, a
 // residual below 2^-16 of x), and each product is two bf16 wgmma, lo first:
@@ -31,11 +34,9 @@
 // rate, counted once per product whatever the split costs: twice the
 // forward's. The split makes passes 2 and 4 two products each: 1.5 times
 // the tensor-core work of a plain bf16 backward.
-// Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W): a batch-2 window
-// backward over the full bf16 MultiviewC training rig takes 36.64 ms
-// against a 3.55 ms bound (10 %), the flat one 44.86 against 4.47 ms; in a
-// training step's profile the dII pass is half of it (17.8 ms), its
-// compare-and-swap adds the largest cost left.
+// Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W): a batch-2 flat
+// backward over the full MultiviewC rig cast to bf16 takes 44.8 ms against
+// a 4.47 ms bound (PERF.md section 6).
 
 #pragma once
 
@@ -320,20 +321,17 @@ __device__ __forceinline__ void add_bf16x4(bf16* dst, const float4& v) {
 
 // Pass 1: vox[n, b, t] = A[n, t] @ band(n, b, t), rows m0 .. m0 + 63, fp32
 // as (hi, lo) planes of voxT (N*B*T, C, R), channel-major. grid vox_grid().
-template <bool WINDOW>
 __global__ void __launch_bounds__(THREADS)
 rig_bfbvox_mma(const bf16* __restrict__ ii, const bf16* __restrict__ A,
                const int* __restrict__ starts, bf16* __restrict__ voxT,
-               size_t plane, int B, int pixels, int Wp, int T, int R, int K,
-               int ww) {
+               size_t plane, int B, int pixels, int T, int R, int K) {
   const int n = blockIdx.z;
   const int b = blockIdx.x % B;
   const int t = blockIdx.y;
   const int m0 = (blockIdx.x / B) * BM;
   const int i = n * T + t;
   const int nb = n * B + b;
-  const int s0 = WINDOW ? starts[2 * i] : starts[i];
-  const int s1 = WINDOW ? starts[2 * i + 1] : 0;
+  const int s0 = starts[i];
   const bf16* A_t = A + (size_t)i * R * K;
   const bf16* img = ii + (size_t)nb * pixels * CH;
   int k0 = 0;
@@ -346,8 +344,7 @@ rig_bfbvox_mma(const bf16* __restrict__ ii, const bf16* __restrict__ A,
                                         : nullptr;
       },
       [&](int k) -> const bf16* {
-        return k0 + k < K ? img + band_row<WINDOW>(k0 + k, s0, s1, Wp, ww) * CH
-                          : nullptr;
+        return k0 + k < K ? img + (size_t)(s0 + k0 + k) * CH : nullptr;
       },
       acc);
   bf16* dst0 = voxT + ((size_t)nb * T + t) * CH * R + m0;
@@ -454,17 +451,14 @@ rig_bfdvox_mma(const bf16* __restrict__ g, const bf16* __restrict__ KrT,
 // Pass 4: dII[band(n, b, t)] += A[n, t]^T @ dvox[n, b, t], each element's
 // sum rounded once to bf16. grid (ceil(K/BM), T, N*B); depth R in slices of
 // 32 (the last one may be ragged: zeros past R).
-template <bool WINDOW>
 __global__ void __launch_bounds__(THREADS)
 rig_bfdii_mma(const bf16* __restrict__ A, const int* __restrict__ starts,
               const bf16* __restrict__ dvox, size_t plane,
-              bf16* __restrict__ dII, int B, int pixels, int Wp, int T, int R,
-              int K, int ww) {
+              bf16* __restrict__ dII, int B, int pixels, int T, int R, int K) {
   const int m0 = blockIdx.x * BM;
   const int t = blockIdx.y;
   const int i = (blockIdx.z / B) * T + t;
-  const int s0 = WINDOW ? starts[2 * i] : starts[i];
-  const int s1 = WINDOW ? starts[2 * i + 1] : 0;
+  const int s0 = starts[i];
   const bf16* A_t = A + (size_t)i * R * K + m0;
   const bf16* dvox_t = dvox + ((size_t)blockIdx.z * T + t) * R * CH;
   int r0 = 0;
@@ -485,37 +479,16 @@ rig_bfdii_mma(const bf16* __restrict__ A, const int* __restrict__ starts,
   store_f32(
       acc, [&](int m) { return m0 + m < K; },
       [&](int m, const float4& v, int c) {
-        add_bf16x4(img + band_row<WINDOW>(m0 + m, s0, s1, Wp, ww) * CH + c, v);
+        add_bf16x4(img + (size_t)(s0 + m0 + m) * CH + c, v);
       });
 }
 
-// All passes of a bf16 backward launch. pixels = rows of one (n, b) image;
-// WINDOW: K = wh*ww, Wp and ww as in band_row; flat: K = band, Wp = ww = 0.
-// KrT (nl, n_out, C) bf16; g the scale's (N, B, rows_total, n_out) bf16
-// cotangent; vox the scratch, 2 * N*B*T*nl*tile_v*C bf16 (two planes); ws
-// the (DKR_MAX_SPLITS, nl, C, n_out) fp32 workspace; dII (bf16) and dKr
-// (fp32) are added to. tile_v must be a multiple of 8.
-template <bool WINDOW>
-inline int rig_bwd_launch(const bf16* ii, const bf16* A, const int* starts,
-                          const bf16* KrT, const bf16* g, bf16* vox, float* ws,
-                          bf16* dII, float* dKr, int N, int B, int pixels,
-                          int Wp, int C, int T, int nl, int tile_v, int K,
-                          int ww, int n_out, int off_t, int rows_total,
-                          void* stream) {
-  const int R = nl * tile_v;
-  const int NB = N * B;
-  if (C != CH || n_out != CH || K < 1 || K % (WINDOW ? 16 : 8) != 0 || T < 1 ||
-      T > 65535 || NB < 1 || NB > 65535 || nl < 1 || tile_v < 8 ||
-      tile_v % 8 != 0 || (long long)NB * T * tile_v > (1LL << 30))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t plane = (size_t)NB * T * R * CH;
-  cudaError_t err;
-
-  err = launch_smem(rig_bfbvox_mma<WINDOW>, vox_grid(R, T, N, B), SMEM_BYTES,
-                    s, ii, A, starts, vox, plane, B, pixels, Wp, T, R, K, ww);
-  if (err != cudaSuccess) return (int)err;
-
+// Pass 2 of a flat bf16 backward launch: dKr into its workspace and added
+// into dKr in a fixed order.
+inline cudaError_t bwd_dkr(const bf16* g, const bf16* vox, float* ws,
+                           float* dKr, int NB, int T, int nl, int tile_v,
+                           int off_t, int rows_total, size_t plane,
+                           cudaStream_t s) {
   // nl*4 output tiles; as many depth chunks as fill the card's 132 SMs
   // twice, at least one tile each
   const int NBT = NB * T;
@@ -523,23 +496,51 @@ inline int rig_bwd_launch(const bf16* ii, const bf16* A, const int* starts,
   splits = splits < 1 ? 1 : splits > ::DKR_MAX_SPLITS ? ::DKR_MAX_SPLITS : splits;
   const int per = (NBT + splits - 1) / splits;
   splits = (NBT + per - 1) / per;
-  err = launch_smem(rig_bfdkr_mma, dim3(nl * (CH / BM), splits),
-                    bwd_smem_bytes<2, 1, false, 4>(), s, (const bf16*)vox,
-                    plane, g, ws, NBT, T, nl, tile_v, off_t, rows_total, per);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err = launch_smem(rig_bfdkr_mma, dim3(nl * (CH / BM), splits),
+                                bwd_smem_bytes<2, 1, false, 4>(), s, vox,
+                                plane, g, ws, NBT, T, nl, tile_v, off_t,
+                                rows_total, per);
+  if (err != cudaSuccess) return err;
   const int n = nl * CH * CH;
   ::rig_dkr_reduce<<<(n / 4 + 255) / 256, 256, 0, s>>>(ws, dKr, n, splits);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  return cudaGetLastError();
+}
 
+// All passes of a flat bf16 backward launch. pixels = rows of one (n, b)
+// image, K = band. KrT (nl, n_out, C) bf16; g the scale's (N, B,
+// rows_total, n_out) bf16 cotangent; vox the scratch, 2 * N*B*T*nl*tile_v*C
+// bf16 (two planes); ws the (DKR_MAX_SPLITS, nl, C, n_out) fp32 workspace;
+// dII (bf16) and dKr (fp32) are added to. tile_v must be a multiple of 8.
+// Its dII pass adds by compare-and-swap (rig_bfdii_mma).
+inline int rig_bwd_launch_flat(const bf16* ii, const bf16* A, const int* starts,
+                               const bf16* KrT, const bf16* g, bf16* vox,
+                               float* ws, bf16* dII, float* dKr, int N, int B,
+                               int pixels, int C, int T, int nl, int tile_v,
+                               int K, int n_out, int off_t, int rows_total,
+                               void* stream) {
+  const int R = nl * tile_v;
+  const int NB = N * B;
+  if (C != CH || n_out != CH || K < 1 || K % 8 != 0 || T < 1 || T > 65535 ||
+      NB < 1 || NB > 65535 || nl < 1 || tile_v < 8 || tile_v % 8 != 0 ||
+      (long long)NB * T * tile_v > (1LL << 30))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t plane = (size_t)NB * T * R * CH;
+  cudaError_t err;
+
+  err = launch_smem(rig_bfbvox_mma, vox_grid(R, T, N, B), SMEM_BYTES, s, ii, A,
+                    starts, vox, plane, B, pixels, T, R, K);
+  if (err != cudaSuccess) return (int)err;
+  err = bwd_dkr(g, vox, ws, dKr, NB, T, nl, tile_v, off_t, rows_total, plane,
+                s);
+  if (err != cudaSuccess) return (int)err;
   err = launch_smem(rig_bfdvox_mma, dim3((T * tile_v + BM - 1) / BM, nl, NB),
                     SMEM_BYTES, s, g, KrT, vox, plane, T, nl, tile_v, off_t,
                     rows_total);
   if (err != cudaSuccess) return (int)err;
-
-  err = launch_smem(rig_bfdii_mma<WINDOW>, dim3((K + BM - 1) / BM, T, NB),
+  err = launch_smem(rig_bfdii_mma, dim3((K + BM - 1) / BM, T, NB),
                     bwd_smem_bytes<1, 2, true, 3>(), s, A, starts,
-                    (const bf16*)vox, plane, dII, B, pixels, Wp, T, R, K, ww);
+                    (const bf16*)vox, plane, dII, B, pixels, T, R, K);
   return (int)err;
 }
 

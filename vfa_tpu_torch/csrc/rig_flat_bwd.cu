@@ -59,8 +59,10 @@ extern "C" int rig_flat_bwd_f32(const float* ii, const float* A,
                                off_t, rows_total, stream);
 }
 
-// The bf16 variant: as rig_window_bwd_bf16 (rig_window_bwd.cu), on flat
-// bands.
+// The bf16 variant: the passes of rig_bf16_bwd.cuh on flat bands, with
+// JAX's rounding points on bf16 inputs (vox, dvox and dKr fp32, dII rounded
+// once per band add); its dII adds by compare-and-swap, in the atomics'
+// order.
 extern "C" int rig_flat_bwd_bf16(const void* ii, const void* A,
                                  const int* starts, const void* KrT,
                                  const void* g, void* vox, float* ws, void* dII,
@@ -68,9 +70,9 @@ extern "C" int rig_flat_bwd_bf16(const void* ii, const void* A,
                                  int T, int nl, int tile_v, int band, int n_out,
                                  int off_t, int rows_total, void* stream) {
   using bft::bf16;
-  return bft::rig_bwd_launch<false>(
+  return bft::rig_bwd_launch_flat(
       static_cast<const bf16*>(ii), static_cast<const bf16*>(A), starts,
       static_cast<const bf16*>(KrT), static_cast<const bf16*>(g),
       static_cast<bf16*>(vox), ws, static_cast<bf16*>(dII), dKr, N, B, pixels,
-      0, C, T, nl, tile_v, band, 0, n_out, off_t, rows_total, stream);
+      C, T, nl, tile_v, band, n_out, off_t, rows_total, stream);
 }

@@ -67,9 +67,9 @@ extern "C" int rig_flat_fwd_bf16(const void* ii, const void* A,
                                  int n_out, int off_t, int rows_total,
                                  void* stream) {
   using bft::bf16;
-  return bft::rig_fwd_launch<false>(
+  return bft::rig_fwd_launch(
       static_cast<const bf16*>(ii), static_cast<const bf16*>(A), starts,
       static_cast<const bf16*>(Kr), static_cast<bf16*>(vox),
-      static_cast<bf16*>(out), N, B, pixels, 0, C, T, nl, tile_v, band, 0,
-      n_out, off_t, rows_total, stream);
+      static_cast<bf16*>(out), N, B, pixels, C, T, nl, tile_v, band, n_out,
+      off_t, rows_total, stream);
 }

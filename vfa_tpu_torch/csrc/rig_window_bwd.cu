@@ -72,6 +72,7 @@
 // bit for bit.
 
 #include "rig_bf16_bwd.cuh"
+#include "rig_ws.cuh"
 
 // ii, dII (N, B, Hp, Wp, C) fp32; A (N, T, nl*tile_v, wh*ww) fp32; starts
 // (N*T*2) int32; KrT (nl, n_out, C) fp32; g (N, B, rows_total, n_out) fp32;
@@ -90,23 +91,69 @@ extern "C" int rig_window_bwd_f32(const float* ii, const float* A,
                               n_out, off_t, rows_total, stream);
 }
 
-// The bf16 variant: ii, A, KrT, g and dII bf16, the same shapes; the vox
-// scratch the same bytes (two bf16 planes), ws and dKr fp32. The passes of
-// rig_bf16.cuh's backward, with JAX's rounding points on bf16 inputs: vox,
-// dvox and dKr fp32, dII rounded once per window add (in the atomics'
-// order). tile_v a multiple of 8. What bounds it on the H100 (SXM, 700 W):
-// operations at the dense bf16 rate, twice the forward's.
+// The bf16 variant (K2-bf16 and K3-bf16): ii, A, KrT, g and dII bf16, the
+// same shapes; the vox scratch the same bytes (two bf16 planes), ws and dKr
+// fp32. JAX's rounding points on bf16 inputs: vox, dvox and dKr fp32, dII
+// rounded once per (tile, scene) window add (serial == 0, JAX's pipelined
+// _bwd_kernel_win_pipe) or once per layer of each window (serial == 1,
+// JAX's serial _bwd_kernel_win; ops/rig.window_bwd_serial decides as JAX
+// does), the adds of a pixel in tile order. tile_v a multiple of 8.
+//   pass 1 (rig_wsvox<EPI_SPLIT>, rig_ws.cuh): vox on the warp-specialised
+//          TMA + wgmma m64n256k16 tile, stored as hi + lo planes;
+//   pass 2 (rig_wsdkr, rig_ws.cuh, + rig_dkr_reduce, rig_mma.cuh): dKr on
+//          the same tile, per depth chunk into the workspace, then added in
+//          a fixed order;
+//   pass 3 (rig_wsdvox, rig_ws.cuh): dvox on the warp-specialised tile,
+//          stored as hi + lo planes;
+//   pass 4 (rig_wsdband + rig_dii_reduce, rig_ws.cuh): each window's fp32
+//          A^T dvox (per layer when serial) on the same tile into `scratch`
+//          (N*B, T, L, wh*ww, 256), L = serial ? nl : 1; then each (pixel,
+//          scene) of dII read once, its adds (pixels, ptr, adds:
+//          ops/rig.window_dii_index) made in tile order, each rounded once
+//          to bf16, and written once: the same bits every run, no atomics.
+// What bounds it on the H100 (SXM, 700 W): operations at the dense bf16
+// rate, twice the forward's.
 extern "C" int rig_window_bwd_bf16(const void* ii, const void* A,
                                    const int* starts, const void* KrT,
                                    const void* g, void* vox, float* ws,
-                                   void* dII, float* dKr, int N, int B, int Hp,
-                                   int Wp, int C, int T, int nl, int tile_v,
-                                   int wh, int ww, int n_out, int off_t,
-                                   int rows_total, void* stream) {
+                                   void* dII, float* dKr, float* scratch,
+                                   const int* pixels, const int* ptr,
+                                   const int* adds, int n_pixels, int serial,
+                                   int N, int B,
+                                   int Hp, int Wp, int C, int T, int nl,
+                                   int tile_v, int wh, int ww, int n_out,
+                                   int off_t, int rows_total, void* stream) {
   using bft::bf16;
-  return bft::rig_bwd_launch<true>(
-      static_cast<const bf16*>(ii), static_cast<const bf16*>(A), starts,
-      static_cast<const bf16*>(KrT), static_cast<const bf16*>(g),
-      static_cast<bf16*>(vox), ws, static_cast<bf16*>(dII), dKr, N, B, Hp * Wp,
-      Wp, C, T, nl, tile_v, wh * ww, ww, n_out, off_t, rows_total, stream);
+  const int R = nl * tile_v;
+  const int K = wh * ww;
+  const int NB = N * B;
+  if (C != bft::CH || n_out != bft::CH || K < 16 || K % 16 != 0 ||
+      ww % 16 != 0 || T < 1 || NB < 1 || NB > 65535 || B > 65535 || nl < 1 ||
+      tile_v < 8 || tile_v % 8 != 0 || n_pixels < 1 ||
+      (long long)NB * T * tile_v > (1LL << 30))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t plane = (size_t)NB * T * R * bft::CH;
+  bf16* voxp = static_cast<bf16*>(vox);
+  const bf16* Ap = static_cast<const bf16*>(A);
+  int err = wsb::ws_vox_launch<wsb::EPI_SPLIT>(
+      static_cast<const bf16*>(ii), &Ap, &starts, &voxp, &T, &K, &ww, 1, N, B,
+      Hp, Wp, R, plane, s);
+  if (err != 0) return err;
+  int splits = 0;
+  err = wsb::ws_dkr_launch(voxp, plane, static_cast<const bf16*>(g), ws, NB, T,
+                           nl, tile_v, off_t, rows_total, ::DKR_MAX_SPLITS,
+                           ::DKR_CHAIN, &splits, s);
+  if (err != 0) return err;
+  const int n = nl * bft::CH * bft::CH;
+  ::rig_dkr_reduce<<<(n / 4 + 255) / 256, 256, 0, s>>>(ws, dKr, n, splits);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  err = wsb::ws_dvox_launch(static_cast<const bf16*>(g),
+                            static_cast<const bf16*>(KrT), voxp, plane, NB, T,
+                            nl, tile_v, off_t, rows_total, s);
+  if (err != 0) return err;
+  return wsb::ws_dii_launch(Ap, voxp, plane, scratch, static_cast<bf16*>(dII),
+                           pixels, ptr, adds, n_pixels, serial, N, B, Hp, Wp,
+                           T, nl, tile_v, K, s);
 }

@@ -43,6 +43,7 @@
 
 #include "rig_bf16.cuh"
 #include "rig_mma.cuh"
+#include "rig_ws.cuh"
 
 // ii (N, B, Hp, Wp, C) fp32; A (N, T, nl*tile_v, wh*ww) fp32; starts
 // (N*T*2) int32; Kr (nl, C, n_out) fp32; vox scratch (N, B, T,
@@ -59,24 +60,48 @@ extern "C" int rig_window_fwd_f32(const float* ii, const float* A,
                               rows_total, stream);
 }
 
-// The bf16 variant: ii, A, Kr, the vox scratch and out all bf16, the same
-// shapes; vox = A @ window summed in fp32 and rounded to bf16, then the
-// collapse summed in fp32 and rounded to bf16, as _kernel_win rounds on bf16
-// inputs. Both passes on the wgmma bf16 tile of rig_bf16.cuh. What bounds it
-// on the H100 (SXM, 700 W): operations at the dense bf16 rate. The full
-// MultiviewC bf16 rig (tile_v 160, A 1.98 GB) makes a batch-2 forward 1.69
-// TFLOP, 1.71 ms at 989.4 TFLOP/s, against 2.65 GB of A, features, Kr and
-// tiles (0.79 ms at 3.35 TB/s).
-extern "C" int rig_window_fwd_bf16(const void* ii, const void* A,
-                                   const int* starts, const void* Kr,
+// The bf16 variant (K1-bf16), one call per scale over all its buckets: ii
+// (N, B, Hp, Wp, C), Kr, the vox scratch and out bf16; per bucket bk (nb of
+// them, host arrays) A[bk] (N, T[bk], nl*tile_v, wh*ww[bk]) bf16 with K[bk]
+// = wh*ww, starts[bk] (N*T[bk]*2) int32 and its tiles' offset off_t[bk].
+// The buckets' vox scratches lie one after another in `vox`, (N, B, T[bk],
+// nl*tile_v, C) each. vox = A @ window summed in fp32 and rounded to bf16,
+// then the collapse summed in fp32 and rounded to bf16, as _kernel_win
+// rounds on bf16 inputs. Two launches:
+//   pass 1 (rig_wsvox<EPI_BF16>, rig_ws.cuh): every bucket's vox on the
+//          warp-specialised TMA + wgmma m64n256k16 tile, persistent CTAs;
+//   pass 2 (rig_wscollapse, rig_ws.cuh): every bucket's collapse on the
+//          same tile, 64 cells a consumer warpgroup sharing Kr's rows.
+// What bounds it on the H100 (SXM, 700 W): operations at the dense bf16
+// rate. The full MultiviewC bf16 rig (tile_v 160, A 1.98 GB) makes a
+// batch-2 forward 1.69 TFLOP, 1.71 ms at 989.4 TFLOP/s, against 2.65 GB of
+// A, features, Kr and tiles (0.79 ms at 3.35 TB/s).
+extern "C" int rig_window_fwd_bf16(const void* ii, const void* const* A,
+                                   const int* const* starts, const int* T,
+                                   const int* K, const int* ww,
+                                   const int* off_t, int nb, const void* Kr,
                                    void* vox, void* out, int N, int B, int Hp,
-                                   int Wp, int C, int T, int nl, int tile_v,
-                                   int wh, int ww, int n_out, int off_t,
-                                   int rows_total, void* stream) {
+                                   int Wp, int C, int nl, int tile_v,
+                                   int n_out, int rows_total, void* stream) {
   using bft::bf16;
-  return bft::rig_fwd_launch<true>(
-      static_cast<const bf16*>(ii), static_cast<const bf16*>(A), starts,
-      static_cast<const bf16*>(Kr), static_cast<bf16*>(vox),
-      static_cast<bf16*>(out), N, B, Hp * Wp, Wp, C, T, nl, tile_v, wh * ww,
-      ww, n_out, off_t, rows_total, stream);
+  const int R = nl * tile_v;
+  if (C != bft::CH || n_out != bft::CH || nb < 1 || nb > wsb::MAX_BUCKETS ||
+      R < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bf16* outs[wsb::MAX_BUCKETS];
+  size_t at = 0;
+  for (int bk = 0; bk < nb; ++bk) {
+    outs[bk] = static_cast<bf16*>(vox) + at;
+    at += (size_t)N * B * T[bk] * R * bft::CH;
+  }
+  int err = wsb::ws_vox_launch<wsb::EPI_BF16>(
+      static_cast<const bf16*>(ii),
+      reinterpret_cast<const bf16* const*>(A), starts, outs, T, K, ww, nb, N,
+      B, Hp, Wp, R, 0, s);
+  if (err != 0) return err;
+  return wsb::ws_collapse_launch(outs, T, off_t, nb,
+                                 static_cast<const bf16*>(Kr),
+                                 static_cast<bf16*>(out), N, B, nl, tile_v,
+                                 rows_total, s);
 }

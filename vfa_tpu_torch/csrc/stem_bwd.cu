@@ -32,8 +32,9 @@
 // Which pixel is a maximum, and whether it passes the ReLU, is decided on
 // the recomputed z, so it must equal the forward's bit for bit: mean and
 // rstd are the forward's own, and a, b, z are rounded as native_group_norm's
-// CUDA kernel rounds them (a one product, b and z one fused multiply-add
-// each), written with intrinsics so that no contraction rounds them
+// CUDA kernel rounds them (a one product, z one fused multiply-add, b one
+// fused multiply-add on bf16 and a product and an add on fp32; see
+// load_plane), written with intrinsics so that no contraction rounds them
 // otherwise.
 //
 // What the design does about it: every (image, channel) plane is a plain 2D
@@ -140,16 +141,24 @@ __device__ __forceinline__ float2 load2(const bf16* p) {
 }
 
 // per-plane scalars: mean, rstd, scale, bias, c1, c2 packed by the caller,
-// a and b derived here
+// a and b derived here. b as native_group_norm's CUDA kernel rounds it for
+// x's type: on fp32 a product and an add, each rounded
+// (tools/probe_gn_stats.py --candidates: 0 of 206,438,400 elements of z
+// differ that way, 435,583 with one fused multiply-add); on bf16 one fused
+// multiply-add.
 struct Plane {
   float mean, rstd, scale, c1, c2, a, b;
 };
 
+template <class T>
 __device__ __forceinline__ Plane load_plane(const float* __restrict__ params,
                                             int plane) {
   const float* p = params + (size_t)plane * NPARAM;
   const float a = __fmul_rn(p[1], p[2]);
-  return Plane{p[0], p[1], p[2], p[4], p[5], a, __fmaf_rn(-a, p[0], p[3])};
+  const float b = std::is_same_v<T, float>
+                      ? __fadd_rn(__fmul_rn(-a, p[0]), p[3])
+                      : __fmaf_rn(-a, p[0], p[3]);
+  return Plane{p[0], p[1], p[2], p[4], p[5], a, b};
 }
 
 // In lanes where `active`: copy N bytes from src to shared dst without the
@@ -541,7 +550,7 @@ stem_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   const int it = blockIdx.x * STEM_WARPS + warp;
   if (it >= items) return;
   const Item w = item_of(it, OH, strips, segs, lane);
-  const Plane pl = load_plane(params, w.plane);
+  const Plane pl = load_plane<T>(params, w.plane);
   const T *xs, *dys;
   plane_ptrs<VEC>(x, dy, w, H, W, OH, OW, xs, dys);
   float2 s = make_float2(0.f, 0.f);
@@ -622,7 +631,7 @@ stem_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   if (it >= items) return;
   const Item w = item_of(it, OH, strips, segs, lane);
   const Lane L = lane_of<VEC>(lane, w.c, W, OW, true);
-  const Plane pl = load_plane(params, w.plane);
+  const Plane pl = load_plane<T>(params, w.plane);
   const T *xs, *dys;
   plane_ptrs<VEC>(x, dy, w, H, W, OH, OW, xs, dys);
   T* dxp = dx + (size_t)w.plane * H * W;

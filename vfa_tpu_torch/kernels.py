@@ -22,17 +22,21 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# libcuda, for the TMA tensor maps (cuTensorMapEncodeTiled)
+NVCC_LIBS = ["-lcuda"]
 
 P, I = ctypes.c_void_p, ctypes.c_int
 # argtypes per exported C function: pointers and the stream as c_void_p
 SIGNATURES = {
     "rig_window_fwd": {
         "rig_window_fwd_f32": [P] * 6 + [I] * 13 + [P],
-        "rig_window_fwd_bf16": [P] * 6 + [I] * 13 + [P],
+        # per-bucket host arrays (A, starts, T, K, ww, off_t), nb, Kr, vox, out
+        "rig_window_fwd_bf16": [P] * 7 + [I] + [P] * 3 + [I] * 9 + [P],
     },
     "rig_window_bwd": {
         "rig_window_bwd_f32": [P] * 9 + [I] * 13 + [P],
-        "rig_window_bwd_bf16": [P] * 9 + [I] * 13 + [P],
+        # + the dII scratch and order index (pixels, ptr, adds), n_pixels, serial
+        "rig_window_bwd_bf16": [P] * 13 + [I] * 15 + [P],
     },
     "rig_flat_fwd": {
         "rig_flat_fwd_f32": [P] * 6 + [I] * 11 + [P],
@@ -92,7 +96,7 @@ class KernelLibrary:
             src, so = self._paths(name)
             tmp = f"{so}.{os.getpid()}.tmp"
             procs[name] = (subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                [nvcc, *NVCC_FLAGS, "-o", tmp, src, *NVCC_LIBS],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
                 tmp, so)
         failed = []

@@ -54,7 +54,10 @@ class ScaleRig:
 
     Window layout (window_hw[b] == (wh_b, ww_b)): band_b = wh_b*ww_b and
     starts[b] is (N, T_b, 2) int32 (row, col) window origins inside the
-    image padded to (fh up to a multiple of 8, fw up to 16).
+    image padded to (fh up to a multiple of 8, fw up to 16), and
+    dii_order[b] is `window_dii_index` of the bucket as int32 tensors on
+    the rig's device: the order the bf16 window backward adds dII in, made
+    from starts when the rig is built or loaded.
     Flat layout (window_hw == ()): starts[b] is (N, T_b) int32 band starts
     in the features flattened to (fh*fw, C); starts and band_b are
     multiples of 8, and the features are padded by max band_b zero rows."""
@@ -67,6 +70,7 @@ class ScaleRig:
     tile_v: int
     on_raw: bool = True
     window_hw: tuple = ()   # per bucket (wh_b, ww_b); () = flat layout
+    dii_order: tuple = ()   # per window bucket (pixels, ptr, adds)
 
 
 @dataclasses.dataclass
@@ -645,17 +649,27 @@ def _load_rig(path: str, feat_shapes, tile_v: int, fold_prefix: bool,
                 A.append(torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
                          .to(device) if a.dtype == np.uint16
                          else torch.from_numpy(a).to(device))
+            starts = [z[f"s{i}_{b}"] for b in range(nb)]
+            win_hw = (tuple(tuple(int(x) for x in z[f"w{i}_{b}"])
+                            for b in range(nb)) if layout == "window" else ())
             scales.append(ScaleRig(
                 A=tuple(A),
-                starts=tuple(torch.from_numpy(z[f"s{i}_{b}"]).to(device)
-                             for b in range(nb)),
+                starts=tuple(torch.from_numpy(s).to(device) for s in starts),
                 inv_perm=torch.from_numpy(z[f"p{i}"].astype(np.int64)).to(device),
                 feat_hw=(fh, fw), nl=int(z[f"nl{i}"]), tile_v=tile_v,
-                on_raw=fold_prefix,
-                window_hw=(tuple(tuple(int(x) for x in z[f"w{i}_{b}"])
-                                 for b in range(nb))
-                           if layout == "window" else ())))
+                on_raw=fold_prefix, window_hw=win_hw,
+                dii_order=_dii_orders(starts, win_hw, (fh, fw), device)))
     return CameraRig(scales=scales, grid_shape=grid_shape)
+
+
+def _dii_orders(starts, window_hw, feat_hw, device) -> tuple:
+    """`window_dii_index` of every window bucket from its numpy starts, as
+    int32 tensors on `device` (() for the flat layout)."""
+    Hp, Wp = _round_up(feat_hw[0], 8), _round_up(feat_hw[1], 16)
+    return tuple(
+        tuple(torch.from_numpy(a).to(device) for a in
+              window_dii_index(torch.from_numpy(st), win, Hp, Wp))
+        for st, win in zip(starts, window_hw))
 
 
 def build_rig(
@@ -713,6 +727,7 @@ def build_rig(
             inv_perm=torch.from_numpy(inv_perm.astype(np.int64)).to(device),
             feat_hw=(fh, fw), nl=nl, tile_v=tile_v, on_raw=fold_prefix,
             window_hw=tuple(win_hw),
+            dii_order=_dii_orders(s_bk, win_hw, (fh, fw), device),
         ))
     rig = CameraRig(scales=scales, grid_shape=(L, W))
     if path is not None:
@@ -819,18 +834,32 @@ def _tiles_fwd(ii, A_b, pix, Kr, tile_v):
     return out.reshape(N, B, T * tile_v, n_out).to(ii.dtype)
 
 
-def _tiles_bwd(ii, A_b, pix, Kr, g_b, tile_v, dII):
-    """(dII, dKr) of `_tiles_fwd`, written out (no autograd). vox, dvox,
-    the window gradients A^T @ dvox and dKr (nl, C, n_out), this bucket's
-    contribution, are fp32 whatever ii's dtype: on bf16 inputs the products
-    of bf16 values are exact in fp32, and JAX's backward kernels keep vox
-    and dvox unrounded (`vfa_tpu/ops/rig_pallas.py:311-336, 477-502`).
-    dII, shaped as ii and in ii's dtype, is the given accumulator with this
-    bucket's bands added (a new zero-filled one if None). fp32: one
-    `index_add_`. bf16: the accumulator rounds as JAX's does, once per
-    (tile, scene) window add, tile by tile in the order of JAX's grid
-    (camera and scene slices of dII are disjoint, so only the tile order
-    matters)."""
+# JAX's VMEM budget (bytes) for its choice of window backward kernel
+WINDOW_BWD_BUDGET = int(9.5e6)
+
+
+def window_bwd_serial(B: int, band: int, rows: int, a_itemsize: int,
+                      f_itemsize: int, C: int) -> bool:
+    """Whether JAX runs a window bucket's backward serially, pure shape
+    arithmetic: the predicate of `vfa_tpu/ops/rig_pallas.py:694-706`, same
+    budget, same bytes per band element, the dII accumulator in the
+    features' dtype. True: `_bwd_kernel_win` (K3), which rounds a bf16 dII
+    window after every layer's A_l^T dvox_l; False: `_bwd_kernel_win_pipe`
+    (K2), which rounds it once per (tile, scene) window. B scenes, band =
+    wh*ww, rows = nl*tile_v, C channels. The pipelined kernel needs two
+    scenes and a band whose A tile (one or two slots) fits the budget
+    beside its double-buffered feature and dII windows and the fp32 dot."""
+    per = 2 * C * f_itemsize + 2 * C * f_itemsize + C * 4
+    fits2 = band * (2 * rows * a_itemsize + per) <= WINDOW_BWD_BUDGET
+    fits1 = band * (rows * a_itemsize + per) <= WINDOW_BWD_BUDGET
+    return not (B >= 2 and (fits1 or fits2))
+
+
+def _window_dband(ii, A_b, pix, Kr, g_b, tile_v, serial):
+    """vox, dvox and the window gradients of one bucket, fp32 whatever ii's
+    dtype: returns (dKr (nl, C, n_out), dband). dband is A^T @ dvox, (N, T,
+    1, K, B*C), or per layer A_l^T @ dvox_l, (N, T, nl, K, B*C), when
+    `serial`."""
     N, B, C = ii.shape[0], ii.shape[1], ii.shape[-1]
     T, R, K = A_b.shape[1:]
     nl, _, n_out = Kr.shape
@@ -838,19 +867,45 @@ def _tiles_bwd(ii, A_b, pix, Kr, g_b, tile_v, dII):
     g = g_b.float().reshape(N, B, T, tile_v, n_out)
     dKr = torch.einsum("ntlvbc,nbtvo->lco", vox, g)
     dvox = torch.einsum("nbtvo,lco->ntlvbc", g, Kr.float())
-    dband = torch.matmul(A_b.float().transpose(-1, -2),
-                         dvox.reshape(N, T, R, B * C))
+    if serial:
+        dband = torch.matmul(
+            A_b.float().reshape(N, T, nl, tile_v, K).transpose(-1, -2),
+            dvox.reshape(N, T, nl, tile_v, B * C))
+    else:
+        dband = torch.matmul(A_b.float().transpose(-1, -2),
+                             dvox.reshape(N, T, R, B * C))[:, :, None]
+    return dKr, dband
+
+
+def _tiles_bwd(ii, A_b, pix, Kr, g_b, tile_v, dII, serial=False):
+    """(dII, dKr) of `_tiles_fwd`, written out (no autograd). vox, dvox,
+    the window gradients A^T @ dvox and dKr (nl, C, n_out), this bucket's
+    contribution, are fp32 whatever ii's dtype: on bf16 inputs the products
+    of bf16 values are exact in fp32, and JAX's backward kernels keep vox
+    and dvox unrounded (`vfa_tpu/ops/rig_pallas.py:311-336, 477-502`).
+    dII, shaped as ii and in ii's dtype, is the given accumulator with this
+    bucket's bands added (a new zero-filled one if None). fp32: one
+    `index_add_`. bf16: the accumulator rounds as JAX's does, tile by tile
+    in the order of JAX's grid (camera and scene slices of dII are
+    disjoint, so only the tile order matters): once per (tile, scene)
+    window add, or, when `serial` (`window_bwd_serial`), once per layer of
+    each window."""
+    N, B, C = ii.shape[0], ii.shape[1], ii.shape[-1]
+    T, R, K = A_b.shape[1:]
     pixels = ii[0, 0].numel() // C
-    if ii.dtype == torch.bfloat16:
+    bf16 = ii.dtype == torch.bfloat16
+    dKr, dband = _window_dband(ii, A_b, pix, Kr, g_b, tile_v, serial and bf16)
+    if bf16:
         if dII is None:
             dII = torch.zeros_like(ii)
         acc = dII.reshape(N, B, pixels, C).permute(0, 2, 1, 3).reshape(
             N * pixels, B * C)
         for t in range(T):
             rows = pix[:, t].reshape(-1)
-            cur = acc.index_select(0, rows).float() + dband[:, t].reshape(
-                N * K, B * C)
-            acc.index_copy_(0, rows, cur.to(torch.bfloat16))
+            for part in dband[:, t].unbind(1):
+                cur = acc.index_select(0, rows).float() + part.reshape(
+                    N * K, B * C)
+                acc.index_copy_(0, rows, cur.to(torch.bfloat16))
         dII.copy_(acc.reshape(N, pixels, B, C).permute(0, 2, 1, 3)
                   .reshape(ii.shape))
         return dII, dKr
@@ -862,6 +917,35 @@ def _tiles_bwd(ii, A_b, pix, Kr, g_b, tile_v, dII):
         return add.contiguous(), dKr
     dII += add
     return dII, dKr
+
+
+def window_dii_index(starts_b: torch.Tensor, window, Hp: int, Wp: int):
+    """The fixed order of one window bucket's dII adds: for every image
+    pixel that a window of the bucket covers, the (tile, window position)
+    pairs that add into it, in tile order (JAX's grid order; camera and
+    scene slices of dII are disjoint). Derived from starts and the window
+    shape alone. Returns int32 numpy arrays (pixels (n_pixels, 2) of
+    (camera, row * Wp + column), ptr (n_pixels + 1,), adds (ptr[-1], 2) of
+    (tile, window position)): pixel j's adds are adds[ptr[j]:ptr[j+1]]."""
+    wh, ww = window
+    st = starts_b.detach().cpu().numpy().reshape(-1, starts_b.shape[-2], 2)
+    N, T = st.shape[:2]
+    k = np.arange(wh * ww)
+    cam = np.repeat(np.arange(N), T * k.size)
+    tile = np.tile(np.repeat(np.arange(T), k.size), N)
+    pos = np.tile(k, N * T)
+    pix = ((st[:, :, 0, None] + k // ww) * Wp
+           + st[:, :, 1, None] + k % ww).ravel()
+    if ((st[..., 0] + wh) > Hp).any() or ((st[..., 1] + ww) > Wp).any():
+        raise ValueError("window_dii_index: a window leaves the padded image")
+    key = cam.astype(np.int64) * (Hp * Wp) + pix
+    order = np.argsort(key, kind="stable")   # adds stay in tile order per pixel
+    key, tile, pos = key[order], tile[order], pos[order]
+    uniq, first = np.unique(key, return_index=True)
+    pixels = np.stack([uniq // (Hp * Wp), uniq % (Hp * Wp)], 1)
+    ptr = np.append(first, key.size)
+    return (pixels.astype(np.int32), ptr.astype(np.int32),
+            np.stack([tile, pos], 1).astype(np.int32))
 
 
 def window_tiles(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
@@ -886,10 +970,13 @@ def window_tiles_bwd(ii: torch.Tensor, A_b: torch.Tensor,
     (N, B, Hp, Wp, C), in ii's dtype, is the given accumulator with this
     bucket's windows added (a new zero-filled one if None), dKr
     (nl, C, n_out), fp32, is this bucket's contribution (`_tiles_bwd` says
-    where bf16 inputs round)."""
+    where bf16 inputs round; `window_bwd_serial` whether a bf16 window
+    rounds once or per layer)."""
     N, B, Hp, Wp, C = ii.shape
-    pix = _window_pixels(starts_b, N, A_b.shape[1], Hp, Wp, window)
-    return _tiles_bwd(ii, A_b, pix, Kr, g_b, tile_v, dII)
+    T, R, K = A_b.shape[1:]
+    pix = _window_pixels(starts_b, N, T, Hp, Wp, window)
+    serial = window_bwd_serial(B, K, R, A_b.element_size(), ii.element_size(), C)
+    return _tiles_bwd(ii, A_b, pix, Kr, g_b, tile_v, dII, serial)
 
 
 def flat_tiles(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,

@@ -17,13 +17,20 @@ differentiates.
 All four kernels run on one tensor-core tile and stay fp32-accurate
 through a 3xTF32 split (`csrc/rig_mma.cuh`; the same arithmetic in plain
 PyTorch is `ops/rig.matmul_3xtf32`). The two forwards also have bf16
-variants (`rig_window_fwd_bf16`, `rig_flat_fwd_bf16` in the same sources,
-on the bf16 tile of `csrc/rig_bf16.cuh`), taken when every floating input
-is bfloat16: vox and the tiles are rounded to bf16 where JAX's kernels
-round them. So do the two backwards (`rig_window_bwd_bf16`,
-`rig_flat_bwd_bf16`, the passes of `csrc/rig_bf16_bwd.cuh`): vox,
-dvox and dKr stay fp32, and the bf16 dII accumulator rounds once per
-window add, as `ops/rig._tiles_bwd` says.
+variants (`rig_window_fwd_bf16`, `rig_flat_fwd_bf16` in the same sources),
+taken when every floating input is bfloat16: vox and the tiles are
+rounded to bf16 where JAX's kernels round them. The window one runs once
+per scale over all its buckets (`rig_window_fwd_scale`; its first pass on
+the warp-specialised TMA + wgmma tile of `csrc/rig_ws.cuh`), the flat one
+per bucket on the bf16 tile of `csrc/rig_bf16.cuh`. So do the two
+backwards (`rig_window_bwd_bf16` on `csrc/rig_ws.cuh`, `rig_flat_bwd_bf16`
+on `csrc/rig_bf16_bwd.cuh`): vox, dvox and dKr stay fp32, and the bf16 dII
+accumulator rounds as `ops/rig._tiles_bwd` says, once per window add or,
+on a window bucket that JAX runs serially (`ops/rig.window_bwd_serial`),
+once per layer; the window backward adds dII without atomics in the
+fixed order of `ops/rig.window_dii_index` (`ScaleRig.dii_order`, made
+when the rig is built), through an fp32 scratch of each window's
+gradient, so its dII has the same bits every run.
 
 On a CPU tensor a wrapper runs its kernel's plain version
 (`ops/rig.window_tiles`, `window_tiles_bwd`, `flat_tiles`,
@@ -32,13 +39,16 @@ On a CPU tensor a wrapper runs its kernel's plain version
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 from torch.autograd.function import once_differentiable
 
 from vfa_tpu_torch.kernels import LaunchCount
 from vfa_tpu_torch.ops.rig import (
     ScaleRig, collapse_per_layer, flat_tiles, flat_tiles_bwd, rig_epilogue,
-    scale_features, window_tiles, window_tiles_bwd,
+    scale_features, window_bwd_serial, window_dii_index, window_tiles,
+    window_tiles_bwd,
 )
 
 
@@ -116,28 +126,14 @@ rig_window_bwd_bf16 = LaunchCount()
 rig_flat_bwd_bf16 = LaunchCount()
 
 
-def rig_window_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
-                   Kr: torch.Tensor, out: torch.Tensor, *, off_t: int,
-                   tile_v: int, window) -> torch.Tensor:
-    """Write one bucket's tiles into `out` rows [off_t*tile_v, (off_t+T)*tile_v).
-
-    ii (N, B, Hp, Wp, C) padded features; A_b (N, T, nl*tile_v, wh*ww);
-    starts_b (N, T, 2) int32; Kr (nl, C, n_out); out (N, B, rows, n_out).
-    ii, A_b, Kr and out are all float32 or all bfloat16 (the bf16 variant:
-    vox and out rounded to bf16 as `window_tiles` rounds them).
-    `rig_window_fwd.launches` counts fp32 kernel launches,
-    `rig_window_fwd_bf16.launches` bf16 ones."""
+def _check_window_fwd(ii, A_b, starts_b, Kr, out, off_t, tile_v, window):
     N, B, Hp, Wp, C = ii.shape
     T, R, K = A_b.shape[1:]
     nl, _, n_out = Kr.shape
     wh, ww = window
     rows = out.shape[2]
-    if ii.device.type == "cpu":
-        out[:, :, off_t * tile_v:(off_t + T) * tile_v] = window_tiles(
-            ii, A_b, starts_b, Kr, window, tile_v)
-        return out
     tensors = {"ii": ii, "A": A_b, "starts": starts_b, "Kr": Kr, "out": out}
-    dtype = _check_launch(
+    return _check_launch(
         "rig_window_fwd", ii, tensors,
         A_b.shape[0] == N and R == nl * tile_v and K == wh * ww
         and tuple(starts_b.shape) == (N, T, 2)
@@ -148,12 +144,90 @@ def rig_window_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
         f"ii {tuple(ii.shape)}, A {tuple(A_b.shape)}, starts "
         f"{tuple(starts_b.shape)}, Kr {tuple(Kr.shape)}, out "
         f"{tuple(out.shape)}, off_t {off_t}, tile_v {tile_v}, window {window}")
+
+
+def _window_fwd_bf16(ii, buckets, Kr, out, tile_v):
+    """The bf16 window forward over `buckets` ((A_b, starts_b, off_t,
+    window) each, already checked) in one call: one launch of each pass for
+    all of them, into one vox scratch. Counts one launch."""
+    N, B, Hp, Wp, C = ii.shape
+    nl = Kr.shape[0]
+    nb = len(buckets)
+    if any(win[1] % 16 for _, _, _, win in buckets):
+        raise ValueError("rig_window_fwd: the bf16 kernel takes window widths "
+                         "that are multiples of 16")
+    if nb > MAX_BUCKETS:
+        raise ValueError(f"rig_window_fwd: at most {MAX_BUCKETS} buckets a "
+                         f"launch, got {nb}")
+    Ts = [A_b.shape[1] for A_b, _, _, _ in buckets]
+    vox = torch.empty((N * B * sum(Ts) * nl * tile_v * C,), dtype=ii.dtype,
+                      device=ii.device)
+    ptrs = lambda xs: (ctypes.c_void_p * nb)(*xs)
+    ints = lambda xs: (ctypes.c_int * nb)(*xs)
+    _launch("rig_window_fwd", ii, ii.data_ptr(),
+            ptrs([A_b.data_ptr() for A_b, _, _, _ in buckets]),
+            ptrs([s_b.data_ptr() for _, s_b, _, _ in buckets]), ints(Ts),
+            ints([A_b.shape[3] for A_b, _, _, _ in buckets]),
+            ints([win[1] for _, _, _, win in buckets]),
+            ints([o for _, _, o, _ in buckets]), nb, Kr.data_ptr(),
+            vox.data_ptr(), out.data_ptr(), N, B, Hp, Wp, C, nl, tile_v,
+            Kr.shape[-1], out.shape[2])
+    rig_window_fwd_bf16.launches += 1
+
+
+# buckets of one bf16 window forward launch (MAX_BUCKETS in csrc/rig_ws.cuh)
+MAX_BUCKETS = 16
+
+
+def rig_window_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
+                   Kr: torch.Tensor, out: torch.Tensor, *, off_t: int,
+                   tile_v: int, window) -> torch.Tensor:
+    """Write one bucket's tiles into `out` rows [off_t*tile_v, (off_t+T)*tile_v).
+
+    ii (N, B, Hp, Wp, C) padded features; A_b (N, T, nl*tile_v, wh*ww);
+    starts_b (N, T, 2) int32; Kr (nl, C, n_out); out (N, B, rows, n_out).
+    ii, A_b, Kr and out are all float32 or all bfloat16 (the bf16 variant:
+    vox and out rounded to bf16 as `window_tiles` rounds them; a scale's
+    buckets go in one launch through `rig_window_fwd_scale`).
+    `rig_window_fwd.launches` counts fp32 kernel launches,
+    `rig_window_fwd_bf16.launches` bf16 ones."""
+    N, B, Hp, Wp, C = ii.shape
+    T, R, K = A_b.shape[1:]
+    nl, _, n_out = Kr.shape
+    rows = out.shape[2]
+    if ii.device.type == "cpu":
+        out[:, :, off_t * tile_v:(off_t + T) * tile_v] = window_tiles(
+            ii, A_b, starts_b, Kr, window, tile_v)
+        return out
+    dtype = _check_window_fwd(ii, A_b, starts_b, Kr, out, off_t, tile_v, window)
+    if dtype == torch.bfloat16:
+        _window_fwd_bf16(ii, [(A_b, starts_b, off_t, window)], Kr, out, tile_v)
+        return out
+    wh, ww = window
     # vox scratch between the kernel's two passes (A-product, collapse)
     vox = torch.empty((N, B, T, R, C), dtype=dtype, device=ii.device)
     _launch("rig_window_fwd", ii, ii.data_ptr(), A_b.data_ptr(),
             starts_b.data_ptr(), Kr.data_ptr(), vox.data_ptr(), out.data_ptr(),
             N, B, Hp, Wp, C, T, nl, tile_v, wh, ww, n_out, off_t, rows)
-    (rig_window_fwd_bf16 if dtype == torch.bfloat16 else rig_window_fwd).launches += 1
+    rig_window_fwd.launches += 1
+    return out
+
+
+def rig_window_fwd_scale(ii: torch.Tensor, rig: ScaleRig, Kr: torch.Tensor,
+                         out: torch.Tensor) -> torch.Tensor:
+    """Every bucket of one window scale into `out` (N, B, T_total*tile_v,
+    n_out): on bf16 CUDA tensors one launch of each pass for the whole
+    scale (one count in `rig_window_fwd_bf16.launches`), otherwise
+    `rig_window_fwd` bucket by bucket."""
+    buckets = list(_buckets(rig))
+    if ii.device.type == "cuda" and ii.dtype == torch.bfloat16:
+        for A_b, s_b, off_t, win in buckets:
+            _check_window_fwd(ii, A_b, s_b, Kr, out, off_t, rig.tile_v, win)
+        _window_fwd_bf16(ii, buckets, Kr, out, rig.tile_v)
+        return out
+    for A_b, s_b, off_t, win in buckets:
+        rig_window_fwd(ii, A_b, s_b, Kr, out, off_t=off_t, tile_v=rig.tile_v,
+                       window=win)
     return out
 
 
@@ -163,7 +237,7 @@ rig_window_fwd.launches = 0
 def rig_window_bwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
                    Kr: torch.Tensor, g: torch.Tensor, dII: torch.Tensor,
                    dKr: torch.Tensor, *, off_t: int, tile_v: int, window,
-                   KrT: torch.Tensor = None):
+                   KrT: torch.Tensor = None, dii=None):
     """Add one bucket's gradients into the scale's accumulators.
 
     ii, A_b, starts_b, Kr as `rig_window_fwd`; g (N, B, rows, n_out) is the
@@ -172,9 +246,11 @@ def rig_window_bwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
     that are added to in place, dII in ii's dtype, dKr float32. ii, A_b,
     Kr, KrT, g and dII are all float32 or all bfloat16 (the bf16 variant,
     with the rounding points of `ops/rig._tiles_bwd`). KrT is Kr with its
-    last two axes swapped, contiguous (made here if not given). Returns
-    (dII, dKr). `rig_window_bwd.launches` counts fp32 kernel launches,
-    `rig_window_bwd_bf16.launches` bf16 ones."""
+    last two axes swapped, contiguous (made here if not given). dii is the
+    bucket's dII order on ii's device (`ScaleRig.dii_order[b]`), which the
+    bf16 variant adds in; when not given it is made here from starts, one
+    copy to the host. Returns (dII, dKr). `rig_window_bwd.launches` counts
+    fp32 kernel launches, `rig_window_bwd_bf16.launches` bf16 ones."""
     N, B, Hp, Wp, C = ii.shape
     T, R, K = A_b.shape[1:]
     nl, _, n_out = Kr.shape
@@ -207,11 +283,33 @@ def rig_window_bwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
         f"tile_v {tile_v}, window {window}")
     _check_bf16_tile_v("rig_window_bwd", dtype, tile_v)
     vox, ws = _bwd_scratch(ii, T, R, nl, n_out)
+    if dtype == torch.bfloat16:
+        if ww % 16:
+            raise ValueError("rig_window_bwd: the bf16 kernel takes window "
+                             f"widths that are multiples of 16, got {ww}")
+        if dii is None:
+            dii = [torch.from_numpy(a).to(ii.device)
+                   for a in window_dii_index(starts_b, window, Hp, Wp)]
+        pixels, ptr, adds = dii
+        serial = window_bwd_serial(B, K, R, A_b.element_size(),
+                                   ii.element_size(), C)
+        # each window's fp32 A^T dvox (per layer where serial), added into
+        # dII in the index's order by the kernel's last pass
+        scratch = torch.empty((N * B * T * (nl if serial else 1) * K * C,),
+                              dtype=torch.float32, device=ii.device)
+        _launch("rig_window_bwd", ii, ii.data_ptr(), A_b.data_ptr(),
+                starts_b.data_ptr(), KrT.data_ptr(), g.data_ptr(),
+                vox.data_ptr(), ws.data_ptr(), dII.data_ptr(), dKr.data_ptr(),
+                scratch.data_ptr(), pixels.data_ptr(), ptr.data_ptr(),
+                adds.data_ptr(), pixels.shape[0], int(serial), N, B, Hp, Wp, C,
+                T, nl, tile_v, wh, ww, n_out, off_t, rows)
+        rig_window_bwd_bf16.launches += 1
+        return dII, dKr
     _launch("rig_window_bwd", ii, ii.data_ptr(), A_b.data_ptr(),
             starts_b.data_ptr(), KrT.data_ptr(), g.data_ptr(), vox.data_ptr(),
             ws.data_ptr(), dII.data_ptr(), dKr.data_ptr(), N, B, Hp, Wp, C, T,
             nl, tile_v, wh, ww, n_out, off_t, rows)
-    (rig_window_bwd_bf16 if dtype == torch.bfloat16 else rig_window_bwd).launches += 1
+    rig_window_bwd.launches += 1
     return dII, dKr
 
 
@@ -336,13 +434,14 @@ def rig_scale_bwd(ii: torch.Tensor, rig: ScaleRig, Kr: torch.Tensor,
     dKr = torch.zeros(Kr.shape, dtype=torch.float32, device=ii.device)
     KrT = Kr.transpose(1, 2).contiguous()
     g = g.contiguous()
-    for A_b, s_b, off_t, win in _buckets(rig):
+    for bi, (A_b, s_b, off_t, win) in enumerate(_buckets(rig)):
         if win is None:
             rig_flat_bwd(ii, A_b, s_b, Kr, g, dII, dKr, off_t=off_t,
                          tile_v=rig.tile_v, KrT=KrT)
         else:
             rig_window_bwd(ii, A_b, s_b, Kr, g, dII, dKr, off_t=off_t,
-                           tile_v=rig.tile_v, window=win, KrT=KrT)
+                           tile_v=rig.tile_v, window=win, KrT=KrT,
+                           dii=rig.dii_order[bi] if rig.dii_order else None)
     return dII, dKr.to(Kr.dtype)
 
 
@@ -359,13 +458,12 @@ class RigScaleTiles(torch.autograd.Function):
         T_total = sum(a.shape[1] for a in rig.A)
         out = torch.empty((N, B, T_total * rig.tile_v, Kr.shape[-1]),
                           dtype=ii.dtype, device=ii.device)
-        for A_b, s_b, off_t, win in _buckets(rig):
-            if win is None:
+        if rig.window_hw:
+            rig_window_fwd_scale(ii, rig, Kr, out)
+        else:
+            for A_b, s_b, off_t, _ in _buckets(rig):
                 rig_flat_fwd(ii, A_b, s_b, Kr, out, off_t=off_t,
                              tile_v=rig.tile_v)
-            else:
-                rig_window_fwd(ii, A_b, s_b, Kr, out, off_t=off_t,
-                               tile_v=rig.tile_v, window=win)
         ctx.save_for_backward(ii, Kr)
         ctx.rig = rig
         return out

@@ -25,7 +25,7 @@ them, but there the same expression yields the same bits; a second
 reduction in another order does not, and a group mean that is 0 in one and
 1e-9 in the other flips every x == 0 pixel of the group), and the kernels
 evaluate z = a*x + b, a = rstd*scale, b = -a*mean + bias with the roundings
-of `native_group_norm`'s CUDA kernel. On bf16 (x, dy and dx bf16, the
+of `native_group_norm`'s CUDA kernel (`recompute_z`). On bf16 (x, dy and dx bf16, the
 statistics, the sums and the arithmetic fp32: the bf16 instances of the
 JAX kernels) z is rounded to bf16 as the forward stored it, before the ReLU
 and every comparison, and a pixel's gradient rounds where JAX's
@@ -85,18 +85,37 @@ def plane_params(mu, rstd, scale, bias, c1=None, c2=None) -> torch.Tensor:
 
 
 def _fma(a, b, c):
-    """a*b + c rounded once, as a fused multiply-add rounds it: the product
-    of two floats is exact in float64."""
-    return (a.double() * b.double() + c.double()).float()
+    """a*b + c rounded once to fp32, as a fused multiply-add rounds it. The
+    product of two floats is exact in float64 and their sum s with c is
+    rounded there, so s + e == a*b + c with e from Knuth's two-sum; s
+    rounded to fp32 is the fused result unless s lies halfway between two
+    floats and e is not 0, where it moves one float toward e."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    f = s.float()
+    d = s - f.double()
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=f.device)
+    nxt = torch.nextafter(f, torch.where(d > 0, inf, -inf))
+    tie = (d != 0) & ((nxt.double() - f.double()).abs() == 2 * d.abs())
+    return torch.where(tie & (e * d > 0), nxt, f)
 
 
 def recompute_z(x, params) -> torch.Tensor:
     """z = a*x + b in x's dtype, a = rstd*scale, b = -a*mean + bias, rounded
-    as the kernels (and `native_group_norm`'s CUDA kernel on bf16) round it:
-    a one product, b and z one fused multiply-add each, then to x's dtype."""
+    as `native_group_norm` on x's device and dtype rounds it, and the
+    kernels with it: a one product, z one fused multiply-add, then to x's
+    dtype; b one fused multiply-add, but on an fp32 CUDA tensor a product
+    and an add, each rounded (`tools/probe_gn_stats.py --candidates`)."""
     p = lambda i: params[:, :, i, None, None]
     a = p(1) * p(2)
-    return _fma(a, x.float(), _fma(-a, p(0), p(3))).to(x.dtype)
+    if x.device.type == "cuda" and x.dtype == torch.float32:
+        b = -a * p(0) + p(3)
+    else:
+        b = _fma(-a, p(0), p(3))
+    return _fma(a, x.float(), b).to(x.dtype)
 
 
 def _dz_plain(x, dy, params):
