@@ -1,11 +1,12 @@
-"""The fixed order of the bf16 window backward's dII adds
-(`ops/rig.window_dii_index`, the per-pixel add lists the card's dII pass walks),
-on a tiny bf16 window rig on the CPU: each (pixel, tile, window position)
-add is listed once, the adds of a pixel run bucket by bucket and tile by
-tile (layer by layer inside a tile where JAX's window backward is serial,
-`window_bwd_serial`), the plain backward made in the index's order
-(`_ordered_bwd`) equals the plain backward `_tiles_bwd` bit for bit, and
-a built or cached rig carries the index (`ScaleRig.dii_order`)."""
+"""The fixed order of the bf16 backwards' dII adds
+(`ops/rig.window_dii_index`, `flat_dii_index`, the per-pixel add lists the
+card's dII pass walks), on tiny bf16 window and flat rigs on the CPU: each
+(pixel, tile, band position) add is listed once, the adds of a pixel run
+bucket by bucket and tile by tile (layer by layer inside a tile where JAX's
+window backward is serial, `window_bwd_serial`; a flat band never is), the
+plain backward made in the index's order (`_ordered_bwd`,
+`_ordered_flat_bwd`) equals the plain backward `_tiles_bwd` bit for bit,
+and a built or cached rig carries the index (`ScaleRig.dii_order`)."""
 
 import numpy as np
 import pytest
@@ -150,23 +151,136 @@ def test_ordered_plain_backward_equals_tiles_bwd(scale, monkeypatch, B,
 
 @pytest.mark.parametrize("cached", [False, True], ids=["built", "cached"])
 def test_rig_carries_the_index(tmp_path, cached):
-    """`build_rig` gives every window bucket its `window_dii_index` on the
-    rig's device, a rig loaded from the cache too; a flat rig has none."""
+    """`build_rig` gives every bucket its dII order index on the rig's
+    device, `window_dii_index` on a window rig and `flat_dii_index` on a
+    flat one, a rig loaded from the cache too."""
     tc = tiny_config(get_config("MultiviewC"))
     grid = make_grid(tc.world_size, tc.cube_size[:2], tc.name)
     build = lambda layout: trig.build_rig(
         make_calibrations(tc, 2), tc, grid, [(12, 20), (6, 10)], tile_v=16,
         dtype=torch.bfloat16, band_buckets=3, layout=layout, device="cpu",
         cache_dir=str(tmp_path))
-    rig = build("window")
+    for layout in ("window", "flat"):
+        rig = build(layout)
+        if cached:
+            rig = build(layout)   # from the file the first build wrote
+        for sr in rig.scales:
+            assert len(sr.dii_order) == len(sr.A) > 0
+            for b, got in enumerate(sr.dii_order):
+                if layout == "window":
+                    want = trig.window_dii_index(sr.starts[b], sr.window_hw[b],
+                                                 *_image(sr))
+                else:
+                    want = trig.flat_dii_index(sr.starts[b], sr.A[b].shape[-1],
+                                               _flat_pixels(sr))
+                assert all(g.dtype == torch.int32 and np.array_equal(g.numpy(), w)
+                           for g, w in zip(got, want))
     if cached:
-        assert len(list(tmp_path.iterdir())) == 1
-        rig = build("window")
-    for sr in rig.scales:
-        Hp, Wp = _image(sr)
-        assert len(sr.dii_order) == len(sr.A) > 0
-        for s_b, win, got in zip(sr.starts, sr.window_hw, sr.dii_order):
-            want = trig.window_dii_index(s_b, win, Hp, Wp)
-            assert all(g.dtype == torch.int32 and np.array_equal(g.numpy(), w)
-                       for g, w in zip(got, want))
-    assert all(sr.dii_order == () for sr in build("flat").scales)
+        assert len(list(tmp_path.iterdir())) == 2
+
+
+# ---- the flat layout ----
+
+
+@pytest.fixture(scope="module", params=["ragged", "band8"])
+def flat_scale(request):
+    """A tiny bf16 flat rig of 3 buckets: "ragged" has bands 88, 112, 136
+    (two of them 8 mod 16) and many band starts; "band8" has an 8-pixel
+    bucket beside bands 232 and 240."""
+    factor, tile_v = {"ragged": (4, 16), "band8": (8, 8)}[request.param]
+    tc = tiny_config(get_config("MultiviewC"), factor=factor)
+    grid = make_grid(tc.world_size, tc.cube_size[:2], tc.name)
+    rig = trig.build_rig(make_calibrations(tc, 2), tc, grid, [(12, 20)],
+                         tile_v=tile_v, dtype=torch.bfloat16, band_buckets=3,
+                         layout="flat", device="cpu")
+    sr = rig.scales[0]
+    bands = [a.shape[-1] for a in sr.A]
+    assert len(bands) == 3
+    assert (any(b % 16 == 8 for b in bands) and len(set(
+        int(x) for s_b in sr.starts for x in s_b.flatten())) > 8
+        if request.param == "ragged" else 8 in bands)
+    return sr
+
+
+def _flat_pixels(sr) -> int:
+    """Rows of the padded flat features: fh*fw + the largest band."""
+    return sr.feat_hw[0] * sr.feat_hw[1] + max(a.shape[-1] for a in sr.A)
+
+
+def _ordered_flat_bwd(ii, A_b, starts_b, Kr, g_b, tile_v, dII):
+    """`flat_tiles_bwd` (bf16) with its dII adds made one at a time in the
+    order of `flat_dii_index`: the same values and rounding points (one
+    rounding per band add), so the same bits when the two orders agree."""
+    N, B, rows, C = ii.shape
+    T, R, band = A_b.shape[1:]
+    pix = trig._band_pixels(starts_b, N, T, rows, band)
+    dKr, dband = trig._window_dband(ii, A_b, pix, Kr, g_b, tile_v, False)
+    entries = _entries(trig.flat_dii_index(starts_b, band, rows), rows, 1)
+    img = dII.permute(0, 2, 1, 3).reshape(N, rows, B * C).clone()
+    for n, y, x, t, k, _ in entries.tolist():
+        assert y == 0
+        img[n, x] = (img[n, x].float() + dband[n, t, 0, k]).to(torch.bfloat16)
+    dII.copy_(img.reshape(N, rows, B, C).permute(0, 2, 1, 3))
+    return dII, dKr
+
+
+def test_flat_every_add_listed_once(flat_scale):
+    """Expanding each flat bucket's index gives every (camera, pixel =
+    start + position, tile, band position) of its bands exactly once, and
+    nothing else; every pixel lies inside the padded features."""
+    sr, pixels = flat_scale, _flat_pixels(flat_scale)
+    for A_b, s_b in zip(sr.A, sr.starts):
+        band = A_b.shape[-1]
+        index = trig.flat_dii_index(s_b, band, pixels)
+        got = _entries(index, pixels, 1)[:, :5]
+        st = s_b.numpy()
+        want = [(n, 0, st[n, t] + k, t, k) for n in range(st.shape[0])
+                for t in range(st.shape[1]) for k in range(band)]
+        assert len(got) == len(want)
+        assert sorted(map(tuple, got.tolist())) == sorted(want)
+        idx, ptr, adds = index
+        assert (np.diff(ptr) > 0).all() and ptr[-1] == len(adds)
+        assert len(np.unique(idx, axis=0)) == len(idx)
+        assert idx[:, 1].min() >= 0 and idx[:, 1].max() < pixels
+
+
+def test_flat_adds_run_bucket_then_tile(flat_scale):
+    """For each pixel, the flat adds of the whole scale, bucket by bucket in
+    launch order, come in (bucket, tile) order, one a (bucket, tile): JAX's
+    sequential grid (camera, tile, scene) with buckets launched in order."""
+    sr, pixels = flat_scale, _flat_pixels(flat_scale)
+    seq = {}
+    for bi, (A_b, s_b) in enumerate(zip(sr.A, sr.starts)):
+        e = _entries(trig.flat_dii_index(s_b, A_b.shape[-1], pixels), pixels, 1)
+        for n, _, x, t, k, _ in e.tolist():
+            seq.setdefault((n, x), []).append((bi, t))
+    assert max(len(v) for v in seq.values()) > 1
+    for adds in seq.values():
+        assert adds == sorted(adds) and len(set(adds)) == len(adds)
+
+
+@pytest.mark.parametrize("B", [1, 2], ids=["B1", "B2"])
+def test_flat_ordered_plain_backward_equals_tiles_bwd(flat_scale, B):
+    """The plain bf16 flat backward with its dII adds made one at a time in
+    the index's order equals `flat_tiles_bwd` (the tile-order plain version,
+    JAX's bit for bit: tests/test_torch_bf16_train.py) bit for bit over
+    every bucket of the scale, dII carried across buckets."""
+    sr = flat_scale
+    rng = np.random.default_rng(20 + B)
+    C = 16
+    feats = rng.uniform(0, 1, size=(B, 2, *sr.feat_hw, C))
+    ii = trig.pad_features_flat(torch.from_numpy(feats).float(), sr).to(
+        torch.bfloat16)
+    assert ii.shape[2] == _flat_pixels(sr)
+    Kr = torch.from_numpy(rng.normal(size=(sr.nl, C, C)) * 0.2).to(torch.bfloat16)
+    d_ref = torch.zeros_like(ii)
+    d_ord = torch.zeros_like(ii)
+    for A_b, s_b in zip(sr.A, sr.starts):
+        T = A_b.shape[1]
+        g = torch.from_numpy(rng.normal(size=(2, B, T * sr.tile_v, C))).to(
+            torch.bfloat16)
+        _, k_ref = trig.flat_tiles_bwd(ii, A_b, s_b, Kr, g, sr.tile_v, dII=d_ref)
+        _, k_ord = _ordered_flat_bwd(ii, A_b, s_b, Kr, g, sr.tile_v, d_ord)
+        assert torch.equal(k_ref, k_ord)
+        assert torch.equal(d_ref, d_ord)
+    assert d_ref.abs().max() > 0

@@ -257,36 +257,38 @@ def call_flops(counted: int, rig, bs: int, train: bool, device, rig_impl: str) -
     return counted
 
 
-def _bf16_window(sr) -> bool:
-    return bool(sr.window_hw) and sr.A[0].dtype == torch.bfloat16
+def _bf16(sr) -> bool:
+    return sr.A[0].dtype == torch.bfloat16
 
 
 def launch_vox_elems(sr, bs: int) -> int:
     """Elements of the largest vox scratch that one forward launch on scale
     `sr` allocates at batch `bs`: (N, B, T, nl*tile_v, C) of a bucket, or
-    summed over the scale's buckets for the bf16 window forward, which runs
-    once a scale (`ops/rig_cuda._window_fwd_bf16`)."""
+    summed over the scale's buckets for the bf16 forwards, which run once a
+    scale (`ops/rig_cuda._fwd_bf16`)."""
     per = [a[..., 0].numel() * bs * 256 for a in sr.A]
-    return sum(per) if _bf16_window(sr) else max(per)
+    return sum(per) if _bf16(sr) else max(per)
 
 
 def vox_scratch_line(rig, bs: int, train: bool = False) -> str:
     """The largest vox scratch one rig kernel launch allocates at batch
     `bs`, in A's dtype (`launch_vox_elems`), beside the largest bucket's;
-    with `train` on a bf16 window rig also the largest fp32 dII scratch of
-    one backward launch ((N, B, T, nl or 1, wh*ww, C) of a bucket)."""
+    with `train` on a bf16 rig also the largest fp32 dII scratch of one
+    backward launch ((N, B, T, nl or 1, band, C) of a bucket: nl only for
+    a window bucket that JAX's backward runs serially)."""
     elems, size = max((launch_vox_elems(sr, bs), sr.A[0].element_size())
                       for sr in rig.scales)
     bucket = max(a[..., 0].numel() * bs * 256 for sr in rig.scales for a in sr.A)
     line = (f"largest vox scratch of one kernel launch at batch {bs}: {elems} "
             f"elements, {elems * size} bytes (largest bucket's: {bucket} "
             f"elements, {bucket * size} bytes)")
-    if train and any(_bf16_window(sr) for sr in rig.scales):
+    if train and any(_bf16(sr) for sr in rig.scales):
         from vfa_tpu_torch.ops.rig import window_bwd_serial
 
         dii = max(N * bs * T * K * 256
-                  * (sr.nl if window_bwd_serial(bs, K, R, 2, 2, 256) else 1)
-                  for sr in rig.scales if _bf16_window(sr)
+                  * (sr.nl if sr.window_hw
+                     and window_bwd_serial(bs, K, R, 2, 2, 256) else 1)
+                  for sr in rig.scales if _bf16(sr)
                   for N, T, R, K in (a.shape for a in sr.A))
         line += f"; largest dII scratch of one backward launch: {dii * 4} bytes"
     return line

@@ -1,5 +1,6 @@
 // Flat-layout compiled-rig forward for NVIDIA Hopper (sm_90a), fp32 in and
-// out, on the tensor cores.
+// out, on the tensor cores; its bf16 variant (K4-bf16) is at the end of the
+// file.
 //
 // Replaces vfa_tpu/ops/rig_pallas.py::_kernel (the TPU Pallas kernel
 // launched by the flat branch of _bucket_fwd_call). For each camera n,
@@ -35,8 +36,8 @@
 // across the scene axis is not carried over; the scene is the innermost
 // grid index instead, so the B CTAs that read one A tile share it in L2.
 
-#include "rig_bf16.cuh"
 #include "rig_mma.cuh"
+#include "rig_ws.cuh"
 
 // ii (N, B, pixels, C) fp32 with pixels = fh*fw + max_band; A
 // (N, T, nl*tile_v, band) fp32; starts (N*T) int32; Kr (nl, C, n_out) fp32;
@@ -53,23 +54,38 @@ extern "C" int rig_flat_fwd_f32(const float* ii, const float* A,
                                rows_total, stream);
 }
 
-// The bf16 variant: ii, A, Kr, the vox scratch and out all bf16, the same
-// shapes; the rounding points of _kernel on bf16 inputs (see
-// rig_window_fwd_bf16), both passes on the wgmma bf16 tile of rig_bf16.cuh.
-// A band is a multiple of 8 values, one 16-byte quad, so pass 1's last slice
-// is zero-filled past the band in whole quads; nl*tile_v = 800 rows are no
-// multiple of the 64-row CTA tile: rows past it are zeros in A's loader and
-// are not stored.
-extern "C" int rig_flat_fwd_bf16(const void* ii, const void* A,
-                                 const int* starts, const void* Kr, void* vox,
-                                 void* out, int N, int B, int pixels, int C,
-                                 int T, int nl, int tile_v, int band,
-                                 int n_out, int off_t, int rows_total,
-                                 void* stream) {
-  using bft::bf16;
-  return bft::rig_fwd_launch(
-      static_cast<const bf16*>(ii), static_cast<const bf16*>(A), starts,
-      static_cast<const bf16*>(Kr), static_cast<bf16*>(vox),
-      static_cast<bf16*>(out), N, B, pixels, C, T, nl, tile_v, band, n_out,
-      off_t, rows_total, stream);
+// The bf16 variant (K4-bf16), one call per scale over all its buckets, as
+// rig_window_fwd_bf16 (rig_window_fwd.cu): ii (N, B, pixels, C), Kr, the
+// vox scratch and out bf16; per bucket bk (nb of them, host arrays) A[bk]
+// (N, T[bk], nl*tile_v, K[bk]) bf16 with K[bk] the band (a multiple of 8),
+// starts[bk] (N*T[bk]) int32 and its tiles' offset off_t[bk]; the buckets'
+// vox scratches one after another in `vox`, (N, B, T[bk], nl*tile_v, C)
+// each. JAX's rounding points on bf16 inputs (vox summed in fp32 and
+// rounded to bf16, then the collapse summed in fp32 and rounded to bf16).
+// Two launches, on the warp-specialised TMA + wgmma m64n256k16 tile of
+// rig_ws.cuh, a flat band taken as a window of one row over an image of
+// one row (Hp 1, Wp = pixels):
+//   pass 1 (rig_wsvox<EPI_BF16>): every bucket's vox, persistent CTAs; a
+//          band's 64-depth stage is four 16-pixel TMA boxes from start + k,
+//          a band that is 8 (mod 16) takes its last box whole against A's
+//          zeros past the band;
+//   pass 2 (rig_wscollapse): every bucket's collapse.
+// What bounds it on the H100 (SXM, 700 W): operations at the dense bf16
+// rate. The full MultiviewC flat rig cast to bf16 (tile_v 160, A 3.0 GB)
+// makes a batch-2 forward 2.21 TFLOP, 2.23 ms at 989.4 TFLOP/s; A is read
+// once (0.9 ms at 3.35 TB/s). The one-launch vox scratch is N*B*sum(T)*R*C
+// bf16, 0.44 GB a scene at scale 0.
+extern "C" int rig_flat_fwd_bf16(const void* ii, const void* const* A,
+                                 const int* const* starts, const int* T,
+                                 const int* K, const int* off_t, int nb,
+                                 const void* Kr, void* vox, void* out, int N,
+                                 int B, int pixels, int C, int nl, int tile_v,
+                                 int n_out, int rows_total, void* stream) {
+  using wsb::bf16;
+  if (C != wsb::CH || n_out != wsb::CH) return (int)cudaErrorInvalidValue;
+  return wsb::ws_fwd_launch(
+      static_cast<const bf16*>(ii), reinterpret_cast<const bf16* const*>(A),
+      starts, T, K, nullptr, off_t, nb, static_cast<const bf16*>(Kr),
+      static_cast<bf16*>(vox), static_cast<bf16*>(out), N, B, 1, pixels, nl,
+      tile_v, rows_total, static_cast<cudaStream_t>(stream));
 }

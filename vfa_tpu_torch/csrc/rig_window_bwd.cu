@@ -71,7 +71,7 @@
 // is therefore not fixed from run to run: dII agrees to fp32 rounding, not
 // bit for bit.
 
-#include "rig_bf16_bwd.cuh"
+#include "rig_mma.cuh"
 #include "rig_ws.cuh"
 
 // ii, dII (N, B, Hp, Wp, C) fp32; A (N, T, nl*tile_v, wh*ww) fp32; starts
@@ -123,37 +123,15 @@ extern "C" int rig_window_bwd_bf16(const void* ii, const void* A,
                                    int Hp, int Wp, int C, int T, int nl,
                                    int tile_v, int wh, int ww, int n_out,
                                    int off_t, int rows_total, void* stream) {
-  using bft::bf16;
-  const int R = nl * tile_v;
+  using wsb::bf16;
   const int K = wh * ww;
-  const int NB = N * B;
-  if (C != bft::CH || n_out != bft::CH || K < 16 || K % 16 != 0 ||
-      ww % 16 != 0 || T < 1 || NB < 1 || NB > 65535 || B > 65535 || nl < 1 ||
-      tile_v < 8 || tile_v % 8 != 0 || n_pixels < 1 ||
-      (long long)NB * T * tile_v > (1LL << 30))
+  if (C != wsb::CH || n_out != wsb::CH || K < 16 || K % 16 != 0 ||
+      ww % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t plane = (size_t)NB * T * R * bft::CH;
-  bf16* voxp = static_cast<bf16*>(vox);
-  const bf16* Ap = static_cast<const bf16*>(A);
-  int err = wsb::ws_vox_launch<wsb::EPI_SPLIT>(
-      static_cast<const bf16*>(ii), &Ap, &starts, &voxp, &T, &K, &ww, 1, N, B,
-      Hp, Wp, R, plane, s);
-  if (err != 0) return err;
-  int splits = 0;
-  err = wsb::ws_dkr_launch(voxp, plane, static_cast<const bf16*>(g), ws, NB, T,
-                           nl, tile_v, off_t, rows_total, ::DKR_MAX_SPLITS,
-                           ::DKR_CHAIN, &splits, s);
-  if (err != 0) return err;
-  const int n = nl * bft::CH * bft::CH;
-  ::rig_dkr_reduce<<<(n / 4 + 255) / 256, 256, 0, s>>>(ws, dKr, n, splits);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  err = wsb::ws_dvox_launch(static_cast<const bf16*>(g),
-                            static_cast<const bf16*>(KrT), voxp, plane, NB, T,
-                            nl, tile_v, off_t, rows_total, s);
-  if (err != 0) return err;
-  return wsb::ws_dii_launch(Ap, voxp, plane, scratch, static_cast<bf16*>(dII),
-                           pixels, ptr, adds, n_pixels, serial, N, B, Hp, Wp,
-                           T, nl, tile_v, K, s);
+  return wsb::ws_bwd_launch(
+      static_cast<const bf16*>(ii), static_cast<const bf16*>(A), starts,
+      static_cast<const bf16*>(KrT), static_cast<const bf16*>(g),
+      static_cast<bf16*>(vox), ws, static_cast<bf16*>(dII), dKr, scratch,
+      pixels, ptr, adds, n_pixels, serial, N, B, Hp, Wp, T, nl, tile_v, K, ww,
+      off_t, rows_total, static_cast<cudaStream_t>(stream));
 }

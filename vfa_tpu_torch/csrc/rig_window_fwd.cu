@@ -41,7 +41,6 @@
 // full rig and batch 2 that is 1.75 GB per scale written and read once,
 // about 1 ms at 3.35 TB/s.
 
-#include "rig_bf16.cuh"
 #include "rig_mma.cuh"
 #include "rig_ws.cuh"
 
@@ -83,25 +82,11 @@ extern "C" int rig_window_fwd_bf16(const void* ii, const void* const* A,
                                    void* vox, void* out, int N, int B, int Hp,
                                    int Wp, int C, int nl, int tile_v,
                                    int n_out, int rows_total, void* stream) {
-  using bft::bf16;
-  const int R = nl * tile_v;
-  if (C != bft::CH || n_out != bft::CH || nb < 1 || nb > wsb::MAX_BUCKETS ||
-      R < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bf16* outs[wsb::MAX_BUCKETS];
-  size_t at = 0;
-  for (int bk = 0; bk < nb; ++bk) {
-    outs[bk] = static_cast<bf16*>(vox) + at;
-    at += (size_t)N * B * T[bk] * R * bft::CH;
-  }
-  int err = wsb::ws_vox_launch<wsb::EPI_BF16>(
-      static_cast<const bf16*>(ii),
-      reinterpret_cast<const bf16* const*>(A), starts, outs, T, K, ww, nb, N,
-      B, Hp, Wp, R, 0, s);
-  if (err != 0) return err;
-  return wsb::ws_collapse_launch(outs, T, off_t, nb,
-                                 static_cast<const bf16*>(Kr),
-                                 static_cast<bf16*>(out), N, B, nl, tile_v,
-                                 rows_total, s);
+  using wsb::bf16;
+  if (C != wsb::CH || n_out != wsb::CH) return (int)cudaErrorInvalidValue;
+  return wsb::ws_fwd_launch(
+      static_cast<const bf16*>(ii), reinterpret_cast<const bf16* const*>(A),
+      starts, T, K, ww, off_t, nb, static_cast<const bf16*>(Kr),
+      static_cast<bf16*>(vox), static_cast<bf16*>(out), N, B, Hp, Wp, nl,
+      tile_v, rows_total, static_cast<cudaStream_t>(stream));
 }

@@ -1,29 +1,34 @@
-// The warp-specialised bf16 tile of the window rig kernels for NVIDIA
-// Hopper (sm_90a), and the kernels written on it:
-//   rig_wsvox       vox[n, b, t] = A[n, t] @ window(n, b, t), fp32 sums, over
-//                   every bucket of a scale in one launch: pass 1 of the
-//                   bf16 window forward (rig_window_fwd_bf16, K1-bf16; vox
-//                   rounded to bf16) and of the bf16 window backward
-//                   (rig_window_bwd_bf16, K2-bf16 / K3-bf16; vox kept as hi
-//                   + lo planes);
+// The warp-specialised bf16 tile of the rig kernels for NVIDIA Hopper
+// (sm_90a), window and flat layout, and the kernels written on it:
+//   rig_wsvox       vox[n, b, t] = A[n, t] @ band(n, b, t), fp32 sums, over
+//                   every bucket of a scale in one launch, the band a 2D
+//                   window or a flat band of contiguous pixels: pass 1 of
+//                   the bf16 forwards (rig_window_fwd_bf16, K1-bf16;
+//                   rig_flat_fwd_bf16, K4-bf16; vox rounded to bf16) and of
+//                   the bf16 backwards (rig_window_bwd_bf16, K2-bf16 /
+//                   K3-bf16; rig_flat_bwd_bf16, K5-bf16; vox kept as hi + lo
+//                   planes);
 //   rig_wscollapse  out = sum_l vox_l @ Kr_l over every bucket of a scale:
-//                   pass 2 of K1-bf16;
+//                   pass 2 of K1-bf16 and K4-bf16;
 //   rig_wsdkr       dKr_l += vox_l^T @ g per depth chunk (added by
-//                   rig_mma.cuh's rig_dkr_reduce): pass 2 of K2-bf16;
-//   rig_wsdvox      dvox_l = g @ Kr_l^T: pass 3 of K2-bf16;
-//   rig_wsdband     each window's fp32 A^T @ dvox (per layer where JAX's
-//                   window backward is serial) into a scratch, and then
+//                   rig_mma.cuh's rig_dkr_reduce): pass 2 of the backwards;
+//   rig_wsdvox      dvox_l = g @ Kr_l^T: pass 3 of the backwards;
+//   rig_wsdband     each band's fp32 A^T @ dvox (per layer where JAX's
+//                   window backward is serial; never for a flat band) into a
+//                   scratch, and then
 //   rig_dii_reduce  (no tensor cores) dII += those in a fixed order, no
-//                   atomics: pass 4 of K2-bf16.
-// They replace vfa_tpu/ops/rig_pallas.py::_kernel_win and the window
-// backwards _bwd_kernel_win_pipe / _bwd_kernel_win on bf16 inputs, with
-// JAX's rounding points (rig_pallas.py:58-72, 177-191, 311-336, 416-425).
+//                   atomics: pass 4 of the backwards.
+// They replace vfa_tpu/ops/rig_pallas.py::_kernel_win, _kernel and the
+// backwards _bwd_kernel_win_pipe / _bwd_kernel_win / _bwd_kernel on bf16
+// inputs, with JAX's rounding points (rig_pallas.py:58-72, 177-191,
+// 311-336, 416-425, 477-502).
 //
 // What bounds them on the H100 (SXM, 700 W): operations at the dense bf16
 // rate (989.4 TFLOP/s). A 128-row item of rig_wsvox does 128 * 256 * 2
 // operations per byte of its 64-deep band slice; rig_wsdband reads each
-// tile's dvox once per 128 window positions (from L2 after the first), and
-// the scratch round trip of rig_dii_reduce is bytes.
+// tile's dvox once per 128 band positions (from L2 after the first), and
+// the scratch round trip of rig_dii_reduce is bytes (a flat band covers a
+// pixel 13-23 times on average at the full MultiviewC rig, a window fewer).
 //
 // The tile (the hopper-kernels guide's shape). A CTA of three warpgroups:
 //   - warpgroups 0 and 1, the consumers (setmaxnreg 224): rows 0-63 and
@@ -44,13 +49,19 @@
 // K come as zeros); and the band's 64 pixels x 256 channels, MN-major
 // (channels contiguous), for wgmma's transposed B operand. A window's
 // pixels are not contiguous in the image, but 16 neighbouring depths are:
-// the window width is a multiple of 16 and so is every slice origin. Each
-// 16-depth segment is 4 TMA boxes of 16 pixels x 64 channels (one per
-// 64-channel block, 128 bytes a pixel with 128-byte swizzle) from a 2D map
-// over the features (256 channels, every pixel of every image), and the
-// segment is one wgmma's depth (a ragged last stage repeats its last
-// segment against A's zero depths past K). Each consumer keeps one stage's
-// products in flight and frees the stage before it.
+// the window width is a multiple of 16 and so is every slice origin. A flat
+// band is a window of one row over an image of one row (start + k, start a
+// multiple of 8, the band a multiple of 8): every 16 depths are contiguous,
+// and a band that is 8 (mod 16) takes its last segment whole, 8 depths
+// past the band that meet A's zeros there against real, finite rows of the
+// padded features (or TMA's zeros past the buffer's end). Each 16-depth
+// segment is 4 TMA boxes of 16 pixels x 64 channels (one per 64-channel
+// block, 128 bytes a pixel with 128-byte swizzle) from a 2D map over the
+// features (256 channels, every pixel of every image; TMA's coordinates
+// need no alignment), and the segment is one wgmma's depth (a ragged last
+// stage repeats its last segment against A's zero depths past K). Each
+// consumer keeps one stage's products in flight and frees the stage before
+// it.
 // The CTAs are persistent: one per SM, each walking the items i =
 // blockIdx.x + j * gridDim.x in order (rig_wsvox: bucket, camera, tile,
 // 128-row block, scene, the scene innermost so that the B CTAs reading one
@@ -67,6 +78,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "rig_mma.cuh"   // DKR_CHAIN, DKR_MAX_SPLITS, rig_dkr_reduce
 
 namespace wsb {
 namespace {
@@ -98,13 +111,14 @@ static_assert(STAGE % 1024 == 0 && A_STAGE % 1024 == 0, "swizzle atoms");
 struct alignas(64) VoxParams {
   CUtensorMap a_map[MAX_BUCKETS];   // A_b as (K, R, N*T_b), box (64, 128, 1)
   CUtensorMap band;                 // features as (256, N*B*Hp*Wp), box (64, 16)
-  const int* starts[MAX_BUCKETS];   // (N, T_b, 2) window origins
+  const int* starts[MAX_BUCKETS];   // (N, T_b, 2) window origins or (N, T_b) band starts
   bf16* out[MAX_BUCKETS];           // the bucket's vox scratch
   int item0[MAX_BUCKETS + 1];       // first item of each bucket
   int T[MAX_BUCKETS];
   int K[MAX_BUCKETS];
   int ww[MAX_BUCKETS];
   int nbuckets, B, Hp, Wp, R, rblocks;
+  int flat;                         // flat bands: Hp == 1, starts (N, T_b)
   size_t plane;                     // EPI_SPLIT: elements of one plane
 };
 
@@ -450,11 +464,13 @@ rig_wsvox(const __grid_constant__ VoxParams p, int items) {
         const Item it = item_at(p, item);
         const int K = p.K[it.bk], ww = p.ww[it.bk];
         const int i = it.n * p.T[it.bk] + it.t;
-        const int ry = p.starts[it.bk][2 * i];
-        const int rx = p.starts[it.bk][2 * i + 1];
+        const int* st = p.starts[it.bk];
+        const int ry = p.flat ? 0 : st[2 * i];
+        const int rx = p.flat ? st[i] : st[2 * i + 1];
         const int img = (it.n * p.B + it.b) * p.Hp;
         for (int k0 = 0; k0 < K; k0 += BK) {
-          const int nseg = min(BK, K - k0) / SEG;
+          // a flat band's last segment may hold 8 depths: taken whole
+          const int nseg = (min(BK, K - k0) + SEG - 1) / SEG;
           mbar_wait(&empty[stage], phase ^ 1);
           unsigned char* As = smem + stage * STAGE;
           unsigned char* Bs = As + A_STAGE;
@@ -466,7 +482,7 @@ rig_wsvox(const __grid_constant__ VoxParams p, int items) {
 #pragma unroll
           for (int s = 0; s < BK / SEG; ++s) {
             const int k = k0 + min(s, nseg - 1) * SEG;
-            const int wy = k / ww;
+            const int wy = p.flat ? 0 : k / ww;
             const int pix = (img + ry + wy) * p.Wp + rx + (k - wy * ww);
 #pragma unroll
             for (int cb = 0; cb < 4; ++cb)
@@ -520,11 +536,12 @@ rig_wsvox(const __grid_constant__ VoxParams p, int items) {
   }
 }
 
-// ---- the dII pass of the bf16 window backward ----
+// ---- the dII pass of the bf16 backwards ----
 //
-// dII[n, b, window(n, t)] += A[n, t]^T @ dvox[n, b, t] for every tile t of a
-// bucket, in a fixed order and without atomics, in two kernels:
-//   rig_wsdband, tile-stationary: an item is 128 window positions k0 ..
+// dII[n, b, band(n, t)] += A[n, t]^T @ dvox[n, b, t] for every tile t of a
+// bucket (a window, or a flat band: a window of one row), in a fixed order
+// and without atomics, in two kernels:
+//   rig_wsdband, tile-stationary: an item is 128 band positions k0 ..
 //     k0 + 127 of one tile and scene, the two consumer warpgroups 64 each
 //     (the M of a wgmma m64n256k16); it writes its positions' fp32
 //     A^T dvox, 256 channels, to a scratch (N*B, T, L, K, 256), L = 1 or,
@@ -540,8 +557,10 @@ rig_wsvox(const __grid_constant__ VoxParams p, int items) {
 //     from L2;
 //   rig_dii_reduce, output-stationary and memory-bound: a warp owns one
 //     (pixel, scene) of dII (8 channels a lane), reads it once, walks the
-//     pixel's adds (ops/rig.window_dii_index: (tile, window position) in
-//     tile order, layer by layer inside a tile where serial), adds each
+//     pixel's adds (ops/rig.window_dii_index, flat_dii_index: (tile, band
+//     position) in tile order, layer by layer inside a tile where serial;
+//     buckets launch in order, so a scale's adds run in JAX's grid order,
+//     bucket, camera, tile, scene), adds each
 //     scratch row in fp32 with one rounding to bf16, and writes it once.
 // (An output-stationary single pass, each 8 x 16 pixel block walking the
 // tiles whose window meets it, re-read each tile's dvox from device memory
@@ -667,8 +686,9 @@ rig_wsdband(const __grid_constant__ DbandParams p, int items) {
 }
 
 // dII of one bucket from its scratch: a warp a (pixel, scene), pixel j of
-// the index (camera, row * Wp + column) with adds[ptr[j] .. ptr[j+1]) of
-// (tile, window position); grid (ceil(n_pixels / 8), B), 256 threads.
+// the index (camera, row * Wp + column; a flat band's row is 0) with
+// adds[ptr[j] .. ptr[j+1]) of (tile, band position); grid
+// (ceil(n_pixels / 8), B), 256 threads.
 __global__ void __launch_bounds__(256)
 rig_dii_reduce(const float* __restrict__ scratch, bf16* __restrict__ dII,
                const int* __restrict__ pixels, const int* __restrict__ ptr,
@@ -1098,16 +1118,19 @@ inline int num_sms() {
 
 // Fill the parameters of one launch over `nb` buckets of one scale and
 // launch it. ii (N, B, Hp, Wp, 256) bf16; per bucket A[bk] (N, T, R, K),
-// starts[bk] (N, T, 2), out[bk] its scratch. EPI_SPLIT: plane = elements of
-// one plane of a single bucket (nb must be 1).
+// starts[bk] (N, T, 2) window origins with window width ww[bk] (K a multiple
+// of 16), or, with ww null, (N, T) flat band starts into ii as (N, B, 1,
+// Wp) (K a multiple of 8); out[bk] its scratch. EPI_SPLIT: plane = elements
+// of one plane of a single bucket (nb must be 1).
 template <int EPI>
 inline int ws_vox_launch(const bf16* ii, const bf16* const* A,
                          const int* const* starts, bf16* const* out,
                          const int* T, const int* K, const int* ww, int nb,
                          int N, int B, int Hp, int Wp, int R, size_t plane,
                          cudaStream_t s) {
+  const bool flat = ww == nullptr;
   if (nb < 1 || nb > MAX_BUCKETS || R < 1 || N < 1 || B < 1 ||
-      (EPI == EPI_SPLIT && nb != 1))
+      (EPI == EPI_SPLIT && nb != 1) || (flat && Hp != 1))
     return (int)cudaErrorInvalidValue;
   VoxParams p{};   // copied into the launch by value
   const uint64_t pixels = (uint64_t)N * B * Hp * Wp;
@@ -1121,7 +1144,8 @@ inline int ws_vox_launch(const bf16* ii, const bf16* const* A,
   long long items = 0;
   p.rblocks = (R + BM - 1) / BM;
   for (int bk = 0; bk < nb; ++bk) {
-    if (K[bk] < SEG || K[bk] % SEG || ww[bk] % SEG || T[bk] < 1)
+    if (T[bk] < 1 || (flat ? K[bk] < 8 || K[bk] % 8
+                           : K[bk] < SEG || K[bk] % SEG || ww[bk] % SEG))
       return (int)cudaErrorInvalidValue;
     const uint64_t dims[3] = {(uint64_t)K[bk], (uint64_t)R,
                               (uint64_t)N * T[bk]};
@@ -1133,7 +1157,7 @@ inline int ws_vox_launch(const bf16* ii, const bf16* const* A,
     p.out[bk] = out[bk];
     p.T[bk] = T[bk];
     p.K[bk] = K[bk];
-    p.ww[bk] = ww[bk];
+    p.ww[bk] = flat ? 0 : ww[bk];
     p.item0[bk] = (int)items;
     items += (long long)N * T[bk] * p.rblocks * B;
   }
@@ -1144,6 +1168,7 @@ inline int ws_vox_launch(const bf16* ii, const bf16* const* A,
   p.Hp = Hp;
   p.Wp = Wp;
   p.R = R;
+  p.flat = flat;
   p.plane = plane;
   static bool attr_set = false;
   if (!attr_set) {
@@ -1162,16 +1187,18 @@ inline int ws_vox_launch(const bf16* ii, const bf16* const* A,
   return (int)cudaGetLastError();
 }
 
-// The dII pass of one bucket: A (N, T, nl*tile_v, K) bf16; dvox the two
+// The dII pass of one bucket: A (N, T, nl*tile_v, K) bf16 (K a multiple
+// of 8: its rows' 2*K bytes a multiple of 16, as TMA needs); dvox the two
 // planes (plane elements apart) of (N*B*T, R, 256); scratch fp32 (N*B, T,
-// L, K, 256), L = serial ? nl : 1; dII (N, B, Hp, Wp, 256) bf16, added to
-// in the order of the index (n_pixels pixels, their adds).
+// L, K, 256), L = serial ? nl : 1 (positions past K are neither written nor
+// read); dII (N, B, Hp, Wp, 256) bf16, added to in the order of the index
+// (n_pixels pixels, their adds).
 inline int ws_dii_launch(const bf16* A, const bf16* dvox, size_t plane,
                          float* scratch, bf16* dII, const int* pixels,
                          const int* ptr, const int* adds, int n_pixels,
                          int serial, int N, int B, int Hp, int Wp, int T,
                          int nl, int tile_v, int K, cudaStream_t s) {
-  if (n_pixels < 1 || K < 16 || K % 16 || tile_v < 1 || nl < 1 || B > 65535)
+  if (n_pixels < 1 || K < 8 || K % 8 || tile_v < 1 || nl < 1 || B > 65535)
     return (int)cudaErrorInvalidValue;
   DbandParams p{};
   const int R = nl * tile_v;
@@ -1373,6 +1400,81 @@ inline int ws_collapse_launch(bf16* const* vox, const int* T, const int* off_t,
   const int grid = (int)(items < num_sms() ? items : num_sms());
   rig_wscollapse<<<grid, THREADS, SMEM_BYTES, s>>>(p, (int)items, NB);
   return (int)cudaGetLastError();
+}
+
+
+// ---- the bf16 forward and backward of a rig, on this tile ----
+
+// The forward of `nb` buckets of one scale (K1-bf16, K4-bf16), one launch of
+// each pass for all of them: ii (N, B, Hp, Wp, 256) bf16 (a flat rig: Hp 1,
+// Wp the padded band buffer's pixels); per bucket A[bk], starts[bk], T[bk],
+// K[bk], off_t[bk] and, for windows, ww[bk] (null: flat bands; see
+// ws_vox_launch); the buckets' vox scratches one after another in `vox`,
+// (N, B, T[bk], nl*tile_v, 256) each; Kr (nl, 256, 256); out the scale's
+// (N, B, rows_total, 256) tiles. vox = A @ band summed in fp32 and rounded
+// to bf16, then the collapse summed in fp32 and rounded to bf16.
+inline int ws_fwd_launch(const bf16* ii, const bf16* const* A,
+                         const int* const* starts, const int* T, const int* K,
+                         const int* ww, const int* off_t, int nb,
+                         const bf16* Kr, bf16* vox, bf16* out, int N, int B,
+                         int Hp, int Wp, int nl, int tile_v, int rows_total,
+                         cudaStream_t s) {
+  const int R = nl * tile_v;
+  if (nb < 1 || nb > MAX_BUCKETS || R < 1) return (int)cudaErrorInvalidValue;
+  bf16* outs[MAX_BUCKETS];
+  size_t at = 0;
+  for (int bk = 0; bk < nb; ++bk) {
+    outs[bk] = vox + at;
+    at += (size_t)N * B * T[bk] * R * CH;
+  }
+  int err = ws_vox_launch<EPI_BF16>(ii, A, starts, outs, T, K, ww, nb, N, B,
+                                    Hp, Wp, R, 0, s);
+  if (err != 0) return err;
+  return ws_collapse_launch(outs, T, off_t, nb, Kr, out, N, B, nl, tile_v,
+                            rows_total, s);
+}
+
+// The backward of one bucket (K2-bf16 / K3-bf16, K5-bf16), five launches:
+// ii and A as ws_fwd_launch (ww 0: flat bands); KrT (nl, 256, 256), Kr with
+// its last two axes swapped; g the scale's (N, B, rows_total, 256)
+// cotangent; vox the (N*B*T, nl*tile_v, 256) fp32 scratch as two bf16
+// planes (vox hi + lo, then dvox over it); ws (DKR_MAX_SPLITS, nl, 256, 256)
+// fp32; dKr (nl, 256, 256) fp32 and dII (N, B, Hp, Wp, 256) bf16, added to;
+// scratch (N*B, T, serial ? nl : 1, K, 256) fp32; the dII order index
+// (pixels, ptr, adds, n_pixels). JAX's rounding points on bf16 inputs: vox,
+// dvox and dKr fp32, dII rounded once per band add (serial == 0) or once
+// per layer of each window (serial == 1).
+inline int ws_bwd_launch(const bf16* ii, const bf16* A, const int* starts,
+                         const bf16* KrT, const bf16* g, bf16* vox, float* ws,
+                         bf16* dII, float* dKr, float* scratch,
+                         const int* pixels, const int* ptr, const int* adds,
+                         int n_pixels, int serial, int N, int B, int Hp,
+                         int Wp, int T, int nl, int tile_v, int K, int ww,
+                         int off_t, int rows_total, cudaStream_t s) {
+  const int R = nl * tile_v;
+  const int NB = N * B;
+  if (T < 1 || NB < 1 || NB > 65535 || B > 65535 || nl < 1 || tile_v < 8 ||
+      tile_v % 8 != 0 || n_pixels < 1 ||
+      (long long)NB * T * tile_v > (1LL << 30))
+    return (int)cudaErrorInvalidValue;
+  const size_t plane = (size_t)NB * T * R * CH;
+  int err = ws_vox_launch<EPI_SPLIT>(ii, &A, &starts, &vox, &T, &K,
+                                     ww ? &ww : nullptr, 1, N, B, Hp, Wp, R,
+                                     plane, s);
+  if (err != 0) return err;
+  int splits = 0;
+  err = ws_dkr_launch(vox, plane, g, ws, NB, T, nl, tile_v, off_t, rows_total,
+                      ::DKR_MAX_SPLITS, ::DKR_CHAIN, &splits, s);
+  if (err != 0) return err;
+  const int n = nl * CH * CH;
+  ::rig_dkr_reduce<<<(n / 4 + 255) / 256, 256, 0, s>>>(ws, dKr, n, splits);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  err = ws_dvox_launch(g, KrT, vox, plane, NB, T, nl, tile_v, off_t,
+                       rows_total, s);
+  if (err != 0) return err;
+  return ws_dii_launch(A, vox, plane, scratch, dII, pixels, ptr, adds,
+                       n_pixels, serial, N, B, Hp, Wp, T, nl, tile_v, K, s);
 }
 
 }  // namespace

@@ -40,11 +40,13 @@ SIGNATURES = {
     },
     "rig_flat_fwd": {
         "rig_flat_fwd_f32": [P] * 6 + [I] * 11 + [P],
-        "rig_flat_fwd_bf16": [P] * 6 + [I] * 11 + [P],
+        # per-bucket host arrays (A, starts, T, K, off_t), nb, Kr, vox, out
+        "rig_flat_fwd_bf16": [P] * 6 + [I] + [P] * 3 + [I] * 8 + [P],
     },
     "rig_flat_bwd": {
         "rig_flat_bwd_f32": [P] * 9 + [I] * 11 + [P],
-        "rig_flat_bwd_bf16": [P] * 9 + [I] * 11 + [P],
+        # + the dII scratch and order index (pixels, ptr, adds), n_pixels
+        "rig_flat_bwd_bf16": [P] * 13 + [I] * 12 + [P],
     },
     "stem_bwd": {
         "stem_bwd_stats_f32": [P] * 5 + [I] * 4 + [P],

@@ -54,13 +54,14 @@ class ScaleRig:
 
     Window layout (window_hw[b] == (wh_b, ww_b)): band_b = wh_b*ww_b and
     starts[b] is (N, T_b, 2) int32 (row, col) window origins inside the
-    image padded to (fh up to a multiple of 8, fw up to 16), and
-    dii_order[b] is `window_dii_index` of the bucket as int32 tensors on
-    the rig's device: the order the bf16 window backward adds dII in, made
-    from starts when the rig is built or loaded.
+    image padded to (fh up to a multiple of 8, fw up to 16).
     Flat layout (window_hw == ()): starts[b] is (N, T_b) int32 band starts
     in the features flattened to (fh*fw, C); starts and band_b are
-    multiples of 8, and the features are padded by max band_b zero rows."""
+    multiples of 8, and the features are padded by max band_b zero rows.
+    dii_order[b] is `window_dii_index` (window) or `flat_dii_index` (flat)
+    of the bucket as int32 tensors on the rig's device: the order the bf16
+    backward adds dII in, made from starts when the rig is built or
+    loaded."""
 
     A: tuple
     starts: tuple
@@ -70,7 +71,7 @@ class ScaleRig:
     tile_v: int
     on_raw: bool = True
     window_hw: tuple = ()   # per bucket (wh_b, ww_b); () = flat layout
-    dii_order: tuple = ()   # per window bucket (pixels, ptr, adds)
+    dii_order: tuple = ()   # per bucket (pixels, ptr, adds)
 
 
 @dataclasses.dataclass
@@ -658,18 +659,26 @@ def _load_rig(path: str, feat_shapes, tile_v: int, fold_prefix: bool,
                 inv_perm=torch.from_numpy(z[f"p{i}"].astype(np.int64)).to(device),
                 feat_hw=(fh, fw), nl=int(z[f"nl{i}"]), tile_v=tile_v,
                 on_raw=fold_prefix, window_hw=win_hw,
-                dii_order=_dii_orders(starts, win_hw, (fh, fw), device)))
+                dii_order=_dii_orders(starts, win_hw, [a.shape[-1] for a in A],
+                                      (fh, fw), device)))
     return CameraRig(scales=scales, grid_shape=grid_shape)
 
 
-def _dii_orders(starts, window_hw, feat_hw, device) -> tuple:
-    """`window_dii_index` of every window bucket from its numpy starts, as
-    int32 tensors on `device` (() for the flat layout)."""
-    Hp, Wp = _round_up(feat_hw[0], 8), _round_up(feat_hw[1], 16)
-    return tuple(
-        tuple(torch.from_numpy(a).to(device) for a in
-              window_dii_index(torch.from_numpy(st), win, Hp, Wp))
-        for st, win in zip(starts, window_hw))
+def _dii_orders(starts, window_hw, bands, feat_hw, device) -> tuple:
+    """The dII order index of every bucket from its numpy starts, as int32
+    tensors on `device`: `window_dii_index` of each window bucket, or, for
+    the flat layout (window_hw == ()), `flat_dii_index` of each bucket of
+    band bands[b]."""
+    if not window_hw:
+        pixels = feat_hw[0] * feat_hw[1] + max(bands)
+        index = [flat_dii_index(torch.from_numpy(st), band, pixels)
+                 for st, band in zip(starts, bands)]
+    else:
+        Hp, Wp = _round_up(feat_hw[0], 8), _round_up(feat_hw[1], 16)
+        index = [window_dii_index(torch.from_numpy(st), win, Hp, Wp)
+                 for st, win in zip(starts, window_hw)]
+    return tuple(tuple(torch.from_numpy(a).to(device) for a in ix)
+                 for ix in index)
 
 
 def build_rig(
@@ -727,7 +736,8 @@ def build_rig(
             inv_perm=torch.from_numpy(inv_perm.astype(np.int64)).to(device),
             feat_hw=(fh, fw), nl=nl, tile_v=tile_v, on_raw=fold_prefix,
             window_hw=tuple(win_hw),
-            dii_order=_dii_orders(s_bk, win_hw, (fh, fw), device),
+            dii_order=_dii_orders(s_bk, win_hw, [a.shape[-1] for a in A_bk],
+                                  (fh, fw), device),
         ))
     rig = CameraRig(scales=scales, grid_shape=(L, W))
     if path is not None:
@@ -946,6 +956,17 @@ def window_dii_index(starts_b: torch.Tensor, window, Hp: int, Wp: int):
     ptr = np.append(first, key.size)
     return (pixels.astype(np.int32), ptr.astype(np.int32),
             np.stack([tile, pos], 1).astype(np.int32))
+
+
+def flat_dii_index(starts_b: torch.Tensor, band: int, pixels: int):
+    """`window_dii_index` of one flat bucket: each band is a window of one
+    row, (1, band), at (0, start) in an image of one row of `pixels` pixels
+    (the padded flat features, fh*fw + max_band), so a pixel's index is its
+    row in the flattened features. JAX's flat backward rounds once per band
+    (`vfa_tpu/ops/rig_pallas.py:501-502`), in the same (tile) order."""
+    st = starts_b.detach().cpu().reshape(-1, starts_b.shape[-1])
+    win = torch.stack([torch.zeros_like(st), st], -1)
+    return window_dii_index(win, (1, band), 1, pixels)
 
 
 def window_tiles(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,

@@ -16,21 +16,19 @@ differentiates.
 
 All four kernels run on one tensor-core tile and stay fp32-accurate
 through a 3xTF32 split (`csrc/rig_mma.cuh`; the same arithmetic in plain
-PyTorch is `ops/rig.matmul_3xtf32`). The two forwards also have bf16
-variants (`rig_window_fwd_bf16`, `rig_flat_fwd_bf16` in the same sources),
-taken when every floating input is bfloat16: vox and the tiles are
-rounded to bf16 where JAX's kernels round them. The window one runs once
-per scale over all its buckets (`rig_window_fwd_scale`; its first pass on
-the warp-specialised TMA + wgmma tile of `csrc/rig_ws.cuh`), the flat one
-per bucket on the bf16 tile of `csrc/rig_bf16.cuh`. So do the two
-backwards (`rig_window_bwd_bf16` on `csrc/rig_ws.cuh`, `rig_flat_bwd_bf16`
-on `csrc/rig_bf16_bwd.cuh`): vox, dvox and dKr stay fp32, and the bf16 dII
-accumulator rounds as `ops/rig._tiles_bwd` says, once per window add or,
+PyTorch is `ops/rig.matmul_3xtf32`). Each has a bf16 variant
+(`rig_window_fwd_bf16`, `rig_flat_fwd_bf16`, `rig_window_bwd_bf16`,
+`rig_flat_bwd_bf16` in the same sources), taken when every floating input
+is bfloat16, on the warp-specialised TMA + wgmma tile of `csrc/rig_ws.cuh`:
+vox and the tiles are rounded to bf16 where JAX's kernels round them. The
+bf16 forwards run once per scale over all its buckets (`rig_fwd_scale`),
+the bf16 backwards per bucket: vox, dvox and dKr stay fp32, and the bf16
+dII accumulator rounds as `ops/rig._tiles_bwd` says, once per band add or,
 on a window bucket that JAX runs serially (`ops/rig.window_bwd_serial`),
-once per layer; the window backward adds dII without atomics in the
-fixed order of `ops/rig.window_dii_index` (`ScaleRig.dii_order`, made
-when the rig is built), through an fp32 scratch of each window's
-gradient, so its dII has the same bits every run.
+once per layer, without atomics in the fixed order of
+`ops/rig.window_dii_index` / `flat_dii_index` (`ScaleRig.dii_order`, made
+when the rig is built), through an fp32 scratch of each band's gradient,
+so its dII has JAX's order and the same bits every run.
 
 On a CPU tensor a wrapper runs its kernel's plain version
 (`ops/rig.window_tiles`, `window_tiles_bwd`, `flat_tiles`,
@@ -46,9 +44,9 @@ from torch.autograd.function import once_differentiable
 
 from vfa_tpu_torch.kernels import LaunchCount
 from vfa_tpu_torch.ops.rig import (
-    ScaleRig, collapse_per_layer, flat_tiles, flat_tiles_bwd, rig_epilogue,
-    scale_features, window_bwd_serial, window_dii_index, window_tiles,
-    window_tiles_bwd,
+    ScaleRig, collapse_per_layer, flat_dii_index, flat_tiles, flat_tiles_bwd,
+    rig_epilogue, scale_features, window_bwd_serial, window_dii_index,
+    window_tiles, window_tiles_bwd,
 )
 
 
@@ -146,36 +144,41 @@ def _check_window_fwd(ii, A_b, starts_b, Kr, out, off_t, tile_v, window):
         f"{tuple(out.shape)}, off_t {off_t}, tile_v {tile_v}, window {window}")
 
 
-def _window_fwd_bf16(ii, buckets, Kr, out, tile_v):
-    """The bf16 window forward over `buckets` ((A_b, starts_b, off_t,
-    window) each, already checked) in one call: one launch of each pass for
-    all of them, into one vox scratch. Counts one launch."""
-    N, B, Hp, Wp, C = ii.shape
+def _fwd_bf16(ii, buckets, Kr, out, tile_v):
+    """The bf16 forward over `buckets` ((A_b, starts_b, off_t, window or
+    None) each, already checked; all window or all flat) in one call: one
+    launch of each pass for all of them, into one vox scratch. Counts one
+    launch of the layout's bf16 forward."""
+    N, B, C = ii.shape[0], ii.shape[1], ii.shape[-1]
     nl = Kr.shape[0]
     nb = len(buckets)
-    if any(win[1] % 16 for _, _, _, win in buckets):
-        raise ValueError("rig_window_fwd: the bf16 kernel takes window widths "
-                         "that are multiples of 16")
+    flat = buckets[0][3] is None
+    what = "rig_flat_fwd" if flat else "rig_window_fwd"
+    if not flat and any(win[1] % 16 for _, _, _, win in buckets):
+        raise ValueError(f"{what}: the bf16 kernel takes window widths that "
+                         "are multiples of 16")
     if nb > MAX_BUCKETS:
-        raise ValueError(f"rig_window_fwd: at most {MAX_BUCKETS} buckets a "
-                         f"launch, got {nb}")
+        raise ValueError(f"{what}: at most {MAX_BUCKETS} buckets a launch, "
+                         f"got {nb}")
     Ts = [A_b.shape[1] for A_b, _, _, _ in buckets]
     vox = torch.empty((N * B * sum(Ts) * nl * tile_v * C,), dtype=ii.dtype,
                       device=ii.device)
     ptrs = lambda xs: (ctypes.c_void_p * nb)(*xs)
     ints = lambda xs: (ctypes.c_int * nb)(*xs)
-    _launch("rig_window_fwd", ii, ii.data_ptr(),
-            ptrs([A_b.data_ptr() for A_b, _, _, _ in buckets]),
-            ptrs([s_b.data_ptr() for _, s_b, _, _ in buckets]), ints(Ts),
-            ints([A_b.shape[3] for A_b, _, _, _ in buckets]),
-            ints([win[1] for _, _, _, win in buckets]),
+    per_bucket = [ptrs([A_b.data_ptr() for A_b, _, _, _ in buckets]),
+                  ptrs([s_b.data_ptr() for _, s_b, _, _ in buckets]), ints(Ts),
+                  ints([A_b.shape[3] for A_b, _, _, _ in buckets])]
+    if not flat:
+        per_bucket.append(ints([win[1] for _, _, _, win in buckets]))
+    image = [ii.shape[2]] if flat else [ii.shape[2], ii.shape[3]]
+    _launch(what, ii, ii.data_ptr(), *per_bucket,
             ints([o for _, _, o, _ in buckets]), nb, Kr.data_ptr(),
-            vox.data_ptr(), out.data_ptr(), N, B, Hp, Wp, C, nl, tile_v,
+            vox.data_ptr(), out.data_ptr(), N, B, *image, C, nl, tile_v,
             Kr.shape[-1], out.shape[2])
-    rig_window_fwd_bf16.launches += 1
+    (rig_flat_fwd_bf16 if flat else rig_window_fwd_bf16).launches += 1
 
 
-# buckets of one bf16 window forward launch (MAX_BUCKETS in csrc/rig_ws.cuh)
+# buckets of one bf16 forward launch (MAX_BUCKETS in csrc/rig_ws.cuh)
 MAX_BUCKETS = 16
 
 
@@ -188,7 +191,7 @@ def rig_window_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
     starts_b (N, T, 2) int32; Kr (nl, C, n_out); out (N, B, rows, n_out).
     ii, A_b, Kr and out are all float32 or all bfloat16 (the bf16 variant:
     vox and out rounded to bf16 as `window_tiles` rounds them; a scale's
-    buckets go in one launch through `rig_window_fwd_scale`).
+    buckets go in one launch through `rig_fwd_scale`).
     `rig_window_fwd.launches` counts fp32 kernel launches,
     `rig_window_fwd_bf16.launches` bf16 ones."""
     N, B, Hp, Wp, C = ii.shape
@@ -201,7 +204,7 @@ def rig_window_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
         return out
     dtype = _check_window_fwd(ii, A_b, starts_b, Kr, out, off_t, tile_v, window)
     if dtype == torch.bfloat16:
-        _window_fwd_bf16(ii, [(A_b, starts_b, off_t, window)], Kr, out, tile_v)
+        _fwd_bf16(ii, [(A_b, starts_b, off_t, window)], Kr, out, tile_v)
         return out
     wh, ww = window
     # vox scratch between the kernel's two passes (A-product, collapse)
@@ -213,21 +216,28 @@ def rig_window_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
     return out
 
 
-def rig_window_fwd_scale(ii: torch.Tensor, rig: ScaleRig, Kr: torch.Tensor,
-                         out: torch.Tensor) -> torch.Tensor:
-    """Every bucket of one window scale into `out` (N, B, T_total*tile_v,
-    n_out): on bf16 CUDA tensors one launch of each pass for the whole
-    scale (one count in `rig_window_fwd_bf16.launches`), otherwise
-    `rig_window_fwd` bucket by bucket."""
+def rig_fwd_scale(ii: torch.Tensor, rig: ScaleRig, Kr: torch.Tensor,
+                  out: torch.Tensor) -> torch.Tensor:
+    """Every bucket of one scale, either layout, into `out` (N, B,
+    T_total*tile_v, n_out): on bf16 CUDA tensors one launch of each pass
+    for the whole scale (one count in `rig_window_fwd_bf16.launches` or
+    `rig_flat_fwd_bf16.launches`), otherwise `rig_window_fwd` /
+    `rig_flat_fwd` bucket by bucket."""
     buckets = list(_buckets(rig))
     if ii.device.type == "cuda" and ii.dtype == torch.bfloat16:
         for A_b, s_b, off_t, win in buckets:
-            _check_window_fwd(ii, A_b, s_b, Kr, out, off_t, rig.tile_v, win)
-        _window_fwd_bf16(ii, buckets, Kr, out, rig.tile_v)
+            if win is None:
+                _check_flat_fwd(ii, A_b, s_b, Kr, out, off_t, rig.tile_v)
+            else:
+                _check_window_fwd(ii, A_b, s_b, Kr, out, off_t, rig.tile_v, win)
+        _fwd_bf16(ii, buckets, Kr, out, rig.tile_v)
         return out
     for A_b, s_b, off_t, win in buckets:
-        rig_window_fwd(ii, A_b, s_b, Kr, out, off_t=off_t, tile_v=rig.tile_v,
-                       window=win)
+        if win is None:
+            rig_flat_fwd(ii, A_b, s_b, Kr, out, off_t=off_t, tile_v=rig.tile_v)
+        else:
+            rig_window_fwd(ii, A_b, s_b, Kr, out, off_t=off_t,
+                           tile_v=rig.tile_v, window=win)
     return out
 
 
@@ -316,27 +326,13 @@ def rig_window_bwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
 rig_window_bwd.launches = 0
 
 
-def rig_flat_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
-                 Kr: torch.Tensor, out: torch.Tensor, *, off_t: int,
-                 tile_v: int) -> torch.Tensor:
-    """Write one flat bucket's tiles into `out` rows
-    [off_t*tile_v, (off_t+T)*tile_v).
-
-    ii (N, B, P + max_band, C) padded flat features; A_b
-    (N, T, nl*tile_v, band); starts_b (N, T) int32; Kr (nl, C, n_out); out
-    (N, B, rows, n_out); all float32 or all bfloat16, as `rig_window_fwd`.
-    `rig_flat_fwd.launches` counts fp32 kernel launches,
-    `rig_flat_fwd_bf16.launches` bf16 ones."""
+def _check_flat_fwd(ii, A_b, starts_b, Kr, out, off_t, tile_v):
     N, B, pixels, C = ii.shape
     T, R, band = A_b.shape[1:]
     nl, _, n_out = Kr.shape
     rows = out.shape[2]
-    if ii.device.type == "cpu":
-        out[:, :, off_t * tile_v:(off_t + T) * tile_v] = flat_tiles(
-            ii, A_b, starts_b, Kr, tile_v)
-        return out
     tensors = {"ii": ii, "A": A_b, "starts": starts_b, "Kr": Kr, "out": out}
-    dtype = _check_launch(
+    return _check_launch(
         "rig_flat_fwd", ii, tensors,
         A_b.shape[0] == N and R == nl * tile_v
         and tuple(starts_b.shape) == (N, T)
@@ -347,11 +343,37 @@ def rig_flat_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
         f"ii {tuple(ii.shape)}, A {tuple(A_b.shape)}, starts "
         f"{tuple(starts_b.shape)}, Kr {tuple(Kr.shape)}, out "
         f"{tuple(out.shape)}, off_t {off_t}, tile_v {tile_v}", k_multiple=8)
+
+
+def rig_flat_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
+                 Kr: torch.Tensor, out: torch.Tensor, *, off_t: int,
+                 tile_v: int) -> torch.Tensor:
+    """Write one flat bucket's tiles into `out` rows
+    [off_t*tile_v, (off_t+T)*tile_v).
+
+    ii (N, B, P + max_band, C) padded flat features; A_b
+    (N, T, nl*tile_v, band); starts_b (N, T) int32; Kr (nl, C, n_out); out
+    (N, B, rows, n_out); all float32 or all bfloat16, as `rig_window_fwd`
+    (a scale's bf16 buckets go in one launch through `rig_fwd_scale`).
+    `rig_flat_fwd.launches` counts fp32 kernel launches,
+    `rig_flat_fwd_bf16.launches` bf16 ones."""
+    N, B, pixels, C = ii.shape
+    T, R, band = A_b.shape[1:]
+    nl, _, n_out = Kr.shape
+    rows = out.shape[2]
+    if ii.device.type == "cpu":
+        out[:, :, off_t * tile_v:(off_t + T) * tile_v] = flat_tiles(
+            ii, A_b, starts_b, Kr, tile_v)
+        return out
+    dtype = _check_flat_fwd(ii, A_b, starts_b, Kr, out, off_t, tile_v)
+    if dtype == torch.bfloat16:
+        _fwd_bf16(ii, [(A_b, starts_b, off_t, None)], Kr, out, tile_v)
+        return out
     vox = torch.empty((N, B, T, R, C), dtype=dtype, device=ii.device)
     _launch("rig_flat_fwd", ii, ii.data_ptr(), A_b.data_ptr(),
             starts_b.data_ptr(), Kr.data_ptr(), vox.data_ptr(), out.data_ptr(),
             N, B, pixels, C, T, nl, tile_v, band, n_out, off_t, rows)
-    (rig_flat_fwd_bf16 if dtype == torch.bfloat16 else rig_flat_fwd).launches += 1
+    rig_flat_fwd.launches += 1
     return out
 
 
@@ -361,11 +383,13 @@ rig_flat_fwd.launches = 0
 def rig_flat_bwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
                  Kr: torch.Tensor, g: torch.Tensor, dII: torch.Tensor,
                  dKr: torch.Tensor, *, off_t: int, tile_v: int,
-                 KrT: torch.Tensor = None):
+                 KrT: torch.Tensor = None, dii=None):
     """Add one flat bucket's gradients into the scale's accumulators: as
     `rig_window_bwd`, with ii and dII (N, B, P + max_band, C) (dII's last
-    max_band rows are padding). `rig_flat_bwd.launches` counts fp32 kernel
-    launches, `rig_flat_bwd_bf16.launches` bf16 ones."""
+    max_band rows are padding) and dii the bucket's `flat_dii_index`
+    (`ScaleRig.dii_order[b]`; made here from starts when not given).
+    `rig_flat_bwd.launches` counts fp32 kernel launches,
+    `rig_flat_bwd_bf16.launches` bf16 ones."""
     N, B, pixels, C = ii.shape
     T, R, band = A_b.shape[1:]
     nl, _, n_out = Kr.shape
@@ -396,11 +420,28 @@ def rig_flat_bwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
         f"tile_v {tile_v}", k_multiple=8)
     _check_bf16_tile_v("rig_flat_bwd", dtype, tile_v)
     vox, ws = _bwd_scratch(ii, T, R, nl, n_out)
+    if dtype == torch.bfloat16:
+        if dii is None:
+            dii = [torch.from_numpy(a).to(ii.device)
+                   for a in flat_dii_index(starts_b, band, pixels)]
+        index, ptr, adds = dii
+        # each band's fp32 A^T dvox, added into dII in the index's order by
+        # the kernel's last pass
+        scratch = torch.empty((N * B * T * band * C,), dtype=torch.float32,
+                              device=ii.device)
+        _launch("rig_flat_bwd", ii, ii.data_ptr(), A_b.data_ptr(),
+                starts_b.data_ptr(), KrT.data_ptr(), g.data_ptr(),
+                vox.data_ptr(), ws.data_ptr(), dII.data_ptr(), dKr.data_ptr(),
+                scratch.data_ptr(), index.data_ptr(), ptr.data_ptr(),
+                adds.data_ptr(), index.shape[0], N, B, pixels, C, T, nl,
+                tile_v, band, n_out, off_t, rows)
+        rig_flat_bwd_bf16.launches += 1
+        return dII, dKr
     _launch("rig_flat_bwd", ii, ii.data_ptr(), A_b.data_ptr(),
             starts_b.data_ptr(), KrT.data_ptr(), g.data_ptr(), vox.data_ptr(),
             ws.data_ptr(), dII.data_ptr(), dKr.data_ptr(), N, B, pixels, C, T,
             nl, tile_v, band, n_out, off_t, rows)
-    (rig_flat_bwd_bf16 if dtype == torch.bfloat16 else rig_flat_bwd).launches += 1
+    rig_flat_bwd.launches += 1
     return dII, dKr
 
 
@@ -435,13 +476,13 @@ def rig_scale_bwd(ii: torch.Tensor, rig: ScaleRig, Kr: torch.Tensor,
     KrT = Kr.transpose(1, 2).contiguous()
     g = g.contiguous()
     for bi, (A_b, s_b, off_t, win) in enumerate(_buckets(rig)):
+        dii = rig.dii_order[bi] if rig.dii_order else None
         if win is None:
             rig_flat_bwd(ii, A_b, s_b, Kr, g, dII, dKr, off_t=off_t,
-                         tile_v=rig.tile_v, KrT=KrT)
+                         tile_v=rig.tile_v, KrT=KrT, dii=dii)
         else:
             rig_window_bwd(ii, A_b, s_b, Kr, g, dII, dKr, off_t=off_t,
-                           tile_v=rig.tile_v, window=win, KrT=KrT,
-                           dii=rig.dii_order[bi] if rig.dii_order else None)
+                           tile_v=rig.tile_v, window=win, KrT=KrT, dii=dii)
     return dII, dKr.to(Kr.dtype)
 
 
@@ -458,12 +499,7 @@ class RigScaleTiles(torch.autograd.Function):
         T_total = sum(a.shape[1] for a in rig.A)
         out = torch.empty((N, B, T_total * rig.tile_v, Kr.shape[-1]),
                           dtype=ii.dtype, device=ii.device)
-        if rig.window_hw:
-            rig_window_fwd_scale(ii, rig, Kr, out)
-        else:
-            for A_b, s_b, off_t, _ in _buckets(rig):
-                rig_flat_fwd(ii, A_b, s_b, Kr, out, off_t=off_t,
-                             tile_v=rig.tile_v)
+        rig_fwd_scale(ii, rig, Kr, out)
         ctx.save_for_backward(ii, Kr)
         ctx.rig = rig
         return out
