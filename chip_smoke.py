@@ -7,7 +7,7 @@ result line):
   1. build every hand-written kernel from csrc/ with nvcc (one process per
      source, all started together) and print ptxas' registers and spills
      per kernel (fails if a tensor-core pass, `rig_*_mma` or a pass
-     `rig_ws*` of csrc/rig_ws.cuh, spills);
+     `rig_ws*` of csrc/rig_ws.cuh, or a stem kernel `stem_bwd_*` spills);
   2. hold each kernel against its plain PyTorch version at B = 1 and B = 2
      on the full MultiviewC fp32 rigs (7 x 720x1280 cameras, 156x156 BEV,
      nl 5), all 3 scales, every bucket (the forwards bucket by bucket): the
@@ -61,8 +61,12 @@ result line):
   5c. bf16 training (mixed precision, `--dtype bfloat16`) through the bf16
      variants of the backward kernels (`rig_window_bwd_bf16`,
      `rig_flat_bwd_bf16`, both on csrc/rig_ws.cuh; `stem_bwd_stats_bf16`,
-     `stem_bwd_dx_bf16`): the stem kernels against their plain versions on
-     bf16 x at (14, 64, 360, 640), the tie case too (with phase 2); each
+     `stem_bwd_dx_bf16`, which share a walk of their own in
+     csrc/stem_bwd.cu: 8 columns a lane, each window's first maximum as the
+     greatest of its pixels' keys, each pixel's dz from the windows whose
+     winner it is, added as bf16 pairs where JAX rounds): the stem kernels
+     against their plain versions on bf16 x at (14, 64, 360, 640), the tie
+     case too (with phase 2; acc the same bits in two runs); each
      rig backward against its plain version at B = 1, 2 on the flat rig
      cast to bf16 and on the 8-bucket bf16 MultiviewC window rig, K2-bf16
      at B = 2 on the 8-bucket bf16 MultiviewX rig (nl 8): dKr within 1e-2
@@ -215,7 +219,7 @@ def ptxas_kernels(text: str):
     for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
-            short = re.search(r"\d((?:rig|stem)_[a-z_]+)", m.group(1))
+            short = re.search(r"\d((?:rig|stem)_[a-z0-9_]+)", m.group(1))
             name = short.group(1) if short else m.group(1)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -239,7 +243,7 @@ def phase_build():
         for kernel, regs, spill in ptxas_kernels(LIBRARY.ptxas_log.get(name, "")):
             log(f"  ptxas[{name}]: {kernel}: {regs} registers, {spill} bytes "
                 "spilled")
-            if spill and re.match(r"rig_(\w+_mma|ws\w+)", kernel):
+            if spill and re.match(r"rig_(\w+_mma|ws\w+)|stem_bwd_", kernel):
                 raise AssertionError(f"{kernel} spills {spill} bytes")
     log(f"phase 1 build: {names} in {time.perf_counter() - t0:.1f} s")
 

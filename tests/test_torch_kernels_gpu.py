@@ -1009,7 +1009,9 @@ def test_bf16_window_kernel_2d_widths_and_past_2_31(cuda, B):
 
 @pytest.mark.parametrize("quantised", [False, True], ids=["random", "ties"])
 @pytest.mark.parametrize("shape", [(2, 64, 24, 32), (1, 64, 100, 640),
-                                   (2, 32, 61, 260), (1, 16, 9, 12)], ids=str)
+                                   (2, 32, 61, 260), (1, 16, 9, 12),
+                                   (1, 16, 7, 4), (1, 32, 33, 132),
+                                   (1, 16, 125, 500)], ids=str)
 def test_bf16_stem_kernels_match_plain(cuda, shape, quantised):
     """K6 and K7 on bf16 x and dy against their plain versions on the same
     parameters: both round z to bf16 before the ReLU and the comparisons and
@@ -1018,7 +1020,11 @@ def test_bf16_stem_kernels_match_plain(cuda, shape, quantised):
     its max), dx is fp32 arithmetic rounded once to bf16 (1e-2 of the max,
     rel-L2 4e-3: a one-ulp flip where the fp32 values differ in their last
     bits). On integer-valued input with scale 1, bias 0 ties decide; only
-    the bf16 counts move."""
+    the bf16 counts move. The widths reach the bf16 items' edges (240
+    columns, lanes of 8): W = 4, one segment with W % 8 == 4 (132), a
+    ragged second segment (260) and third (500, with 63 window rows: strips
+    of 30 for the stats kernel, of 6 for the dx kernel, each with a short
+    last one), and 640 (segments 240, 240, 160)."""
     x, scale, bias, g = _stem_inputs(shape, 7, quantised, cuda)
     x, scale, bias, g = (t.to(torch.bfloat16) for t in (x, scale, bias, g))
     z, mu, rstd = tstem.group_norm_stats(x, scale, bias, 16, 1e-5)
@@ -1049,6 +1055,63 @@ def test_bf16_stem_kernels_match_plain(cuda, shape, quantised):
     xa = x.clone().requires_grad_()
     tstem.gn_relu_pool(xa, scale, bias).backward(g)
     assert xa.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 100, 640), (2, 32, 61, 260),
+                                   (1, 16, 45, 496)], ids=str)
+def test_bf16_stem_kernels_paths_and_bits(cuda, shape):
+    """The bf16 acc has the same bits in two runs and stays within 1e-4 of
+    the plain version's max; on planes that are 8- but not 16-byte aligned
+    (two 8-byte copies a lane instead of one of 16) dx and acc have the
+    same bits as on the 16-byte path where W % 8 == 0."""
+    x, scale, bias, g = _stem_inputs(shape, 4, False, cuda)
+    x, scale, bias, g = (t.to(torch.bfloat16) for t in (x, scale, bias, g))
+    _, mu, rstd = tstem.group_norm_stats(x, scale, bias, 16, 1e-5)
+    c = torch.randn(mu.shape, generator=torch.Generator().manual_seed(2)).to(cuda) * 0.1
+    params = tstem.plane_params(mu, rstd, scale, bias, c, -c)
+    acc = tstem.stem_bwd_stats(x, g, params)
+    assert torch.equal(acc, tstem.stem_bwd_stats(x, g, params))
+    want = tstem.stem_bwd_stats_plain(x, g, params)
+    np.testing.assert_allclose(acc.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+    dx = tstem.stem_bwd_dx(x, g, params)
+    assert_bf16_close(dx, tstem.stem_bwd_dx_plain(x, g, params))
+    # the same values four elements into a buffer: 8- but not 16-byte aligned
+    x_off = torch.empty(x.numel() + 4, dtype=x.dtype, device=cuda)[4:].view(x.shape)
+    x_off.copy_(x)
+    assert x_off.data_ptr() % 16 == 8
+    assert torch.equal(tstem.stem_bwd_dx(x_off, g, params), dx)
+    assert torch.equal(tstem.stem_bwd_stats(x_off, g, params), acc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_stem_stats_refuses_another_scratch_count(cuda, dtype):
+    """stem_bwd_stats' scratch is sized by ops/stem.py::ITEM; the kernel
+    checks the count it is given against its own STRIP and SEG, so a
+    wrapper that disagrees raises instead of reading past, or short of, the
+    partial sums (W = 260: one full segment and a ragged one either way)."""
+    from vfa_tpu_torch.kernels import LIBRARY
+
+    x, scale, bias, g = _stem_inputs((1, 16, 23, 260), 0, False, cuda)
+    x, scale, bias, g = (t.to(dtype) for t in (x, scale, bias, g))
+    _, mu, rstd = tstem.group_norm_stats(x, scale, bias, 16, 1e-5)
+    params = tstem.plane_params(mu, rstd, scale, bias)
+    items = tstem.items_per_plane(dtype, 23, 260)
+    assert items == {torch.float32: 3 * 3, torch.bfloat16: 1 * 2}[dtype]
+    fn = getattr(LIBRARY.load("stem_bwd"),
+                 "stem_bwd_stats_" + ("bf16" if dtype == torch.bfloat16 else "f32"))
+    partial = torch.empty((16, items + 1, 2), device=cuda)
+    acc = torch.empty((1, 4, 16), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = [x.data_ptr(), g.data_ptr(), params.data_ptr(), partial.data_ptr(),
+            acc.data_ptr(), 1, 16, 23, 260]
+    for wrong in (items - 1, items + 1):
+        assert fn(*args, wrong, stream) != 0
+    assert fn(*args, items, stream) == 0
+    torch.cuda.synchronize()
+    want = tstem.stem_bwd_stats_plain(x, g, params)
+    np.testing.assert_allclose(acc.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
 
 
 def test_bf16_stem_kernels_refuse_odd_widths_and_mixing(cuda):

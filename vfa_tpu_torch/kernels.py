@@ -49,9 +49,10 @@ SIGNATURES = {
         "rig_flat_bwd_bf16": [P] * 13 + [I] * 12 + [P],
     },
     "stem_bwd": {
-        "stem_bwd_stats_f32": [P] * 5 + [I] * 4 + [P],
+        # + the scratch's items per plane
+        "stem_bwd_stats_f32": [P] * 5 + [I] * 5 + [P],
         "stem_bwd_dx_f32": [P] * 4 + [I] * 4 + [P],
-        "stem_bwd_stats_bf16": [P] * 5 + [I] * 4 + [P],
+        "stem_bwd_stats_bf16": [P] * 5 + [I] * 5 + [P],
         "stem_bwd_dx_bf16": [P] * 4 + [I] * 4 + [P],
     },
 }

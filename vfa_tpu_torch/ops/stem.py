@@ -207,18 +207,26 @@ def _check_launch(what, x, dy, params):
                          f"got {M * C}")
 
 
-# Both kernels (`csrc/stem_bwd.cu`) give one warp to each item of one plane,
-# STRIP pool-window rows and 128 columns; must equal the kernel's STRIP.
-STRIP = 5
+# stem_bwd_stats (`csrc/stem_bwd.cu`) gives one warp to each item of one
+# plane: (pool-window rows, columns) an item, the kernel's (STRIP, SEG) for
+# fp32 and (BF_STATS_STRIP, BF_SEG) for bf16. Its scratch holds a pair of
+# sums per item, and the kernel refuses a scratch of another count.
+ITEM = {torch.float32: (5, 128), torch.bfloat16: (30, 240)}
 
 
-def _launch(fn, x, dy, params, *outs):
+def items_per_plane(dtype, H: int, W: int) -> int:
+    """Warp items of one (image, channel) plane of an (H, W) stem tail."""
+    strip, seg = ITEM[dtype]
+    return -(-((H - 1) // 2 + 1) // strip) * -(-W // seg)
+
+
+def _launch(fn, x, dy, params, *outs, extra=()):
     """Launch the variant of kernel `fn` for x's dtype."""
     from vfa_tpu_torch.kernels import launch
 
     suffix = "bf16" if x.dtype == torch.bfloat16 else "f32"
     launch("stem_bwd", f"{fn}_{suffix}", x.device, x.data_ptr(), dy.data_ptr(),
-           params.data_ptr(), *(t.data_ptr() for t in outs), *x.shape)
+           params.data_ptr(), *(t.data_ptr() for t in outs), *x.shape, *extra)
 
 
 def stem_bwd_stats(x: torch.Tensor, dy: torch.Tensor,
@@ -235,11 +243,11 @@ def stem_bwd_stats(x: torch.Tensor, dy: torch.Tensor,
     _check_launch("stem_bwd_stats", x, dy, params)
     M, C, H, W = x.shape
     # per-item sums between the kernel's two stages
-    items = -(-((H - 1) // 2 + 1) // STRIP) * -(-W // 128)
+    items = items_per_plane(x.dtype, H, W)
     partial = torch.empty((M * C, items, 2),
                           dtype=torch.float32, device=x.device)
     acc = torch.empty((M, 4, C), dtype=torch.float32, device=x.device)
-    _launch("stem_bwd_stats", x, dy, params, partial, acc)
+    _launch("stem_bwd_stats", x, dy, params, partial, acc, extra=(items,))
     (stem_bwd_stats_bf16 if x.dtype == torch.bfloat16 else stem_bwd_stats).launches += 1
     return acc
 
