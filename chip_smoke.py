@@ -83,6 +83,20 @@ result line):
      rel 1e-2, update rel-L2 2e-2); the bench `--dtype bfloat16 --train
      --batch 0` on MultiviewC. Those two rigs come from a fourth host
      process;
+  5d. the on-disk path at full MultiviewC width (`phase_disk_path`; only
+     the frame count is cut, to 20): a MultiviewC-format set written into a
+     temporary directory (PNGs, annotations, the XMLs of the synthetic
+     cameras, from which a fifth host process builds the bf16 8-bucket
+     window rig), the loader's first batch held to the written pixels,
+     `device_color_jitter` and the IoU on the card held to the CPU (1e-5),
+     the GT as its own prediction (MODA and AP_50 100); then train on disk
+     (bf16, batch 2, one epoch, the ColorJitter on the card), `--resume`
+     to epoch 2 (its first lr equal to the uninterrupted schedule's), and
+     evaluate on that checkpoint, counts set to 0 before each and read
+     after (K1-bf16 and K2-bf16 must launch); the decoder, the matcher,
+     the loader's ms per scene, the on-disk train step beside the staged
+     one, and the bench `--from_disk` (serving, auto batch; training at
+     batch 8) beside the staged bench cells;
   6. time each kernel (CUDA events, warmed up) beside its bound and its
      plain version (the fp32 rig kernels' operations are held to 495 / 3 =
      165 TFLOP/s, fp32-accurate 3xTF32 on the tensor cores, the bf16 ones to
@@ -165,6 +179,9 @@ PREBUILT = ((("MultiviewX", 8, "float32"),), (("Wildtrack", 12, "float32"),),
 # fp32 updates (what bf16 rounding itself does to the update), and within
 # BF16_UPDATE_CAP of the plain route's update norm
 BF16_LOSS_TOL, BF16_NOISE_RATIO, BF16_UPDATE_CAP = 1e-2, 1.5, 0.25
+# where the training CLI runs write their checkpoints and metrics (a
+# temporary directory of main's, removed at the end)
+RUNS_DIR = None
 
 
 def counters():
@@ -672,7 +689,7 @@ def phase_train_path_bf16(rig, rig32, device, fused_stem: bool):
     argv = ["--data", "MultiviewC", "--synthetic", "-e", "1", "--pretrained",
             "0", "--no_augment", "--seed", "0", "--device", "cuda",
             "--rig_layout", layout, "--dtype", "bfloat16", "--synthetic_frames",
-            str(BATCH), "-b", str(BATCH), "--lr", TRAIN_LR]
+            str(BATCH), "-b", str(BATCH), "--lr", TRAIN_LR, "--savedir", RUNS_DIR]
     os.environ["VFA_FUSED_STEM"] = "1" if fused_stem else "0"
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -747,7 +764,7 @@ def phase_train_path(rig, device, fused_stem: bool):
     tag = f"{layout}{' + fused stem' if fused_stem else ''}"
     common = ["--data", "MultiviewC", "--synthetic", "-e", "1", "--pretrained",
               "0", "--no_augment", "--seed", "0", "--device", "cuda",
-              "--rig_layout", layout]
+              "--rig_layout", layout, "--savedir", RUNS_DIR]
     argv = common + ["--synthetic_frames", str(TRAIN_FRAMES), "-b", str(BATCH),
                      "--lr", TRAIN_LR]
     os.environ["VFA_FUSED_STEM"] = "1" if fused_stem else "0"
@@ -1250,6 +1267,241 @@ def phase_stem_numbers(device, dtype=torch.float32):
     return out
 
 
+DISK_FRAMES = 20       # frames of the on-disk MultiviewC set (the only cut)
+DISK_SEED = 7
+JITTER_TOL = 1e-5      # device_color_jitter and the IoU, CUDA against the CPU
+
+
+def disk_root(base: str) -> str:
+    return os.path.join(base, "MultiviewC")
+
+
+def start_disk_rig_build(cache_dir, base):
+    """A host process that builds the bf16 8-bucket window rig (the training
+    policy) for the calibrations parsed back from the on-disk set's XMLs
+    into the rig cache at `cache_dir`; returns it running. The XMLs are
+    written here first."""
+    from vfa_tpu_torch.config import get_config
+    from vfa_tpu_torch.data.disk import write_multiviewc_calibrations
+
+    write_multiviewc_calibrations(disk_root(base), get_config("MultiviewC"))
+    code = ("import numpy as np, os, torch\n"
+            "from vfa_tpu_torch.config import get_config\n"
+            "from vfa_tpu_torch.calib import camera_matrix, load_extrinsic, load_intrinsic\n"
+            "from vfa_tpu_torch.data.adapters import _MC_EXTR, _MC_INTR\n"
+            "from vfa_tpu_torch.rig_cli import build_cli_rig\n"
+            f"c = os.path.join({disk_root(base)!r}, 'calibrations')\n"
+            "calibs = np.stack([camera_matrix(\n"
+            "    load_intrinsic(os.path.join(c, 'intrinsic', _MC_INTR[i])),\n"
+            "    load_extrinsic(os.path.join(c, 'extrinsic', _MC_EXTR[i]))[0])\n"
+            "    for i in range(7)])\n"
+            "build_cli_rig(get_config('MultiviewC'), calibs, 'cpu', buckets=8, "
+            f"training=True, cache_dir={cache_dir!r}, dtype=torch.bfloat16)\n")
+    return subprocess.Popen(
+        [sys.executable, "-c", code], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def phase_disk_path(proc, base, rig_cache, device, serve_rig, staged):
+    """The on-disk path at full MultiviewC width (7 x 720x1280 cameras,
+    ResNet18-GN, the 156x156 BEV); only the frame count is cut, to
+    DISK_FRAMES. Writes the set (PNGs, annotations, the XMLs the host
+    process `proc` built the bf16 8-bucket window rig from), holds the
+    loader's first batch to the written pixels, the device jitter and the
+    IoU on the card to the CPU, the metrics on the GT as its own prediction;
+    then drives the CLIs in this process, counts set to 0 before each and
+    read after: train on disk (uint8 staging, the ColorJitter on the card,
+    bf16, batch 2, one epoch), `--resume` to epoch 2, evaluate on that
+    checkpoint; and the bench `--from_disk` (serving on `serve_rig`,
+    training at batch 8). `staged`: the same run's staged bench results."""
+    import contextlib
+    import io
+
+    from vfa_tpu_torch import bench, evaluate, train
+    from vfa_tpu_torch.config import TrainConfig, get_config
+    from vfa_tpu_torch.data.adapters import MultiviewC
+    from vfa_tpu_torch.data.augment import device_color_jitter, sample_jitter_params
+    from vfa_tpu_torch.data.disk import write_multiviewc
+    from vfa_tpu_torch.data.frame_dataset import FrameDataset, SceneLoader
+    from vfa_tpu_torch.eval.evaluate import evaluate_ap_aos, evaluate_rcll_prec_moda_modp
+    from vfa_tpu_torch.eval.iou import iou_3d_pairwise
+    from vfa_tpu_torch.native import matcher_backend
+    from vfa_tpu_torch.native.imageio import decoder_backend
+    from vfa_tpu_torch.rig_cli import build_cli_rig
+    from vfa_tpu_torch.train_lib import current_lr
+
+    t_phase = time.perf_counter()
+    root = disk_root(base)
+    cfg = dataclasses.replace(get_config("MultiviewC"), root=root)
+    t0 = time.perf_counter()
+    val_frames = range(int(DISK_FRAMES * 0.9), DISK_FRAMES)
+    pixels = write_multiviewc(root, cfg, DISK_FRAMES, seed=DISK_SEED,
+                              keep_frames=val_frames)
+    log(f"phase 5d disk path: wrote {DISK_FRAMES} frames x 7 cameras of "
+        f"{cfg.resize_size[0]}x{cfg.resize_size[1]} PNG (the frame count is the "
+        f"only cut: the full set has {cfg.num_frame}) in "
+        f"{time.perf_counter() - t0:.1f} s; decoder {decoder_backend('auto')}, "
+        f"matcher {matcher_backend()}")
+    base_ds = MultiviewC(root, world_size=cfg.world_size, cube_LWH=cfg.cube_size)
+    train_ds = FrameDataset(base_ds, cfg, split="train")
+    val_ds = FrameDataset(base_ds, cfg, split="val")
+
+    # the loader: the first val batch is the written pixels; ms per scene
+    first = next(iter(SceneLoader(val_ds, batch_size=2, images_dtype=np.uint8)))
+    for b, f in enumerate(first["frame"]):
+        for cam in range(1, 8):
+            if not np.array_equal(first["images"][b, cam - 1], pixels[(cam, int(f))]):
+                raise AssertionError(f"loader: frame {f} camera {cam} differs from "
+                                     "the written pixels")
+    loader = SceneLoader(train_ds, batch_size=2, shuffle=True, images_dtype=np.uint8)
+    t0 = time.perf_counter()
+    n = sum(len(b["frame"]) for b in loader)
+    loader_ms = (time.perf_counter() - t0) * 1e3 / n
+    x = first["images"]
+    pageable = cuda_time_ms(lambda: torch.from_numpy(x).to(device), reps=5)
+    pinned_x = torch.from_numpy(x).pin_memory()
+    pinned = cuda_time_ms(lambda: pinned_x.to(device, non_blocking=True), reps=5)
+    log(f"  loader: first val batch equal to the written pixels (frames "
+        f"{first['frame'].tolist()}, 7 cameras); {n} train scenes in "
+        f"{loader_ms:.2f} ms per scene (8 threads, uint8, PNG); H2D of one "
+        f"uint8 batch of 2 ({x.nbytes} bytes): pageable {pageable:.3f} ms, "
+        f"pinned non_blocking {pinned:.3f} ms (the CLIs copy pageable)")
+
+    # device jitter and IoU on the card against the CPU
+    imgs = torch.from_numpy(first["images"][0]).float() * (1.0 / 255.0)
+    fac, order = sample_jitter_params(np.random.default_rng(0), imgs.shape[0])
+    order[:6] = np.arange(6)
+    got = device_color_jitter(imgs.to(device), fac, order).cpu()
+    want = device_color_jitter(imgs, fac, order)
+    jerr = float((got - want).abs().max())
+    rng = np.random.default_rng(1)
+    boxes = rng.uniform([0, 0, 0, 20, 20, 20, -np.pi], [400, 400, 100, 200, 200, 200, np.pi],
+                        (2, 300, 7)).astype(np.float32)
+    boxes[1, :100] = boxes[0, :100]
+    a, bx = torch.from_numpy(boxes[0]), torch.from_numpy(boxes[1])
+    ierr = float((iou_3d_pairwise(a.to(device), bx.to(device)).cpu()
+                  - iou_3d_pairwise(a, bx)).abs().max())
+    batch8 = torch.rand(8 * 7, *imgs.shape[1:], device=device)
+    fac8, order8 = sample_jitter_params(np.random.default_rng(2), batch8.shape[0])
+    jitter_ms = cuda_time_ms(lambda: device_color_jitter(batch8, fac8, order8), reps=5)
+    del batch8
+    log(f"  device_color_jitter CUDA vs CPU, 7 images at 720x1280: max abs err "
+        f"{jerr:.3e}; IoU 300x300 pairs CUDA vs CPU: {ierr:.3e} (tolerance "
+        f"{JITTER_TOL:.0e}); the jitter of a batch of 8 scenes (56 images) on "
+        f"the card: {jitter_ms:.3f} ms")
+    if not (jerr <= JITTER_TOL and ierr <= JITTER_TOL):
+        raise AssertionError("the jitter or the IoU differs between the card and the CPU")
+
+    # the metrics on the GT as its own prediction
+    gt = np.array([[f, *o.location[:3], *np.asarray(o.dimension)[::-1], o.rotation]
+                   for f, objs in enumerate(base_ds.labels) for o in objs], np.float64)
+    files = {n: os.path.join(base, f"{n}.txt") for n in ("gt", "pred", "pr_gt", "pr_pred")}
+    np.savetxt(files["gt"], gt)
+    np.savetxt(files["pred"], np.c_[gt, np.ones(len(gt))])
+    np.savetxt(files["pr_gt"], gt[:, :3])
+    np.savetxt(files["pr_pred"], gt[:, :3])
+    rcll, prec, moda, modp = evaluate_rcll_prec_moda_modp(files["pr_pred"], files["pr_gt"])
+    ap = evaluate_ap_aos(files["pred"], files["gt"], device=device)
+    log(f"  GT as its own prediction ({len(gt)} cows): MODA {moda}, MODP {modp}, "
+        f"AP_50 {ap[3]}, AOS_50 {ap[4]}")
+    if moda != 100.0 or abs(ap[3] - 100.0) > 1e-9:
+        raise AssertionError("the GT as its own prediction does not score 100")
+
+    # train on disk, resume, evaluate, through the prebuilt rig
+    out, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"the disk rig build failed:\n{out}")
+    log("host build of the disk set's bf16 rig (a process of its own): "
+        + next(ln for ln in out.splitlines() if ln.startswith("compiled rig:")))
+    rig = build_cli_rig(cfg, train_ds.calibs, device, buckets=8, training=True,
+                        cache_dir=rig_cache, dtype=torch.bfloat16)
+    savedir = os.path.join(base, "disk_runs")
+    argv = ["--data", "MultiviewC", "--root", root, "-b", str(BATCH), "--dtype",
+            "bfloat16", "--pretrained", "0", "--savedir", savedir, "--device", "cuda"]
+    kernels = ("rig_window_fwd_bf16", "rig_window_bwd_bf16")
+    runs = {}
+    for tag, extra in (("train", ["-e", "1"]), ("resume", ["-e", "2", "--resume"])):
+        if tag == "resume":
+            extra = extra + [os.path.basename(runs["train"][0]["savedir"])]
+        reset_launches()
+        res = train.main(argv + extra, rig=rig)
+        launches = read_launches()
+        runs[tag] = (res, launches)
+        log(f"  train on disk ({tag}): launches {launches}; steps "
+            f"{len(res['ms'])}, p50 {np.median(res['ms']):.2f} ms a step, loader "
+            f"wait p50 {np.median(res['wait_ms']):.2f} ms")
+        if any(launches[k] <= 0 for k in kernels) or any(
+                n for k, n in launches.items() if k not in kernels):
+            raise AssertionError(f"train on disk ({tag}) launched {launches}")
+        if not all(np.isfinite(d["loss"]) for d in res["losses"]):
+            raise AssertionError(f"train on disk ({tag}): a non-finite loss")
+    first_run, resumed = runs["train"][0], runs["resume"][0]
+    run_dir = first_run["savedir"]
+    for path in (os.path.join(run_dir, "metrics.jsonl"), first_run["checkpoints"][0]):
+        if not os.path.exists(path):
+            raise AssertionError(f"train on disk wrote no {path}")
+    spe = first_run["steps_per_epoch"]
+    want_lr = current_lr(TrainConfig(epochs=2, pretrained=False, compute_dtype="bfloat16"),
+                         spe, spe)
+    log(f"  resumed at epoch {resumed['start_epoch']}; its first step's lr "
+        f"{resumed['lrs'][0]!r}, the uninterrupted -e 2 schedule's at step {spe} "
+        f"{want_lr!r}")
+    if resumed["start_epoch"] != 2 or resumed["lrs"][0] != want_lr:
+        raise AssertionError("--resume did not continue at epoch 2 on the schedule")
+    stage_ms = float(np.median(first_run["ms"] + resumed["ms"]))
+    reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ev = evaluate.main(["--data", "MultiviewC", "--root", root, "--checkpoint",
+                            resumed["checkpoints"][-1], "-b", str(BATCH), "--dtype",
+                            "bfloat16", "--rig_buckets", "8", "--cls_thresh", "0",
+                            "--device", "cuda", "--out_dir", os.path.join(base, "eval")],
+                           rig=rig)
+    text = buf.getvalue()
+    log("  " + text.strip().replace("\n", "\n  "))
+    ev_launches = read_launches()
+    if not (all(os.path.exists(p) for p in ev["paths"].values()) and "MODA" in text
+            and "AP_50" in text and ev_launches["rig_window_fwd_bf16"] > 0):
+        raise AssertionError(f"evaluate on disk: {ev['paths']}, launches {ev_launches}")
+    log(f"  evaluate (cls_thresh 0: every NMS peak of the top 100, so that a "
+        f"2-epoch model prints the metric lines): launches {ev_launches}")
+
+    # the staged training CLI on the same rig (synthetic scenes in host memory)
+    staged_res = train.main(["--data", "MultiviewC", "--synthetic", "--synthetic_frames",
+                             str(len(train_ds)), "-b", str(BATCH), "-e", "1", "--dtype",
+                             "bfloat16", "--pretrained", "0", "--no_augment",
+                             "--savedir", savedir, "--device", "cuda"], rig=rig)
+
+    # the bench from disk, serving (auto batch) and training at batch 8
+    disk_dir = os.path.join(base, "bench_frames")
+    bench_res = {}
+    for tag, extra, brig in (("serving", ["--batch", "0"], serve_rig),
+                             ("training", ["--train", "--batch", "8"], rig)):
+        reset_launches()
+        bench_res[tag] = bench.main(["--data", "MultiviewC", "--dtype", "bfloat16",
+                                     "--from_disk", "--disk_dir", disk_dir, "--iters",
+                                     "5", "--warmup", "1"] + extra, rig=brig)
+        launches = read_launches()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        want = kernels if tag == "training" else kernels[:1]
+        if any(launches[k] <= 0 for k in want):
+            raise AssertionError(f"bench --from_disk {tag}: launches {launches}")
+        log(f"  bench --from_disk {tag}: {bench_res[tag]}; launches {launches}")
+    del rig
+    torch.cuda.empty_cache()
+    log(f"phase 5d disk path: train step p50 on disk {stage_ms:.2f} ms (uint8 "
+        f"staging + jitter on the card), staged synthetic {np.median(staged_res['ms']):.2f} "
+        f"ms (fp32 host images, no jitter), batch {BATCH}; loader {loader_ms:.2f} ms "
+        f"per scene; bench bf16 serving from disk {bench_res['serving']['value']} "
+        f"scenes/s, staged {staged['serving']['value']}; bf16 training (batch 8) from "
+        f"disk {bench_res['training']['value']}, staged {staged['training']['value']}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"train": runs["train"][1], "resume": runs["resume"][1], "evaluate": ev_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -1257,19 +1509,24 @@ def main() -> int:
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    global RUNS_DIR
     t_start = time.perf_counter()
     rig_cache = tempfile.mkdtemp(prefix="chip_smoke_rigs_")
+    disk = tempfile.mkdtemp(prefix="chip_smoke_disk_")
+    RUNS_DIR = os.path.join(disk, "runs")
     builds = start_rig_builds(rig_cache)
     try:
-        return run_phases(device, t_start, builds, rig_cache)
+        builds.append(start_disk_rig_build(rig_cache, disk))
+        return run_phases(device, t_start, builds, rig_cache, disk)
     finally:
         for proc in builds:
             proc.kill()
             proc.wait()
         shutil.rmtree(rig_cache, ignore_errors=True)
+        shutil.rmtree(disk, ignore_errors=True)
 
 
-def run_phases(device, t_start, builds, rig_cache) -> int:
+def run_phases(device, t_start, builds, rig_cache, disk) -> int:
     phase_build()
     phase_tf32_arithmetic(device)
     err, num = {}, {}
@@ -1407,6 +1664,10 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
     bench16 = {"MultiviewC": phase_bench(
         ["--data", "MultiviewC", "--dtype", "bfloat16", "--batch", "0", "--iters",
          "5", "--warmup", "1"], mc16, ["rig_window_fwd_bf16"])[0]}
+    # the on-disk path: its rig comes from the last host process
+    disk_launches = phase_disk_path(
+        builds[len(PREBUILT)], disk, rig_cache, device, mc16,
+        {"serving": bench16["MultiviewC"], "training": bench16_train})
     del mc16
     torch.cuda.empty_cache()
     num16 = {}
@@ -1532,6 +1793,8 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
               flat_train_launches["stem_bwd_dx"]),
         entry("rig_window_fwd_bf16", "rig_window_fwd", "vfa_tpu/ops/rig_pallas.py:89",
               serve16_launches["rig_window_fwd_bf16"], dtype="bfloat16",
+              launches_disk_train=disk_launches["train"]["rig_window_fwd_bf16"],
+              launches_disk_evaluate=disk_launches["evaluate"]["rig_window_fwd_bf16"],
               passes_ms=passes16["fwd"]["passes_ms"],
               host_gap_ms=passes16["fwd"]["wall_ms"] - passes16["fwd"]["device_ms"]),
         entry("rig_flat_fwd_bf16", "rig_flat_fwd", "vfa_tpu/ops/rig_pallas.py:31",
@@ -1544,7 +1807,8 @@ def run_phases(device, t_start, builds, rig_cache) -> int:
               train16_launches["rig_window_bwd_bf16"], dtype="bfloat16",
               passes_ms=passes16[f"bwd_b{BATCH}"]["passes_ms"],
               passes_ms_b1=passes16["bwd_b1"]["passes_ms"], ms_b1=k3_16[0],
-              plain_ms_b1=k3_16[1], bound_ms_b1=k3_16[2]),
+              plain_ms_b1=k3_16[1], bound_ms_b1=k3_16[2],
+              launches_disk_train=disk_launches["train"]["rig_window_bwd_bf16"]),
         entry("rig_flat_bwd_bf16", "rig_flat_bwd", "vfa_tpu/ops/rig_pallas.py:434",
               flat16_train_launches["rig_flat_bwd_bf16"], dtype="bfloat16",
               passes_ms=passes16_flat[f"bwd_b{BATCH}"]["passes_ms"],

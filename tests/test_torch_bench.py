@@ -133,12 +133,6 @@ def test_out_of_memory_at_the_last_attempt_is_raised(monkeypatch):
     (["--remat"], "item 18"),
     (["--stem_remat"], "item 18"),
     (["--chunks", "2"], "item 18"),
-    (["--from_disk"], "item 11"),
-    (["--disk_dir", "/nonexistent"], "item 11"),
-    (["--no_augment"], "item 11"),
-    (["--disk_frames", "8"], "item 11"),
-    (["--loader_threads", "4"], "item 11"),
-    (["--image_backend", "pil"], "item 11"),
     (["--bev_shards", "2"], "item 15"),
 ], ids=lambda v: v if isinstance(v, str) else v[0])
 def test_unported_flags_raise_naming_their_item(flag, item):

@@ -44,6 +44,13 @@ from vfa_tpu_torch.ops import rig_cuda, stem
 MAX_TOL, L2_TOL = 1e-2, 4e-3
 
 
+@pytest.fixture(autouse=True)
+def _cwd(tmp_path, monkeypatch):
+    """The train CLI writes its runs (checkpoints, metrics) under
+    `experiments/` of the working directory: a temporary one here."""
+    monkeypatch.chdir(tmp_path)
+
+
 def _errors(got, want):
     """(max abs err / max |want|, rel-L2) in float64."""
     got = np.asarray(got, np.float64)

@@ -31,6 +31,12 @@ from vfa_tpu_torch.ops import stem
 from vfa_tpu_torch import prof_train
 from vfa_tpu_torch import bench, entry
 from vfa_tpu_torch.ops import voxel
+from vfa_tpu_torch import calib, checkpoint, evaluate, observability
+from vfa_tpu_torch.data import adapters, augment, disk, frame_dataset, heatmaps
+from vfa_tpu_torch.eval import apaos, iou, moda
+from vfa_tpu_torch.eval import evaluate as eval_dispatch
+from vfa_tpu_torch import native
+from vfa_tpu_torch.native import imageio
 
 cfg = tiny_config(get_config("MultiviewC"))
 scene = make_scene(cfg, seed=0, num_objects=2)
@@ -75,10 +81,11 @@ print("ISOLATED-OK")
 """
 
 
-def test_port_runs_with_jax_blocked():
+def test_port_runs_with_jax_blocked(tmp_path):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
-    res = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
+    # the train CLI writes its runs under experiments/ of the working directory
+    res = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "ISOLATED-OK" in res.stdout

@@ -31,6 +31,13 @@ from vfa_tpu_torch.ops.rig_cuda import (
 from vfa_tpu_torch.ops.stem import stem_bwd_dx, stem_bwd_stats
 
 
+@pytest.fixture(autouse=True)
+def _cwd(tmp_path, monkeypatch):
+    """The train CLI writes its runs (checkpoints, metrics) under
+    `experiments/` of the working directory: a temporary one here."""
+    monkeypatch.chdir(tmp_path)
+
+
 def test_train_config_matches_jax():
     import dataclasses
 
@@ -289,15 +296,10 @@ def test_train_cli_tiny_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--data", "MultiviewC", "--pretrained", "0", "--no_augment"], "--synthetic"),
-    (["--data", "MultiviewC", "--synthetic", "--no_augment"], "--pretrained"),
-    (["--data", "MultiviewC", "--synthetic", "--pretrained", "0"], "ColorJitter"),
     (TINY + ["--dtype", "bfloat16", "--no_rig"], "bfloat16"),
-    (TINY + ["--resume", "run1"], "--resume"),
     (TINY + ["--vis_iter", "5"], "figures"),
     (TINY + ["--multihost"], "--multihost"),
-], ids=["on_disk", "pretrained", "augment", "bf16", "resume", "figures",
-        "multihost"])
+], ids=["bf16", "figures", "multihost"])
 def test_train_cli_refuses_what_is_not_ported(argv, match):
     with pytest.raises(NotImplementedError, match=match) as e:
         train_cli.main(argv + ["--device", "cpu"])

@@ -7,6 +7,8 @@ path.
     python -m vfa_tpu_torch.bench --data MultiviewX --train
     python -m vfa_tpu_torch.bench --dtype bfloat16 --data Wildtrack   # bf16 serving
     python -m vfa_tpu_torch.bench --dtype bfloat16 --train            # bf16 training
+    python -m vfa_tpu_torch.bench --dtype bfloat16 --from_disk           # the real input path
+    python -m vfa_tpu_torch.bench --dtype bfloat16 --from_disk --train --batch 8
     python -m vfa_tpu_torch.bench --tiny --device cpu --batch 1 --iters 2 --warmup 1
 
 Inputs are synthetic scenes (`make_scene(cfg, seed=s, num_objects=6)`)
@@ -16,6 +18,13 @@ cache, `rig_cli.RIG_CACHE_DIR`). Warm-up runs inside the batch fallback;
 the timed loop dispatches `--iters` calls and then waits once for the
 device and reads one value back. `--batch 0` tries 32/16/8/4/2/1 scenes
 (training 8/4/2/1) and falls back on `torch.cuda.OutOfMemoryError` only.
+`--from_disk` feeds the timed loop from an on-disk JPEG frame set instead
+(the root `bench.py:364-420`): written once under `--disk_dir`
+(`data.disk.ensure_dataset`), decoded by the SceneLoader's threads
+(`--image_backend`, `--loader_threads`) into uint8 batches (`drop_last`),
+copied to the card and normalized there, with `--train` through the
+train-split ColorJitter on the card (`--no_augment` skips it); the metric
+name gains `_fromdisk`.
 
 Prints ONE JSON line on stdout with `bench.py`'s keys: metric, value
 (scenes/sec), unit, vs_baseline (null: the root bench divides by targets
@@ -37,8 +46,10 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -98,12 +109,24 @@ def parse_args(argv=None):
     p.add_argument("--remat", action="store_true")
     p.add_argument("--stem_remat", action="store_true")
     p.add_argument("--chunks", type=int, default=None)
-    p.add_argument("--from_disk", action="store_true")
-    p.add_argument("--disk_dir", default=None)
-    p.add_argument("--no_augment", action="store_true")
-    p.add_argument("--disk_frames", type=int, default=None)
-    p.add_argument("--loader_threads", type=int, default=None)
-    p.add_argument("--image_backend", default=None)
+    p.add_argument("--from_disk", action="store_true",
+                   help="feed the timed loop from an on-disk JPEG frame set "
+                        "through the SceneLoader (decode, uint8 staging, "
+                        "normalization on the card) instead of inputs "
+                        "staged on the device; written under --disk_dir on "
+                        "first use")
+    p.add_argument("--disk_dir", default=os.path.join(tempfile.gettempdir(),
+                                                      "vfa_loader_bench"))
+    p.add_argument("--no_augment", action="store_true",
+                   help="with --train --from_disk: skip the train-split "
+                        "ColorJitter on the card")
+    p.add_argument("--disk_frames", type=int, default=24)
+    p.add_argument("--loader_threads", type=int,
+                   default=max(1, min(16, os.cpu_count() or 1)))
+    p.add_argument("--image_backend", default="native",
+                   choices=["native", "pil"],
+                   help="decoder (native falls back to PIL, saying so, "
+                        "where native/imageio.cpp cannot be built)")
     p.add_argument("--bev_shards", type=int, default=None)
     return p.parse_args(argv)
 
@@ -112,7 +135,6 @@ def _refuse_unported(args) -> None:
     """Every flag whose path is not ported yet raises, naming its ROADMAP
     item; nothing is silently skipped."""
     memory = "(ROADMAP.md Queue 1 item 18, the memory options)"
-    loader = "(ROADMAP.md Queue 1 item 11, the data pipeline)"
     unported = [
         (args.dtype == "bfloat16" and args.no_rig, "--dtype bfloat16 --no-rig "
          "is not ported yet (ROADMAP.md Queue 1 item 17, the voxel route in "
@@ -120,14 +142,6 @@ def _refuse_unported(args) -> None:
         (args.remat, f"--remat is not ported yet {memory}"),
         (args.stem_remat, f"--stem_remat is not ported yet {memory}"),
         (args.chunks is not None, f"--chunks is not ported yet {memory}"),
-        (args.from_disk, f"--from_disk is not ported yet {loader}"),
-        (args.disk_dir is not None, f"--disk_dir is not ported yet {loader}"),
-        (args.no_augment, f"--no_augment is not ported yet {loader}"),
-        (args.disk_frames is not None, f"--disk_frames is not ported yet {loader}"),
-        (args.loader_threads is not None,
-         f"--loader_threads is not ported yet {loader}"),
-        (args.image_backend is not None,
-         f"--image_backend is not ported yet {loader}"),
         (args.bev_shards is not None, "--bev_shards is not ported yet "
          "(ROADMAP.md Queue 1 item 15, parallelism)"),
     ]
@@ -159,10 +173,12 @@ def make_inputs(cfg, bs: int, device, train: bool, dtype=torch.float32):
 
 
 def make_runner(cfg, args, bs: int, rig, device):
-    """A function of no arguments that runs one call at batch `bs` and
-    returns its outputs on the device: the decoded detections (serving) or
-    the loss dict (training). Model, optimizer and inputs live in its
-    closure and nowhere else, so dropping it frees them."""
+    """A function that runs one call at batch `bs` and returns its outputs
+    on the device: the decoded detections (serving) or the loss dict
+    (training). Called with no argument it takes the images staged in its
+    closure, else the images it is given (the `--from_disk` loop). Model,
+    optimizer and inputs live in its closure and nowhere else, so dropping
+    it frees them."""
     from vfa_tpu_torch.codec import decode_frame
     from vfa_tpu_torch.config import TrainConfig
     from vfa_tpu_torch.model.vfanet import VFANet, cast_model, init_weights
@@ -178,12 +194,14 @@ def make_runner(cfg, args, bs: int, rig, device):
         tcfg = TrainConfig(pretrained=False, compute_dtype=args.dtype)
         step = make_train_step(model, make_optimizer(model, tcfg, STEPS_PER_EPOCH),
                                cfg, tcfg, dim_mean=dim_mean)
-        return lambda: step(batch, rig)
+        return lambda images=None: step(
+            batch if images is None else {**batch, "images": images}, rig)
     model = cast_model(model, dtype).eval()
 
     @torch.no_grad()
-    def serve():
-        pred = model(batch["images"], rig, batch["calibs"], batch["grid"])
+    def serve(images=None):
+        images = batch["images"] if images is None else images
+        pred = model(images, rig, batch["calibs"], batch["grid"])
         return decode_frame({k: v.float() for k, v in pred.items()}, cfg,
                             cls_thresh=0.7, topk=100, dim_mean=dim_mean)
 
@@ -294,6 +312,58 @@ def vox_scratch_line(rig, bs: int, train: bool = False) -> str:
     return line
 
 
+def disk_loop(cfg, args, bs: int, run, device) -> float:
+    """Seconds per call of `args.iters` calls fed from disk (the root
+    `bench.py:364-420`): a JPEG frame set written once under
+    `--disk_dir`, decoded by the SceneLoader's threads into uint8 batches
+    (drop_last, so at least one full batch of frames), each batch copied to
+    the card and normalized there (with `--train`, also jittered there,
+    factors from `sample_jitter_params` with seed 0) and handed to `run`.
+    Decode runs ahead on the loader's threads while the card works; one
+    pass over the loader warms the page cache and the staging ring first."""
+    from vfa_tpu_torch.data.augment import sample_jitter_params
+    from vfa_tpu_torch.data.disk import DiskFrames, ensure_dataset
+    from vfa_tpu_torch.data.frame_dataset import SceneLoader
+    from vfa_tpu_torch.native.imageio import decoder_backend
+    from vfa_tpu_torch.train_lib import stage_images
+
+    n_frames = max(args.disk_frames, bs)
+    fpaths = ensure_dataset(os.path.join(args.disk_dir, args.data), n_frames,
+                            cfg.num_cam, cfg.resize_size, quality=90)
+    ds = DiskFrames(cfg, fpaths, n_frames, args.image_backend)
+    loader = SceneLoader(ds, batch_size=bs, shuffle=False,
+                         num_threads=args.loader_threads, max_objects=8,
+                         drop_last=True, images_dtype=np.uint8)
+    jitter = args.train and not args.no_augment
+    log(f"# from disk: {n_frames} frames x {cfg.num_cam} cameras under "
+        f"{args.disk_dir}, decoder {decoder_backend(args.image_backend)}, "
+        f"{args.loader_threads} loader threads, uint8 staging, ColorJitter "
+        f"{'on the card' if jitter else 'off'}")
+    aug_rng = np.random.default_rng(0)
+    dtype = getattr(torch, args.dtype)
+
+    def stage(x):
+        params = sample_jitter_params(aug_rng, x.shape[0] * x.shape[1]) if jitter else None
+        return stage_images(x, device, dtype, params)
+
+    imgs = None
+    for nb in loader:
+        imgs = stage(nb["images"])
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    del imgs
+    done, out = 0, None
+    t0 = time.perf_counter()
+    while done < args.iters:
+        for nb in loader:
+            out = run(stage(nb["images"]))
+            done += 1
+            if done >= args.iters:
+                break
+    finish(out, device, args.train)
+    return (time.perf_counter() - t0) / args.iters
+
+
 def main(argv=None, rig=None) -> dict:
     """Run the bench and print its JSON line; returns the printed dict.
     `rig` is an already built CameraRig for this configuration (built, or
@@ -365,12 +435,15 @@ def main(argv=None, rig=None) -> dict:
         if device.type == "cuda":
             torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    out = None
-    for _ in range(args.iters):
-        out = run()
-    finish(out, device, args.train)
-    t = (time.perf_counter() - t0) / args.iters
+    if args.from_disk:
+        t = disk_loop(cfg, args, bs, run, device)
+    else:
+        t0 = time.perf_counter()
+        out = None
+        for _ in range(args.iters):
+            out = run()
+        finish(out, device, args.train)
+        t = (time.perf_counter() - t0) / args.iters
 
     counted, syncs, _ = count_call(run, device, args.train)
     flops = call_flops(counted, rig, bs, args.train, device, args.rig_impl)
@@ -389,6 +462,8 @@ def main(argv=None, rig=None) -> dict:
         + (f" = {tflops_s / peak * 100:.2f}% of {kind}'s dense bf16 peak "
            f"({peak} TFLOP/s)" if peak else ""))
     g2x = "_grid2x" if args.grid2x else ""
+    if args.from_disk:
+        g2x += "_fromdisk"
     mode = "_train" if args.train else ""
     result = {
         "metric": f"{args.data.lower()}_{cfg.num_cam}cam{mode}{g2x}"

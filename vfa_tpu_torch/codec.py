@@ -183,7 +183,12 @@ def decode_frame(pred: Dict[str, torch.Tensor], cfg: DatasetConfig,
     cy = ((grid_y + tytx[..., 0]) / float(grid_size[0]) * float(world_size[0])).reshape(Bn, -1)
     cx = ((grid_x + tytx[..., 1]) / float(grid_size[1]) * float(world_size[1])).reshape(Bn, -1)
 
-    conf, idx = torch.topk(conf_map, min(topk, conf_map.shape[1]), dim=1)
+    # the k largest, equal values in index order, as `jax.lax.top_k`
+    # (torch.topk leaves the order of ties open): a trained model's
+    # sigmoid saturates at 1.0, so ties above the threshold happen
+    k = min(topk, conf_map.shape[1])
+    conf, idx = torch.sort(conf_map, dim=1, descending=True, stable=True)
+    conf, idx = conf[:, :k], idx[:, :k]
     valid = conf > cls_thresh
     cy = torch.gather(cy, 1, idx)
     cx = torch.gather(cx, 1, idx)
@@ -216,13 +221,15 @@ class ObjectEncoder:
     """Holds the dataset constants and turns decoded arrays into python
     Obj3D/Obj2D lists (`encoder.py:24-49,307-333`)."""
 
-    def __init__(self, cfg: DatasetConfig, dim_mean=None):
+    def __init__(self, cfg: DatasetConfig, dim_mean=None, topk: int = 100):
         self.cfg = cfg
+        self.topk = topk
         self.dim_mean = None if dim_mean is None else np.asarray(dim_mean, np.float32)
         self.label_name = "Cow" if cfg.name == "MultiviewC" else "Person"
 
     def decode(self, pred, cls_thresh: float):
-        return decode_frame(pred, self.cfg, cls_thresh, dim_mean=self.dim_mean)
+        return decode_frame(pred, self.cfg, cls_thresh, topk=self.topk,
+                            dim_mean=self.dim_mean)
 
     def batch_decode(self, pred, cls_thresh: float):
         """One list of Obj3D/Obj2D per scene of the batch."""

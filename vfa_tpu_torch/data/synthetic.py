@@ -32,8 +32,10 @@ def _look_at_extrinsic(cam_pos: np.ndarray, target: np.ndarray) -> np.ndarray:
     return np.hstack([R, t[:, None]]).astype(np.float64)
 
 
-def make_calibrations(cfg: DatasetConfig, num_cam: int | None = None) -> np.ndarray:
-    """(N, 3, 4) camera matrices K @ [R|t] in world-coord units."""
+def make_camera_params(cfg: DatasetConfig, num_cam: int | None = None):
+    """[(K (3, 3), [R|t] (3, 4))] per camera, float64: intrinsics matching
+    the dataset's image size, extrinsics on a ring looking at the grid's
+    center (what `make_calibrations` multiplies)."""
     num_cam = num_cam or cfg.num_cam
     grid = make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name)
     corners = np.stack([grid[0, 0], grid[-1, -1]])
@@ -45,14 +47,20 @@ def make_calibrations(cfg: DatasetConfig, num_cam: int | None = None) -> np.ndar
     f = 0.9 * iw
     K = np.array([[f, 0, iw / 2.0], [0, f, ih / 2.0], [0, 0, 1.0]])
 
-    calibs = []
+    params = []
     for i in range(num_cam):
         ang = 2.0 * np.pi * i / num_cam
         pos = center + np.array(
             [1.1 * extent * np.cos(ang), 1.1 * extent * np.sin(ang), 0.45 * extent]
         )
-        calibs.append(K @ _look_at_extrinsic(pos, center))
-    return np.stack(calibs).astype(np.float32)
+        params.append((K, _look_at_extrinsic(pos, center)))
+    return params
+
+
+def make_calibrations(cfg: DatasetConfig, num_cam: int | None = None) -> np.ndarray:
+    """(N, 3, 4) camera matrices K @ [R|t] in world-coord units."""
+    return np.stack([K @ Rt for K, Rt in make_camera_params(cfg, num_cam)]
+                    ).astype(np.float32)
 
 
 def make_objects(cfg: DatasetConfig, num_objects: int, rng: np.random.Generator):

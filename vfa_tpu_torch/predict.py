@@ -30,8 +30,8 @@ def parse_args(argv=None):
     p.add_argument("--data", required=True,
                    choices=["MultiviewC", "MultiviewX", "Wildtrack"])
     p.add_argument("--synthetic", action="store_true",
-                   help="synthetic scenes from --seed (on-disk data is not "
-                        "ported yet)")
+                   help="synthetic scenes from --seed (predict on disk is "
+                        "not ported yet: ROADMAP.md Queue 1 item 12)")
     p.add_argument("--tiny", action="store_true",
                    help="the shrunken test configuration")
     p.add_argument("--scenes", type=int, default=4)
@@ -67,7 +67,8 @@ def main(argv=None, rig=None) -> dict:
 
     if not args.synthetic:
         raise NotImplementedError(
-            "on-disk datasets are not ported yet; pass --synthetic")
+            "predict on disk (--root, --checkpoint, --index, --out) is not "
+            "ported yet; pass --synthetic (ROADMAP.md Queue 1 item 12)")
     if args.no_rig and args.dtype == "bfloat16":
         raise NotImplementedError(
             "--no_rig --dtype bfloat16 is not ported yet (ROADMAP.md Queue 1 "

@@ -1,38 +1,60 @@
-"""Training CLI of the port (the synthetic route of the root `train.py`).
+"""Training CLI of the port (mirrors the root `train.py`).
 
-Builds the compiled camera rig once on the host, or loads it from the rig
-cache (window layout by default, `--rig_layout flat` for the flat one; 8
-buckets, in the compute dtype), trains VFANet with SGD + OneCycle through the hand-written
-rig kernels of that layout (forward and backward; `--no_rig`: through the
-reference voxel route instead), runs the validation loss after each epoch, and
-reports the time per step. With VFA_FUSED_STEM=1 in the environment (as
-in the JAX package) the stem's GroupNorm + ReLU + max-pool run through
-`ops.stem.gn_relu_pool` and its hand-written backward kernels.
-`--dtype bfloat16` trains in mixed precision, as the JAX CLI does: fp32
-master parameters and momentum, bf16 compute (`train_lib`), bf16 images,
-a bf16 rig and the bf16 variants of the kernels.
+Loads a dataset from disk (`--root`, the MultiviewC / MultiviewX /
+Wildtrack layouts of `data.adapters`) or generates synthetic scenes
+(`--synthetic`), builds the compiled camera rig once on the host, or loads
+it from the rig cache (window layout by default, `--rig_layout flat` for
+the flat one; 8 buckets, in the compute dtype), trains VFANet with SGD +
+OneCycle through the hand-written rig kernels of that layout (forward and
+backward; `--no_rig`: through the reference voxel route instead), runs the
+validation loss after each epoch, logs train / val / opt scalars to
+`<savedir>/<run>/metrics.jsonl` (and TensorBoard when it imports), saves
+a checkpoint every 5 epochs and at the last one (`checkpoint.py`), and
+reports the time per step. `--resume <run>` continues `<savedir>/<run>`
+from its latest checkpoint.
 
+On disk, the train loader stages uint8 batches (4x fewer host-to-device
+bytes) and the train-split ColorJitter runs on the device
+(`data.augment.device_color_jitter`, factors drawn on the host from
+`--seed`); the synthetic route jitters on the host, as the JAX CLI does.
+With VFA_FUSED_STEM=1 in the environment (as in the JAX package) the
+stem's GroupNorm + ReLU + max-pool run through `ops.stem.gn_relu_pool` and
+its hand-written backward kernels. `--dtype bfloat16` trains in mixed
+precision, as the JAX CLI does: fp32 master parameters and momentum, bf16
+compute (`train_lib`), bf16 images, a bf16 rig and the bf16 variants of
+the kernels.
+
+    python -m vfa_tpu_torch.train --data MultiviewC --root data/MultiviewC -e 40 -b 2 --pretrained 0
+    python -m vfa_tpu_torch.train --data MultiviewC --root data/MultiviewC -e 2 --resume <run>
     python -m vfa_tpu_torch.train --data MultiviewC --synthetic -e 1 -b 2 --pretrained 0 --no_augment
     VFA_FUSED_STEM=1 python -m vfa_tpu_torch.train --data MultiviewC --synthetic -e 1 -b 2 --pretrained 0 --no_augment --rig_layout flat
-    python -m vfa_tpu_torch.train --data MultiviewC --synthetic --tiny -e 1 --pretrained 0 --no_augment --device cpu
-    python -m vfa_tpu_torch.train --data MultiviewC --synthetic --tiny -e 1 --pretrained 0 --no_augment --device cpu --dtype bfloat16
+    python -m vfa_tpu_torch.train --data MultiviewC --synthetic --tiny -e 1 --pretrained 0 --device cpu --dtype bfloat16
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
+import os
 import time
+from datetime import datetime
 
 import numpy as np
 import torch
 
 from vfa_tpu_torch.rig_cli import add_rig_layout_arg
 
+CHECKPOINT_EVERY = 5          # epochs, as the reference (`train.py:284-286`)
+AUGMENT_SEED_OFFSET = 777     # the jitter's generator: seed + 777, as JAX
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--data", required=True,
                    choices=["MultiviewC", "MultiviewX", "Wildtrack"])
+    p.add_argument("--root", type=str, default=None,
+                   help="dataset root on disk (default: the config's)")
     p.add_argument("-e", "--epochs", type=int, default=40)
     p.add_argument("-b", "--batch_size", type=int, default=1)
     p.add_argument("--lr", type=float, default=0.02)
@@ -40,11 +62,17 @@ def parse_args(argv=None):
     p.add_argument("--momentum", type=float, default=0.5)
     p.add_argument("--angle_range", type=int, default=360)
     p.add_argument("--pretrained", type=int, default=1,
-                   help="1: ImageNet backbone weights (not ported yet); "
-                        "0: seeded random weights")
+                   help="1: torchvision ImageNet backbone weights, read from "
+                        "a local file (convert.torchvision_resnet_path; "
+                        "training goes on from random weights, saying so, "
+                        "when it is absent); 0: seeded random weights")
+    p.add_argument("--heatmap", type=str, default="GK", choices=["GK", "RGK"],
+                   help="MultiviewC gt heatmap flavor")
     p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--savedir", type=str, default="experiments")
     p.add_argument("--resume", type=str, default=None,
-                   help="resume from a checkpoint (not ported yet)")
+                   help="run name under --savedir to continue from its "
+                        "latest checkpoint")
     p.add_argument("--print_iter", type=int, default=1)
     p.add_argument("--vis_iter", type=int, default=0,
                    help="write pred-vs-gt figures every N iterations (not "
@@ -61,14 +89,18 @@ def parse_args(argv=None):
                         "OneCycleLR's 0.95<->0.85 momentum cycle")
     p.add_argument("--no_augment", action="store_true",
                    help="disable the train-split ColorJitter augmentation "
-                        "(the augmentation is not ported yet, so this flag "
-                        "is required)")
+                        "(brightness/contrast/hue 0.2, the reference's)")
     p.add_argument("--synthetic", action="store_true",
-                   help="train on procedurally generated scenes (on-disk "
-                        "data is not ported yet)")
+                   help="train on procedurally generated scenes")
     p.add_argument("--synthetic_frames", type=int, default=16)
     p.add_argument("--tiny", action="store_true",
                    help="the shrunken test configuration")
+    p.add_argument("--profile_steps", type=int, default=0,
+                   help="capture a torch.profiler trace of the step with "
+                        "this global index (0 disables) into <run>/profile")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="check the loss and the gradients after every step "
+                        "and fail on a NaN or Inf (one host sync a step)")
     p.add_argument("--no_rig", action="store_true",
                    help="sample through the reference voxel route from the "
                         "calibrations instead of a compiled rig")
@@ -89,17 +121,9 @@ def _refuse_unported(args) -> None:
     """Every flag whose path is not ported yet raises, naming its ROADMAP
     item; nothing is silently skipped."""
     unported = [
-        (not args.synthetic, "on-disk datasets are not ported yet; pass "
-         "--synthetic (ROADMAP.md Queue 1 item 11)"),
-        (bool(args.pretrained), "--pretrained 1 (ImageNet backbone weights) "
-         "is not ported yet; pass --pretrained 0 (ROADMAP.md Queue 1 item 10)"),
-        (not args.no_augment, "the ColorJitter augmentation is not ported "
-         "yet; pass --no_augment (ROADMAP.md Queue 1 item 11)"),
         (args.dtype == "bfloat16" and args.no_rig, "--no_rig --dtype "
          "bfloat16 (the reference voxel route in bf16) is not ported yet "
          "(ROADMAP.md Queue 1 item 17)"),
-        (args.resume is not None, "--resume and checkpoints are not ported "
-         "yet (ROADMAP.md Queue 1 item 10)"),
         (bool(args.vis_iter), "training figures (--vis_iter) are not ported "
          "yet (ROADMAP.md Queue 1 item 14)"),
         (args.multihost, "--multihost is not ported yet (ROADMAP.md Queue 1 "
@@ -110,15 +134,97 @@ def _refuse_unported(args) -> None:
             raise NotImplementedError(message)
 
 
+def build_config(args):
+    from vfa_tpu_torch.config import TrainConfig, get_config
+    from vfa_tpu_torch.data.synthetic import tiny_config
+
+    cfg = get_config(args.data)
+    if args.root:
+        cfg = dataclasses.replace(cfg, root=args.root)
+    if args.tiny:
+        cfg = tiny_config(cfg)
+    if args.momentum != 0.5 and not args.no_cycle_momentum:
+        raise SystemExit(
+            "--momentum has no effect while the reference's OneCycleLR "
+            "momentum cycle is replicated (it overwrites SGD's momentum "
+            "every step). Pass --no_cycle_momentum to train with a constant "
+            "momentum.")
+    tcfg = TrainConfig(
+        epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
+        weight_decay=args.weight_decay, momentum=args.momentum,
+        angle_range=args.angle_range, pretrained=bool(args.pretrained),
+        heatmap=args.heatmap, seed=args.seed, savedir=args.savedir,
+        print_iter=args.print_iter, vis_iter=args.vis_iter,
+        scheduler_step_per_epoch=not args.fix_scheduler,
+        cycle_momentum=not args.no_cycle_momentum, compute_dtype=args.dtype)
+    return cfg, tcfg
+
+
+def make_loaders(cfg, args):
+    """(train, val, dim_mean, device_jitter), as the root `train.py:156-207`.
+    device_jitter: the train loader stages raw uint8 images and the
+    train-split ColorJitter runs on the device; the synthetic route keeps
+    the host jitter (its images are not decoded from disk)."""
+    augment = None
+    if not args.no_augment:
+        from vfa_tpu_torch.data.augment import ColorJitterAugment
+
+        augment = ColorJitterAugment(brightness=0.2, contrast=0.2, hue=0.2)
+
+    if args.synthetic:
+        from vfa_tpu_torch.data.synthetic_loader import SyntheticSceneLoader
+
+        train = SyntheticSceneLoader(cfg, num_frames=args.synthetic_frames,
+                                     batch_size=args.batch_size, seed=args.seed,
+                                     augment=augment)
+        val = SyntheticSceneLoader(cfg, num_frames=max(2, args.synthetic_frames // 8),
+                                   batch_size=args.batch_size, seed=args.seed + 1)
+        return train, val, train.dim_mean, False
+
+    from vfa_tpu_torch.data.adapters import ADAPTERS
+    from vfa_tpu_torch.data.frame_dataset import FrameDataset, SceneLoader
+    from vfa_tpu_torch.native.imageio import decoder_backend
+
+    kw = {"heatmap_type": args.heatmap} if cfg.name == "MultiviewC" else {}
+    base = ADAPTERS[cfg.name](cfg.root, world_size=cfg.world_size,
+                              cube_LWH=cfg.cube_size, **kw)
+    train_ds = FrameDataset(base, cfg, split="train")
+    val_ds = FrameDataset(base, cfg, split="val")
+    device_jitter = augment is not None
+    staged = np.uint8 if device_jitter else np.float32
+    train = SceneLoader(train_ds, batch_size=args.batch_size, shuffle=True,
+                        seed=args.seed, augment=None if device_jitter else augment,
+                        images_dtype=staged)
+    val = SceneLoader(val_ds, batch_size=args.batch_size, shuffle=False,
+                      images_dtype=staged)
+    print(f"dataset {cfg.name} at {cfg.root}: {len(train_ds)} train / "
+          f"{len(val_ds)} val frames, {base.num_cam} cameras; decoder "
+          f"{decoder_backend()}; images staged as "
+          f"{np.dtype(staged).name}, ColorJitter "
+          f"{'off' if augment is None else 'on the device' if device_jitter else 'on the host'}")
+    return train, val, train_ds.dim_mean, device_jitter
+
+
+def _rng_of(loader):
+    """The train loader's and its host jitter's generators (numpy), whose
+    states a checkpoint keeps so that a resumed run draws what the
+    uninterrupted one would."""
+    return {k: getattr(loader, a) for k, a in (("loader", "_rng"), ("augment", "_aug_rng"))
+            if hasattr(loader, a)}
+
+
 def main(argv=None, rig=None) -> dict:
     """Run the CLI. `rig` is an already built CameraRig for this
     configuration (built here when None). Returns the per-step and
-    validation losses, the step times, the model and the rig."""
+    validation losses, the step times and learning rates, the model, the
+    rig and the run directory."""
     args = parse_args(argv)
     _refuse_unported(args)
-    from vfa_tpu_torch.config import TrainConfig, get_config
-    from vfa_tpu_torch.data.synthetic import tiny_config
-    from vfa_tpu_torch.data.synthetic_loader import SyntheticSceneLoader
+    from vfa_tpu_torch import observability
+    from vfa_tpu_torch.checkpoint import (
+        latest_checkpoint, load_state, restore_checkpoint, save_checkpoint,
+    )
+    from vfa_tpu_torch.data.augment import sample_jitter_params
     from vfa_tpu_torch.model.vfanet import VFANet, init_weights
     from vfa_tpu_torch.rig_cli import RIG_CACHE_DIR, build_cli_rig
     from vfa_tpu_torch.train_lib import (
@@ -127,37 +233,33 @@ def main(argv=None, rig=None) -> dict:
     )
     from vfa_tpu_torch.utils import MetricDict
 
-    if args.momentum != 0.5 and not args.no_cycle_momentum:
-        raise SystemExit(
-            "--momentum has no effect while the reference's OneCycleLR "
-            "momentum cycle is replicated (it overwrites SGD's momentum "
-            "every step). Pass --no_cycle_momentum to train with a constant "
-            "momentum.")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available")
-    cfg = get_config(args.data)
-    if args.tiny:
-        cfg = tiny_config(cfg)
-    tcfg = TrainConfig(
-        epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
-        weight_decay=args.weight_decay, momentum=args.momentum,
-        angle_range=args.angle_range, pretrained=bool(args.pretrained),
-        seed=args.seed, print_iter=args.print_iter, vis_iter=args.vis_iter,
-        scheduler_step_per_epoch=not args.fix_scheduler,
-        cycle_momentum=not args.no_cycle_momentum, compute_dtype=args.dtype)
+    cfg, tcfg = build_config(args)
+    observability.enable_nan_debugging(args.debug_nans)
 
-    train_loader = SyntheticSceneLoader(
-        cfg, num_frames=args.synthetic_frames, batch_size=args.batch_size,
-        seed=args.seed)
-    val_loader = SyntheticSceneLoader(
-        cfg, num_frames=max(2, args.synthetic_frames // 8),
-        batch_size=args.batch_size, seed=args.seed + 1)
+    train_loader, val_loader, dim_mean, device_jitter = make_loaders(cfg, args)
     steps_per_epoch = max(1, len(train_loader))
+    image_dtype = None
+    if args.dtype == "bfloat16":
+        image_dtype = torch.bfloat16
+        print("mixed precision: bfloat16 compute, float32 master params")
+    aug_rng = np.random.default_rng(tcfg.seed + AUGMENT_SEED_OFFSET)
+
+    def to_device(batch, jitter=False):
+        params = None
+        if jitter:
+            n = batch["images"].shape[0] * batch["images"].shape[1]
+            params = sample_jitter_params(aug_rng, n)
+        return batch_to_device(batch, device, image_dtype, params)
+
     if args.no_rig:
         rig = None
     elif rig is None:
-        rig = build_cli_rig(cfg, train_loader.scenes[0].calibs, device,
+        calibs = (train_loader.ds.calibs if hasattr(train_loader, "ds")
+                  else train_loader.scenes[0].calibs)
+        rig = build_cli_rig(cfg, calibs, device,
                             buckets=args.rig_buckets, training=True,
                             layout=args.rig_layout, cache_dir=RIG_CACHE_DIR,
                             dtype=getattr(torch, args.dtype))
@@ -165,53 +267,107 @@ def main(argv=None, rig=None) -> dict:
     gen = torch.Generator().manual_seed(args.seed)
     model = init_weights(
         VFANet(cfg, base=tcfg.base, angle_range=tcfg.angle_range,
-               rig_impl=args.rig_impl), gen).to(device)
-    print(f"training from random weights (seed {args.seed}), "
-          f"rig_impl {args.rig_impl}, fused stem "
+               rig_impl=args.rig_impl), gen)
+    if tcfg.pretrained:
+        from vfa_tpu_torch.convert import load_torchvision_resnet_file
+
+        try:
+            path = load_torchvision_resnet_file(model, tcfg.base)
+            print(f"loaded torchvision ImageNet backbone weights from {path}")
+        except FileNotFoundError as e:
+            print(f"pretrained backbone unavailable ({e}); training from scratch")
+    model = model.to(device)
+    print(f"weights seeded from {args.seed}, rig_impl {args.rig_impl}, fused stem "
           f"{'on' if model.base.fused_stem_on() else 'off'}")
-    image_dtype = None
-    if args.dtype == "bfloat16":
-        image_dtype = torch.bfloat16
-        print("mixed precision: bfloat16 compute, float32 master params")
     optimizer = make_optimizer(model, tcfg, steps_per_epoch)
-    train_step = make_train_step(model, optimizer, cfg, tcfg,
-                                 dim_mean=train_loader.dim_mean)
-    eval_step = make_eval_step(model, cfg, dim_mean=train_loader.dim_mean,
+
+    savedir = os.path.join(tcfg.savedir, args.resume or
+                           datetime.now().strftime("%Y-%m-%d_%H-%M-%S"))
+    os.makedirs(savedir, exist_ok=True)
+    ckpt_dir = os.path.join(savedir, "checkpoints")
+    start_epoch = 1
+    rngs = {"augment_device": aug_rng, **_rng_of(train_loader)}
+    if args.resume:
+        # as the JAX CLI: a run without a checkpoint starts at epoch 1
+        ckpt = latest_checkpoint(ckpt_dir)
+        if ckpt is None:
+            print(f"--resume {args.resume}: no checkpoint under {ckpt_dir}; "
+                  "starting at epoch 1")
+        else:
+            start_epoch = restore_checkpoint(ckpt, model, optimizer) + 1
+            for name, state in load_state(ckpt)["rng"].items():
+                rngs[name].bit_generator.state = state
+            print(f"resumed from {ckpt} at epoch {start_epoch} (optimizer "
+                  f"step {optimizer.count})")
+
+    train_step = make_train_step(model, optimizer, cfg, tcfg, dim_mean=dim_mean)
+    eval_step = make_eval_step(model, cfg, dim_mean=dim_mean,
                                compute_dtype=args.dtype)
+    writer = observability.MetricsWriter(savedir)
+    writer.text("config", json.dumps(
+        {"dataset": dataclasses.asdict(cfg), "train": dataclasses.asdict(tcfg)},
+        indent=2, default=str))
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    losses, val_losses, step_ms = [], [], []
-    for epoch in range(1, tcfg.epochs + 1):
+    losses, val_losses, step_ms, lrs, wait_ms, checkpoints = [], [], [], [], [], []
+    global_it = 0
+    for epoch in range(start_epoch, tcfg.epochs + 1):
+        t_epoch = time.time()
         epoch_loss = MetricDict()
+        t_wait = time.perf_counter()
         for i, batch in enumerate(train_loader):
+            wait_ms.append((time.perf_counter() - t_wait) * 1e3)
+            tracing = args.profile_steps and global_it == args.profile_steps
             t0 = time.perf_counter()
-            loss_dict = train_step(batch_to_device(batch, device, image_dtype), rig)
-            loss_dict = {k: float(v) for k, v in loss_dict.items()}
+            with observability.profile_trace(
+                    os.path.join(savedir, "profile") if tracing else None):
+                loss_dict = train_step(to_device(batch, jitter=device_jitter), rig)
+                loss_dict = {k: float(v) for k, v in loss_dict.items()}
             sync()
             step_ms.append((time.perf_counter() - t0) * 1e3)
+            lrs.append(optimizer.param_groups[0]["lr"])
             losses.append(loss_dict)
             epoch_loss += loss_dict
+            global_it += 1
             if i % tcfg.print_iter == 0:
                 m = epoch_loss.mean
                 print(f"[TRAIN] epoch {epoch}/{tcfg.epochs} it {i+1}/{steps_per_epoch} "
                       + " ".join(f"{k}={v:.5f}" for k, v in sorted(m.items())),
                       flush=True)
+            t_wait = time.perf_counter()
         val_loss = MetricDict()
         for batch in val_loader:
-            loss_dict, _ = eval_step(batch_to_device(batch, device, image_dtype), rig)
+            loss_dict, _ = eval_step(to_device(batch), rig)
             val_loss += {k: float(v) for k, v in loss_dict.items()}
         val_losses.append(val_loss.mean)
         lr = current_lr(tcfg, steps_per_epoch, optimizer.count - 1)
         print(f"[VAL] epoch {epoch}: train {epoch_loss.mean.get('loss', 0):.5f} "
               f"val {val_loss.mean.get('loss', 0):.5f} lr {lr:.5f}")
-    print(f"steps {len(step_ms)} (batch {args.batch_size}): ms per step "
-          + " ".join(f"{t:.2f}" for t in step_ms)
-          + f"; p50 {float(np.median(step_ms)):.2f} ms")
+        writer.scalars("train", epoch_loss.mean, epoch)
+        writer.scalars("val", val_loss.mean, epoch)
+        writer.scalars("opt", {"lr": lr, "epoch_seconds": time.time() - t_epoch}, epoch)
+        if epoch % CHECKPOINT_EVERY == 0 or epoch == tcfg.epochs:
+            path = save_checkpoint(
+                ckpt_dir, model, optimizer, cfg, tcfg, epoch,
+                extra={"dim_mean": None if dim_mean is None
+                       else np.asarray(dim_mean).tolist()},
+                rng={k: g.bit_generator.state for k, g in rngs.items()})
+            checkpoints.append(path)
+            print(f"saved checkpoint {path}")
+    writer.close()
+    if step_ms:
+        print(f"steps {len(step_ms)} (batch {args.batch_size}): ms per step "
+              + " ".join(f"{t:.2f}" for t in step_ms)
+              + f"; p50 {float(np.median(step_ms)):.2f} ms; loader wait p50 "
+              f"{float(np.median(wait_ms)):.2f} ms per step")
     return {"losses": losses, "val_losses": val_losses, "ms": step_ms,
-            "model": model, "rig": rig}
+            "wait_ms": wait_ms, "lrs": lrs, "model": model, "rig": rig,
+            "optimizer": optimizer, "savedir": savedir,
+            "checkpoints": checkpoints, "start_epoch": start_epoch,
+            "steps_per_epoch": steps_per_epoch}
 
 
 if __name__ == "__main__":

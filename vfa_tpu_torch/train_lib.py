@@ -24,12 +24,14 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 from torch import nn
 
 from vfa_tpu_torch.codec import encode_frame, gaussian_csl_labels, object_cells
 from vfa_tpu_torch.config import DatasetConfig, TrainConfig
 from vfa_tpu_torch.losses import compute_loss2d, compute_loss3d
+from vfa_tpu_torch.observability import check_finite, nan_debugging
 
 OBJECT_KEYS = ("location", "valid", "dimension", "rotation")
 
@@ -121,13 +123,37 @@ def make_optimizer(model: nn.Module, tcfg: TrainConfig,
     return ScheduledSGD(model.parameters(), tcfg, steps_per_epoch)
 
 
-def batch_to_device(batch: Dict, device, image_dtype=None) -> Dict[str, torch.Tensor]:
+def stage_images(images: np.ndarray, device, dtype=None,
+                 jitter=None) -> torch.Tensor:
+    """A uint8-staged (B, N, H, W, 3) host batch on `device` as [0, 1]
+    images in `dtype` (default fp32): the copy moves the uint8 bytes, and
+    the normalization (`x * (1/255)` in fp32, as the JAX CLI's staging
+    step) and, when `jitter` = (factors, order) is given (one row per
+    camera image, `data.augment.sample_jitter_params`), the train-split
+    ColorJitter run on the device. The copy is from pageable memory: one
+    through pinned memory without waiting did not measure faster from
+    disk (`tools/exp_disk_staging.py`, PERF.md §5)."""
+    x = torch.from_numpy(np.ascontiguousarray(images)).to(device)
+    f = x.to(torch.float32) * (1.0 / 255.0)
+    if jitter is not None:
+        from vfa_tpu_torch.data.augment import device_color_jitter
+
+        f = device_color_jitter(f.reshape(-1, *f.shape[2:]), *jitter).reshape(f.shape)
+    return f.to(dtype or torch.float32)
+
+
+def batch_to_device(batch: Dict, device, image_dtype=None,
+                    jitter=None) -> Dict[str, torch.Tensor]:
     """A loader's numpy batch as tensors on `device` (python-object and
-    bookkeeping entries dropped), the images cast to `image_dtype` on the
-    host first when it is given (bf16 halves the copy)."""
+    bookkeeping entries dropped). Float images are cast to `image_dtype`
+    on the host first when it is given (bf16 halves the copy); uint8
+    images go through `stage_images` (with `jitter`, if given)."""
     out = {}
     for k, v in batch.items():
         if k in ("objects", "index", "frame"):
+            continue
+        if k == "images" and np.asarray(v).dtype == np.uint8:
+            out[k] = stage_images(v, device, image_dtype, jitter)
             continue
         t = torch.as_tensor(v)
         if k == "images" and image_dtype is not None:
@@ -196,7 +222,9 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     valid (B, M), in 3D mode dimension (B, M, 3), rotation (B, M), and for
     the voxel route calibs (B, N, 3, 4), grid (L, W, 3). With
     `tcfg.compute_dtype` 'bfloat16' the step is mixed precision (module
-    docstring) and the rig must be a bf16 one."""
+    docstring) and the rig must be a bf16 one. Under
+    `observability.enable_nan_debugging()` the loss and the gradients are
+    checked before the update (FloatingPointError naming the step)."""
     dtype = _compute_dtype(tcfg.compute_dtype)
     angle_range = _angle_range(model)
 
@@ -219,6 +247,9 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             loss, loss_dict = compute_loss2d(pred, gt, cfg.loss_weight)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if nan_debugging():
+            check_finite(optimizer.count, loss,
+                         ((n, p.grad) for n, p in model.named_parameters()))
         optimizer.step()
         return {k: v.detach() for k, v in loss_dict.items()}
 
