@@ -97,6 +97,30 @@ result line):
      the loader's ms per scene, the on-disk train step beside the staged
      one, and the bench `--from_disk` (serving, auto batch; training at
      batch 8) beside the staged bench cells;
+  5e. the BEV-sharded path and multi-process training (`parallel_bev.py`,
+     `parallel.py`), bf16, full MultiviewC width, each step fatal: the
+     predict CLI on disk (`--root`, the resumed checkpoint of 5d,
+     `--dtype bfloat16`; K1-bf16 once a scale and nothing else, the
+     heatmap within rel-L2 1e-2 of the plain route's, whether the figure
+     was written); then 2 ranks sharing the card (gloo on CUDA tensors,
+     `launch.run_ranks`), each on its slab of the 8-bucket BEV-sharded rig
+     (2 slabs, built by a sixth host process into the run's rig cache):
+     sampling and its gradients at B = 2 and 1 against the unsharded bf16
+     window rig (forward within 1e-2 / rel-L2 4e-3; dII and dKr, summed
+     over the ranks, within 1.5x of the unsharded route's distance from
+     its fp32 route, the rig cast to fp32), per rank K1-bf16 once a scale
+     and the bf16 window backward once a bucket (all serial, K3's
+     rounding, at B = 1); each rank's K1-bf16 and bf16 window backward on
+     its slab's unified buckets against their plain versions at B = 2 and
+     1 (1e-2 / rel-L2 4e-3, dII the same bits twice); then one full-model
+     train step at B = 1 against the unsharded step (its eval- and
+     training-mode heatmaps before it, which hold the halo rows and the
+     cross-slab norms cell by cell, within 1e-2 / rel-L2 4e-3; loss rel
+     1e-2, update within 1.5x the bf16-vs-fp32 distance and 0.25); `python -m
+     vfa_tpu_torch.train --multihost` in 2 processes at -b 1 against one
+     process at -b 2 (2 steps, the same bounds); the bench `--bev_shards 2
+     --dtype bfloat16` beside the unsharded bench at batch 2 (the cost of
+     the path on one card; both 8 buckets, on the same rigs);
   6. time each kernel (CUDA events, warmed up) beside its bound and its
      plain version (the fp32 rig kernels' operations are held to 495 / 3 =
      165 TFLOP/s, fp32-accurate 3xTF32 on the tensor cores, the bf16 ones to
@@ -435,7 +459,7 @@ def worst_of(errs):
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
-def phase_kernel_vs_plain(rig, device, batches=(1, 2)):
+def phase_kernel_vs_plain(rig, device, batches=(1, 2), where="phase 2"):
     """The forward kernel against its plain version, bucket by bucket: each
     bucket's rows of the scale's tiles held to the tolerance of its own
     plain result's max (a bf16 rig: the bf16 kernel, BF16_MAX and BF16_L2);
@@ -452,7 +476,7 @@ def phase_kernel_vs_plain(rig, device, batches=(1, 2)):
         for si, sr in enumerate(rig.scales):
             lat, k = scale_inputs(sr, B, 100 * B + si, device)
             got = rig_tiles_cuda(lat, sr, k)
-            torch.cuda.synchronize()
+            sync(device)
             want = plain_tiles(lat, sr, k)
             tag = (f"{name} B={B} scale {si} ({len(sr.A)} buckets, "
                    f"{sum(a.shape[1] for a in sr.A)} tiles, bands "
@@ -470,7 +494,7 @@ def phase_kernel_vs_plain(rig, device, batches=(1, 2)):
                 f"{rel:.3e} (tolerance {tol})")
             errs += per_bucket
             del got, want
-    log(f"phase 2 {name} vs plain: ok; the largest launch's vox scratch "
+    log(f"{where} {name} vs plain: ok; the largest launch's vox scratch "
         f"{vox_max} elements ({'past' if vox_max > 2 ** 31 else 'within'} 2^31)")
     return worst_of(errs)
 
@@ -508,7 +532,7 @@ def bwd_name(rig) -> str:
     return f"rig_{layout_of(rig)}_bwd" + ("_bf16" if is_bf16(rig) else "")
 
 
-def phase_bwd_kernel_vs_plain(rig, device, batches=(1, 2)):
+def phase_bwd_kernel_vs_plain(rig, device, batches=(1, 2), where="phase 2"):
     """The backward kernel against its plain version, all buckets of each
     scale through one dII. fp32: dII and dKr within KERNEL_TOL. bf16: dKr
     and dII by check_bf16 (both bf16 kernels add dII in the plain version's
@@ -522,7 +546,7 @@ def phase_bwd_kernel_vs_plain(rig, device, batches=(1, 2)):
         for si, sr in enumerate(rig.scales):
             ii, Kr, g = grad_inputs(sr, B, 300 * B + si, device)
             got = rig_scale_bwd(ii, sr, Kr, g)
-            torch.cuda.synchronize()
+            sync(device)
             want = plain_scale_bwd(ii, sr, Kr, g)
             bands = [a.shape[-1] for a in sr.A]
             tag = (f"{name} B={B} scale {si} ({len(sr.A)} buckets"
@@ -533,7 +557,7 @@ def phase_bwd_kernel_vs_plain(rig, device, batches=(1, 2)):
                 errs.append(check_bf16(f"{tag} dII", got[0], want[0]))
                 errs.append(check_bf16(f"{tag} dKr", got[1], want[1]))
                 again = rig_scale_bwd(ii, sr, Kr, g)[0]
-                torch.cuda.synchronize()
+                sync(device)
                 if not torch.equal(again, got[0]):
                     raise AssertionError(f"{tag}: two runs gave different dII bits")
                 log(f"  {tag} dII: a second run gives the same bits")
@@ -542,7 +566,7 @@ def phase_bwd_kernel_vs_plain(rig, device, batches=(1, 2)):
                 for part, a, b in zip(("dII", "dKr"), got, want):
                     errs.append(check_close(f"{tag} {part}", a, b))
             del got, want, ii, Kr, g
-    log(f"phase 2 {name} vs plain: ok")
+    log(f"{where} {name} vs plain: ok")
     return worst_of(errs)
 
 
@@ -1490,6 +1514,7 @@ def phase_disk_path(proc, base, rig_cache, device, serve_rig, staged):
         if any(launches[k] <= 0 for k in want):
             raise AssertionError(f"bench --from_disk {tag}: launches {launches}")
         log(f"  bench --from_disk {tag}: {bench_res[tag]}; launches {launches}")
+    predicted = phase_predict_on_disk(root, resumed["checkpoints"][-1], rig, device, base)
     del rig
     torch.cuda.empty_cache()
     log(f"phase 5d disk path: train step p50 on disk {stage_ms:.2f} ms (uint8 "
@@ -1499,7 +1524,495 @@ def phase_disk_path(proc, base, rig_cache, device, serve_rig, staged):
         f"scenes/s, staged {staged['serving']['value']}; bf16 training (batch 8) from "
         f"disk {bench_res['training']['value']}, staged {staged['training']['value']}; "
         f"{time.perf_counter() - t_phase:.1f} s")
-    return {"train": runs["train"][1], "resume": runs["resume"][1], "evaluate": ev_launches}
+    return {"train": runs["train"][1], "resume": runs["resume"][1], "evaluate": ev_launches,
+            "predict": predicted}
+
+
+# phase 5e: the BEV-sharded path (parallel_bev.py) and --multihost
+# (parallel.py), 2 ranks sharing the one card through gloo on CUDA tensors
+BEV_SHARDS = 2
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def launch_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def bev_config(tiny: bool):
+    """(cfg, calibs, grid, feat shapes) of MultiviewC at full width (7 x
+    720x1280 cameras, 156x156 BEV), or the tiny configuration with its 7
+    cameras (`tiny` only drives the phase on the CPU)."""
+    from vfa_tpu_torch.config import get_config
+    from vfa_tpu_torch.data.synthetic import make_calibrations, tiny_config
+    from vfa_tpu_torch.geometry import make_grid
+    from vfa_tpu_torch.ops.rig import pyramid_feat_shapes
+
+    cfg = get_config("MultiviewC")
+    if tiny:
+        cfg = dataclasses.replace(tiny_config(cfg), num_cam=7)
+    return (cfg, make_calibrations(cfg), make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name),
+            pyramid_feat_shapes(cfg.resize_size))
+
+
+def bev_rig(rig_cache, buckets: int, tiny: bool = False):
+    """The bf16 BEV-sharded rig of BEV_SHARDS slabs (`buckets` a slab),
+    loaded from or built into the rig cache at `rig_cache`."""
+    from vfa_tpu_torch.ops.rig import default_tile_v
+    from vfa_tpu_torch.parallel_bev import build_bev_sharded_rig
+
+    cfg, calibs, grid, shapes = bev_config(tiny)
+    return build_bev_sharded_rig(calibs, cfg, grid, shapes, num_shards=BEV_SHARDS,
+                                 tile_v=default_tile_v(cfg.num_layers, torch.bfloat16),
+                                 dtype=torch.bfloat16, band_buckets=buckets,
+                                 cache_dir=rig_cache)
+
+
+def start_bev_rig_build(cache_dir):
+    """A host process that builds the bf16 BEV-sharded rig (8 buckets a
+    slab, the training policy; the phase's sampling, train step and bench
+    all take it) into the rig cache; returns it running."""
+    code = ("import time, chip_smoke\n"
+            "t0 = time.perf_counter()\n"
+            f"r = chip_smoke.bev_rig({cache_dir!r}, 8)\n"
+            "a = sum(t.numel() * t.element_size() for s in r.scales for t in s.A)\n"
+            "print(f'bev rig: 8 buckets a slab, {r.num_shards} slabs of '\n"
+            "      f'{r.slab_rows} rows, A {a} bytes (both slabs), '\n"
+            "      f'{time.perf_counter() - t0:.1f} s')\n")
+    return subprocess.Popen(
+        [sys.executable, "-c", code], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def bev_inputs(cfg, shapes, nl, B, device, dtype=torch.bfloat16):
+    """Seeded features (B, N, fh, fw, 256), collapse kernels and biases of
+    the three scales, and the loss weights w (B, L, W, 256)."""
+    g = torch.Generator().manual_seed(70 + B)
+    L, W = cfg.grid_shape
+    lats = [torch.rand((B, cfg.num_cam, fh, fw, 256), generator=g) for fh, fw in shapes]
+    ks = [torch.randn((256 * nl, 256), generator=g) * 0.05 for _ in shapes]
+    bs = [torch.randn((256,), generator=g) * 0.1 for _ in shapes]
+    w = torch.randn((B, L, W, 256), generator=g)
+    cast = lambda ts: [t.to(torch.bfloat16).to(device=device, dtype=dtype) for t in ts]
+    return cast(lats), cast(ks), cast(bs), w.to(device)
+
+
+def sample_and_grad(sample, lats, ks, bs, w):
+    """(features, feature grads, collapse grads in fp32) of sum(out * w)."""
+    la = [t.clone().requires_grad_() for t in lats]
+    ka = [t.clone().requires_grad_() for t in ks]
+    out = sample(la, ka, bs)
+    (out.float() * w).sum().backward()
+    return out.detach(), [t.grad for t in la], [t.grad.float() for t in ka]
+
+
+def unsharded_sample(rig):
+    from vfa_tpu_torch.ops.rig_cuda import rig_sample_scale_cuda
+
+    L, W = rig.grid_shape
+
+    def sample(lats, ks, bs):
+        out = 0
+        for sr, lat, k, b in zip(rig.scales, lats, ks, bs):
+            out = out + rig_sample_scale_cuda(lat, sr, k, b, out_dtype=torch.float32,
+                                              camera_sum=True)
+        return out.reshape(lats[0].shape[0], L, W, -1).to(lats[0].dtype)
+
+    return sample
+
+
+def model_step(cfg, rig, mesh, device, dtype: str, B: int = 1) -> dict:
+    """One train step of the seeded full-width model (init seed 0) at
+    TRAIN_LR on synthetic scenes 0..B-1, on `mesh` (None: one process):
+    the loss, the update of all parameters as one vector and the
+    launches; the heatmap of the model before it in eval mode (serving:
+    running statistics) and in training mode (batch statistics), its
+    buffers kept; then a second step on the same batch, whose ms it
+    reports (the first pays the warm-up)."""
+    from vfa_tpu_torch.config import TrainConfig
+    from vfa_tpu_torch.entry import DIM_MEAN, synthetic_batch
+    from vfa_tpu_torch.kernels import launch_counts
+    from vfa_tpu_torch.model.vfanet import VFANet, init_weights
+    from vfa_tpu_torch.train_lib import (_forward, batch_to_device, make_optimizer,
+                                         make_train_step)
+
+    tcfg = TrainConfig(pretrained=False, lr=float(TRAIN_LR), epochs=1, compute_dtype=dtype)
+    model = init_weights(VFANet(cfg), torch.Generator().manual_seed(0)).to(device)
+    model.mesh = mesh
+    flat = lambda: torch.cat([p.detach().reshape(-1).float() for p in model.parameters()])
+    before = flat()
+    step = make_train_step(model, make_optimizer(model, tcfg, 1), cfg, tcfg,
+                           dim_mean=DIM_MEAN, mesh=mesh)
+    batch = batch_to_device(synthetic_batch(cfg, range(B)), device,
+                            torch.bfloat16 if dtype == "bfloat16" else None)
+    heat = {}
+    for mode in ("eval", "train"):
+        saved = [b.clone() for b in model.buffers()]
+        with torch.no_grad():
+            heat[mode] = _forward(model.train(mode == "train"), getattr(torch, dtype),
+                                  batch, rig)["heatmap"].float().cpu()
+        for b, v in zip(model.buffers(), saved):
+            b.copy_(v)
+    sync(device)
+    n0 = launch_counts()
+    loss = float(step(batch, rig)["loss"])
+    sync(device)
+    launches = launch_delta(n0, launch_counts())
+    update = (flat() - before).cpu()
+    t0 = time.perf_counter()
+    step(batch, rig)
+    sync(device)
+    return {"loss": loss, "update": update, "launches": launches, "heatmap": heat,
+            "ms": (time.perf_counter() - t0) * 1e3}
+
+
+def bev_rank(device, rig_cache, tiny: bool) -> dict:
+    """One rank of phase 5e's sharded sampling and train step: its slab of
+    the 8-bucket bf16 BEV-sharded rig (from the rig cache), sampling and
+    its gradients at B = 2 and B = 1 (the collapse gradients summed over
+    the slabs in fp32), launches counted around each; then K1-bf16 and the
+    bf16 window backward on the slab's unified buckets (zero A tiles,
+    re-clamped origins, the common windows, the rebuilt dII order) against
+    their plain versions at B = 2 and B = 1 (K3's per-layer rounding), as
+    phase 2 holds them on the unsharded rig; then one full-model train
+    step at B = 1. Rank 0 also returns the tensors."""
+    import torch.distributed as dist
+
+    from vfa_tpu_torch import parallel_bev
+    from vfa_tpu_torch.kernels import launch_counts
+    from vfa_tpu_torch.ops.rig import window_bwd_serial
+
+    mesh = parallel_bev.make_bev_mesh(data=1, bev=BEV_SHARDS)
+    t0 = time.perf_counter()
+    srig = bev_rig(rig_cache, 8, tiny).slab(mesh, device)
+    first = srig.rows.index == 0
+    res = {"load_s": time.perf_counter() - t0,
+           "buckets": [len(sr.A) for sr in srig.scales],
+           # (camera, tile) pairs of the slab's buckets, and those all zero
+           "tiles": sum(a.shape[0] * a.shape[1] for sr in srig.scales for a in sr.A),
+           "zero_tiles": sum(int((~a.flatten(2).ne(0).any(-1)).sum())
+                             for sr in srig.scales for a in sr.A),
+           "A_bytes": sum(a.numel() * a.element_size() for sr in srig.scales for a in sr.A)}
+    cfg, _, _, shapes = bev_config(tiny)
+    sharded = lambda la, ka, bs: parallel_bev.gather_bev(
+        parallel_bev.sample_bev_sharded(la, srig, ka, bs), srig)
+    for B in (2, 1):
+        lats, ks, bs, w = bev_inputs(cfg, shapes, srig.scales[0].nl, B, device)
+        sync(device)
+        n0 = launch_counts()
+        out, dII, dK = sample_and_grad(sharded, lats, ks, bs, w)
+        sync(device)
+        launches = launch_delta(n0, launch_counts())
+        t0 = time.perf_counter()               # again, warm: its ms
+        sample_and_grad(sharded, lats, ks, bs, w)
+        sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        for g in dK:                     # the collapses sum over the slabs
+            dist.all_reduce(g)
+        res[B] = {"launches": launches, "ms": ms,
+                  "serial": sum(window_bwd_serial(B, a.shape[3], a.shape[2], 2, 2, 256)
+                                for sr in srig.scales for a in sr.A)}
+        if first:
+            res[B].update(out=out.cpu(), dII=[t.cpu() for t in dII], dK=[t.cpu() for t in dK])
+        del out, dII, dK, lats, ks, bs, w
+    where = f"phase 5e slab {srig.rows.index}"
+    res["plain_fwd"] = phase_kernel_vs_plain(srig, device, (2, 1), where)
+    res["plain_bwd"] = phase_bwd_kernel_vs_plain(srig, device, (2, 1), where)
+    step = model_step(cfg, srig, mesh, device, "bfloat16")
+    if not first:
+        del step["update"]
+    res["step"] = step
+    return res
+
+
+def rig_as_fp32(rig):
+    """A rig with A cast to fp32: the same sampling without bf16 rounding
+    of the features (the reference of the bf16 routes' noise)."""
+    return type(rig)([dataclasses.replace(sr, A=tuple(a.float() for a in sr.A))
+                      for sr in rig.scales], rig.grid_shape)
+
+
+def noise_check(what, got, bf16, fp32):
+    """The sharded bf16 route's distance from the fp32 route within
+    BF16_NOISE_RATIO of the unsharded bf16 route's (what bf16 rounding
+    does to the unsharded result); returns (sharded/unsharded rel-L2,
+    ratio)."""
+    norm = lambda t: float(torch.linalg.vector_norm(t.float()))
+    err_s = norm(got.float() - fp32.float())
+    err_u = norm(bf16.float() - fp32.float())
+    rel = norm(got.float() - bf16.float()) / max(norm(bf16), 1e-30)
+    ratio = err_s / max(err_u, 1e-30)
+    log(f"  {what}: sharded vs unsharded rel-L2 {rel:.3e}; distance from the "
+        f"fp32 route {err_s:.4e}, the unsharded bf16 route's {err_u:.4e} (ratio "
+        f"{ratio:.3f}, tolerance {BF16_NOISE_RATIO})")
+    if not ratio <= BF16_NOISE_RATIO:
+        raise AssertionError(f"{what}: the sharded route is {ratio:.3f} times the "
+                             "unsharded route's distance from fp32")
+    return rel, ratio
+
+
+def check_bev_launches(tag, launches, want):
+    """Each of `want`'s kernels launched exactly that often; nothing else."""
+    bad = {k: n for k, n in launches.items() if n != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{tag}: launches {launches}, want {want}")
+
+
+def phase_bev(proc, rig_cache, device, rig16, tiny=False) -> dict:
+    """Phase 5e (2, 3): BEV-sharded sampling with its gradients at B = 2
+    and 1 and one full-model bf16 train step at B = 1 in BEV_SHARDS ranks on
+    the card (gloo, CUDA tensors), against the unsharded bf16 window rig
+    `rig16` (8 buckets) and, for the noise of the sums across ranks, the
+    same rig cast to fp32; each rank's kernels against their plain versions
+    on its slab (`bev_rank`)."""
+    from vfa_tpu_torch.launch import run_ranks
+
+    t_phase = time.perf_counter()
+    if proc is not None:
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"the BEV rig builds failed:\n{out}")
+        for line in out.splitlines():
+            if line.startswith("bev rig:"):
+                log(f"phase 5e host build (a process of its own): {line}")
+    t0 = time.perf_counter()
+    runs = run_ranks("chip_smoke:bev_rank", BEV_SHARDS, args=(rig_cache, tiny),
+                     device=device.type, threads=4, timeout=1200)
+    ranks = [r["result"] for r in runs]
+    log(f"phase 5e BEV-sharded ranks: {BEV_SHARDS} ranks sharing the card ran in "
+        f"{time.perf_counter() - t0:.1f} s (slab load {ranks[0]['load_s']:.1f} s, "
+        f"A of a slab {ranks[0]['A_bytes']} bytes, buckets {ranks[0]['buckets']})")
+    for r, (rank, run) in enumerate(zip(ranks, runs)):
+        log(f"  rank {r}: {rank['zero_tiles']} of its slab's {rank['tiles']} (camera, "
+            "tile) pairs are all-zero A tiles of the unified buckets; its kernels "
+            "against their plain versions on the slab:")
+        for line in run["log"].splitlines():
+            if line.startswith(("  rig_window_", "phase 5e slab")):
+                log(f"  {line}")
+    nb, ns = sum(ranks[0]["buckets"]), len(ranks[0]["buckets"])
+    on_card = device.type == "cuda"
+    want = {"rig_window_fwd_bf16": ns, "rig_window_bwd_bf16": nb} if on_card else {}
+    rig32 = rig_as_fp32(rig16)
+    cfg, _, _, shapes = bev_config(tiny)
+    nl = rig16.scales[0].nl
+    out = {"ms": {}}
+    for B in (2, 1):
+        for r, rank in enumerate(ranks):
+            check_bev_launches(f"rank {r} sampling at B={B}", rank[B]["launches"], want)
+        serial = ranks[0][B]["serial"]
+        if on_card and (B == 1 and serial != nb or B == 2 and serial == nb):
+            raise AssertionError(f"B={B}: {serial} of {nb} slab buckets serial (K3)")
+        lats, ks, bs, w = bev_inputs(cfg, shapes, nl, B, device)
+        o16, d16, k16 = sample_and_grad(unsharded_sample(rig16), lats, ks, bs, w)
+        lats32, ks32, bs32 = ([t.float() for t in ts] for ts in (lats, ks, bs))
+        o32, d32, k32 = sample_and_grad(unsharded_sample(rig32), lats32, ks32, bs32, w)
+        got = ranks[0][B]
+        check_bf16(f"B={B} sharded BEV features vs unsharded", got["out"].to(device), o16)
+        for si in range(ns):
+            noise_check(f"B={B} scale {si} dII", got["dII"][si].to(device), d16[si], d32[si])
+            noise_check(f"B={B} scale {si} dKr", got["dK"][si].to(device), k16[si], k32[si])
+        out["ms"][B] = [rank[B]["ms"] for rank in ranks]
+        log(f"  B={B}: per rank K1-bf16 {ns} launches (one a scale), the bf16 "
+            f"window backward {nb} (one a bucket; {serial} serial, K3's per-layer "
+            f"rounding), no other kernel; sampling + backward (a second, warm call) "
+            + ", ".join(f"{m:.2f}" for m in out["ms"][B]) + " ms per rank")
+        del lats, ks, bs, w, o16, d16, k16, o32, d32, k32, lats32, ks32, bs32
+    # the full-model BEV-sharded train step at B = 1; the heatmaps before
+    # it, in eval and training mode, hold the halo rows and the cross-slab
+    # norms cell by cell
+    s16 = model_step(cfg, rig16, None, device, "bfloat16")
+    s32 = model_step(cfg, rig32, None, device, "float32")
+    got = ranks[0]["step"]
+    out["heatmap"] = {mode: check_bf16(
+        f"full-model sharded heatmap before the step ({mode} mode) vs unsharded",
+        got["heatmap"][mode], s16["heatmap"][mode]) for mode in ("eval", "train")}
+    for r, rank in enumerate(ranks):
+        check_bev_launches(f"rank {r} train step", rank["step"]["launches"], want)
+    losses = [rank["step"]["loss"] for rank in ranks]
+    if not all(abs(x - s16["loss"]) <= BF16_LOSS_TOL * abs(s16["loss"]) for x in losses):
+        raise AssertionError(f"sharded step losses {losses}, unsharded {s16['loss']}")
+    norm = lambda t: float(torch.linalg.vector_norm(t))
+    dist_u = norm(got["update"] - s16["update"]) / norm(s16["update"])
+    noise = norm(s32["update"] - s16["update"]) / norm(s16["update"])
+    log(f"phase 5e full-model BEV-sharded bf16 train step (B=1, lr {TRAIN_LR}, halos "
+        f"and cross-slab norms): losses {losses} vs unsharded {s16['loss']} (rel "
+        f"{BF16_LOSS_TOL:.0e}); update {dist_u:.3e} of the unsharded update's norm "
+        f"away from it, the fp32 route's {noise:.3e} (tolerance {BF16_NOISE_RATIO}x "
+        f"that, and {BF16_UPDATE_CAP}); a second, warm step "
+        + ", ".join(f"{rank['step']['ms']:.1f}" for rank in ranks)
+        + f" ms per rank, unsharded {s16['ms']:.1f} ms")
+    if not (dist_u <= BF16_NOISE_RATIO * noise and dist_u <= BF16_UPDATE_CAP):
+        raise AssertionError("the sharded step's update is off the unsharded one's")
+    out.update(plain_fwd=worst_of([rank["plain_fwd"] for rank in ranks]),
+               plain_bwd=worst_of([rank["plain_bwd"] for rank in ranks]),
+               launches_b2=ranks[0][2]["launches"], launches_b1=ranks[0][1]["launches"],
+               step=ranks[0]["step"]["launches"], step_ms=[r["step"]["ms"] for r in ranks],
+               unsharded_step_ms=s16["ms"], serial_b1=ranks[0][1]["serial"], buckets=nb,
+               seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def rank_home(base, rig_cache) -> str:
+    """A HOME whose ~/.cache/vfa_tpu_torch_rig is the run's rig cache: the
+    CLIs' ranks load the prebuilt rigs from there."""
+    home = os.path.join(base, "home")
+    os.makedirs(os.path.join(home, ".cache"), exist_ok=True)
+    link = os.path.join(home, ".cache", "vfa_tpu_torch_rig")
+    if not os.path.exists(link):
+        os.symlink(rig_cache, link)
+    return home
+
+
+def phase_multihost(rig16, home, base, device, tiny=False) -> dict:
+    """Phase 5e (4): `python -m vfa_tpu_torch.train --multihost` in 2
+    processes on the card (-b 1 each, 2 steps, bf16) against one process at
+    -b 2 on the same frames: the epoch's train loss within BF16_LOSS_TOL,
+    the update within BF16_NOISE_RATIO of the one-process bf16 route's
+    distance from its fp32 route (the rig cast to fp32) and within
+    BF16_UPDATE_CAP of its norm."""
+    from vfa_tpu_torch import train
+    from vfa_tpu_torch.checkpoint import load_state
+    from vfa_tpu_torch.model.vfanet import VFANet, init_weights
+    from vfa_tpu_torch.parallel import free_port
+
+    t_phase = time.perf_counter()
+    argv = ["--data", "MultiviewC", "--synthetic", "--synthetic_frames", "4", "-e", "1",
+            "--pretrained", "0", "--no_augment", "--vis_iter", "0", "--lr", TRAIN_LR,
+            "--device", device.type] + (["--tiny"] if tiny else [])
+    multi = os.path.join(base, "multihost")
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "vfa_tpu_torch.train", *argv, "--dtype", "bfloat16",
+         "-b", "1", "--savedir", multi, "--multihost", "--coordinator",
+         f"localhost:{port}", "--num_processes", "2", "--process_id", str(r)],
+        env={**os.environ, "HOME": home}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__))) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            raise RuntimeError(f"--multihost rank {r} failed:\n{text[-4000:]}")
+    ms = []
+    for r, text in enumerate(logs):
+        keep = [ln for ln in text.splitlines() if ln.startswith(
+            ("multihost:", "compiled rig:", "[TRAIN]", "[VAL]", "steps ", "kernel launches"))]
+        log(f"  --multihost rank {r}: " + "\n    ".join(keep))
+        # the last step's (the first pays the warm-up)
+        ms.append(float(re.search(r"ms per step ([0-9. ]+);", text).group(1).split()[-1]))
+        if device.type == "cuda":
+            launches = json.loads(re.search(r"kernel launches \(this process\): (\{.*\})",
+                                            text).group(1))
+            if (launches["rig_window_fwd_bf16"] <= 0 or launches["rig_window_bwd_bf16"] <= 0
+                    or any(n for k, n in launches.items() if not k.endswith("_bf16"))):
+                raise AssertionError(f"--multihost rank {r} launched {launches}")
+    one16 = train.main(argv + ["--dtype", "bfloat16", "-b", "2", "--savedir",
+                               os.path.join(base, "one16")], rig=rig16)
+    one32 = train.main(argv + ["-b", "2", "--savedir", os.path.join(base, "one32")],
+                       rig=rig_as_fp32(rig16))
+    run = os.path.join(multi, os.listdir(multi)[0])
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        rows = {r["tag"]: r for r in map(json.loads, f)}
+    state = load_state(os.path.join(run, "checkpoints", "epoch_0001"))["model"]
+    cfg = bev_config(tiny)[0]
+    names = [n for n, _ in VFANet(cfg).named_parameters()]
+    init = init_weights(VFANet(cfg), torch.Generator().manual_seed(1)).state_dict()
+    flat = lambda sd: torch.cat([sd[n].detach().reshape(-1).float().cpu() for n in names])
+    upd = {k: flat(sd) - flat(init) for k, sd in (
+        ("multi", state), ("one16", one16["model"].state_dict()),
+        ("one32", one32["model"].state_dict()))}
+    norm = lambda t: float(torch.linalg.vector_norm(t))
+    dist_u = norm(upd["multi"] - upd["one16"]) / norm(upd["one16"])
+    noise = norm(upd["one32"] - upd["one16"]) / norm(upd["one16"])
+    want = float(np.mean([d["loss"] for d in one16["losses"]]))
+    log(f"phase 5e --multihost: 2 ranks (-b 1 each) vs one process (-b 2), 2 steps "
+        f"bf16: train loss {rows['train']['loss']:.6f} vs {want:.6f} (rel "
+        f"{BF16_LOSS_TOL:.0e}), val {rows['val']['loss']:.6f} vs "
+        f"{one16['val_losses'][0]['loss']:.6f}; update {dist_u:.3e} of the one-process "
+        f"update's norm away from it, its fp32 route's {noise:.3e} (tolerance "
+        f"{BF16_NOISE_RATIO}x that, and {BF16_UPDATE_CAP}); the second step {ms} ms per "
+        f"rank, one process {one16['ms'][-1]:.1f} ms; {time.perf_counter() - t_phase:.1f} s")
+    if not (abs(rows["train"]["loss"] - want) <= BF16_LOSS_TOL * abs(want)
+            and dist_u <= BF16_NOISE_RATIO * noise and dist_u <= BF16_UPDATE_CAP):
+        raise AssertionError("--multihost does not match one process")
+    return {"ms": ms, "one_ms": one16["ms"][-1]}
+
+
+def phase_bev_bench(rig16, home, device, tiny=False) -> dict:
+    """Phase 5e (5): the bench `--bev_shards 2 --dtype bfloat16` on
+    MultiviewC serving (2 ranks sharing the card, each on its slab from
+    the rig cache), beside the unsharded bench of this call on `rig16`,
+    at the same batch and with the same 8 buckets: the cost of the path
+    on one card, not a speed-up."""
+    import contextlib
+    import io
+
+    from vfa_tpu_torch import bench
+
+    argv = ["--data", "MultiviewC", "--dtype", "bfloat16", "--batch", "2", "--buckets",
+            "8", "--iters", "5", "--warmup", "1", "--device", device.type]
+    argv += ["--tiny"] if tiny else []
+    old = os.environ.get("HOME")
+    os.environ["HOME"] = home
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(buf):
+            sharded = bench.main(argv + ["--bev_shards", str(BEV_SHARDS)])
+    finally:
+        os.environ["HOME"] = old
+    err = buf.getvalue()
+    per_rank = [json.loads(m) for m in re.findall(r"# rank \d kernel launches: (\{.*\})", err)]
+    if len(per_rank) != BEV_SHARDS or (device.type == "cuda" and any(
+            r["rig_window_fwd_bf16"] <= 0 or any(n for k, n in r.items() if not k.endswith("_bf16"))
+            for r in per_rank)):
+        raise AssertionError(f"bench --bev_shards: launches {per_rank}\n{err[-3000:]}")
+    plain = bench.main(argv, rig=rig16)
+    log(f"phase 5e bench bf16 serving, batch 2, 8 buckets: unsharded {plain['value']} scenes/s; "
+        f"--bev_shards {BEV_SHARDS} (2 ranks sharing the one card through gloo: the "
+        f"cost of the path on one card, not a speed-up) {sharded['value']} scenes/s "
+        f"({sharded['metric']}); the ranks' launches {per_rank}")
+    return {"sharded": sharded, "unsharded": plain, "launches": per_rank}
+
+
+def phase_predict_on_disk(root, ckpt, rig, device, base, tiny=False) -> dict:
+    """Phase 5e (1): the predict CLI on disk (a val scene of the written
+    set, the resumed run's checkpoint, bf16, the 8-bucket rig), counts set
+    to 0 before and read after (K1-bf16 once a scale, no other kernel),
+    its heatmap against the plain route's (rel-L2 BF16_PATH_L2)."""
+    from vfa_tpu_torch import predict
+
+    argv = ["--data", "MultiviewC", "--root", root, "--checkpoint", ckpt, "--index",
+            "0", "--out", os.path.join(base, "prediction.png"), "--dtype", "bfloat16",
+            "--rig_buckets", "8", "--cls_thresh", "0.5", "--device", device.type]
+    argv += ["--tiny"] if tiny else []
+    reset_launches()
+    res = predict.main(argv, rig=rig)
+    launches = read_launches()
+    plain = predict.main(argv + ["--rig_impl", "plain"], rig=rig)
+    got, want = res["heatmaps"][0], plain["heatmaps"][0]
+    l2 = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+    log(f"phase 5e predict on disk: launches {launches}; {len(res['detections'][0])} "
+        f"detections; heatmap rel-L2 {l2:.3e} from the plain route's (tolerance "
+        f"{BF16_PATH_L2:.0e}); {res['ms'][0]:.1f} ms; figure "
+        + (f"written to {res['figure']}" if res["figure"] else "not written "
+           "(matplotlib is not installed)"))
+    want_launches = {"rig_window_fwd_bf16": 3} if device.type == "cuda" else {}
+    check_bev_launches("predict on disk", launches, want_launches)
+    if not l2 <= BF16_PATH_L2:
+        raise AssertionError("predict on disk disagrees with the plain route")
+    return {"launches": launches, "figure": res["figure"], "ms": res["ms"][0]}
 
 
 def main() -> int:
@@ -1517,6 +2030,7 @@ def main() -> int:
     builds = start_rig_builds(rig_cache)
     try:
         builds.append(start_disk_rig_build(rig_cache, disk))
+        builds.append(start_bev_rig_build(rig_cache))
         return run_phases(device, t_start, builds, rig_cache, disk)
     finally:
         for proc in builds:
@@ -1670,6 +2184,17 @@ def run_phases(device, t_start, builds, rig_cache, disk) -> int:
         {"serving": bench16["MultiviewC"], "training": bench16_train})
     del mc16
     torch.cuda.empty_cache()
+    # 5e: the BEV-sharded path and --multihost, 2 ranks on the card
+    t5e = time.perf_counter()
+    mc16t = prebuilt_rig(builds, ("MultiviewC", 8, "bfloat16"), device, rig_cache)
+    bev = phase_bev(builds[len(PREBUILT) + 1], rig_cache, device, mc16t)
+    torch.cuda.empty_cache()
+    home = rank_home(disk, rig_cache)
+    multihost = phase_multihost(mc16t, home, disk, device)
+    bev_bench = phase_bev_bench(mc16t, home, device)
+    del mc16t
+    torch.cuda.empty_cache()
+    log(f"phase 5e: {time.perf_counter() - t5e:.1f} s")
     num16 = {}
     for data in ("MultiviewX", "Wildtrack"):
         rig16 = prebuilt_rig(builds, (data, 12, "bfloat16"), device, rig_cache)
@@ -1795,6 +2320,12 @@ def run_phases(device, t_start, builds, rig_cache, disk) -> int:
               serve16_launches["rig_window_fwd_bf16"], dtype="bfloat16",
               launches_disk_train=disk_launches["train"]["rig_window_fwd_bf16"],
               launches_disk_evaluate=disk_launches["evaluate"]["rig_window_fwd_bf16"],
+              launches_predict_disk=disk_launches["predict"]["launches"]["rig_window_fwd_bf16"],
+              launches_bev_rank_b2=bev["launches_b2"]["rig_window_fwd_bf16"],
+              launches_bev_rank_b1=bev["launches_b1"]["rig_window_fwd_bf16"],
+              launches_bev_train_step=bev["step"]["rig_window_fwd_bf16"],
+              bev_slab_max_abs_err=bev["plain_fwd"][0],
+              bev_slab_max_rel_err=bev["plain_fwd"][1],
               passes_ms=passes16["fwd"]["passes_ms"],
               host_gap_ms=passes16["fwd"]["wall_ms"] - passes16["fwd"]["device_ms"]),
         entry("rig_flat_fwd_bf16", "rig_flat_fwd", "vfa_tpu/ops/rig_pallas.py:31",
@@ -1808,7 +2339,12 @@ def run_phases(device, t_start, builds, rig_cache, disk) -> int:
               passes_ms=passes16[f"bwd_b{BATCH}"]["passes_ms"],
               passes_ms_b1=passes16["bwd_b1"]["passes_ms"], ms_b1=k3_16[0],
               plain_ms_b1=k3_16[1], bound_ms_b1=k3_16[2],
-              launches_disk_train=disk_launches["train"]["rig_window_bwd_bf16"]),
+              launches_disk_train=disk_launches["train"]["rig_window_bwd_bf16"],
+              launches_bev_rank_b2=bev["launches_b2"]["rig_window_bwd_bf16"],
+              launches_bev_rank_b1_serial=bev["launches_b1"]["rig_window_bwd_bf16"],
+              launches_bev_train_step_b1_serial=bev["step"]["rig_window_bwd_bf16"],
+              bev_slab_max_abs_err=bev["plain_bwd"][0],
+              bev_slab_max_rel_err=bev["plain_bwd"][1]),
         entry("rig_flat_bwd_bf16", "rig_flat_bwd", "vfa_tpu/ops/rig_pallas.py:434",
               flat16_train_launches["rig_flat_bwd_bf16"], dtype="bfloat16",
               passes_ms=passes16_flat[f"bwd_b{BATCH}"]["passes_ms"],

@@ -135,7 +135,20 @@ def test_out_of_memory_at_the_last_attempt_is_raised(monkeypatch):
     (["--chunks", "2"], "item 18"),
     (["--bev_shards", "2"], "item 15"),
 ], ids=lambda v: v if isinstance(v, str) else v[0])
-def test_unported_flags_raise_naming_their_item(flag, item):
+def test_unported_flags_raise_naming_their_item(flag, item, capsys):
+    """The flags of items 17 and 18 raise, naming their item; --bev_shards
+    (item 15) is ported: 2 gloo ranks on the CPU, each on its BEV row slab,
+    train steps (the sharded forward, halos and norms, and backward), one
+    JSON line with the `_bev2` metric."""
+    if flag[0] == "--bev_shards":
+        res = bench.main(TINY + flag + ["--train"])
+        out, err = capsys.readouterr()
+        assert json.loads(out.strip().splitlines()[-1]) == res
+        assert res["metric"] == "multiviewc_2cam_train_bev2_scenes_per_sec_per_chip"
+        assert res["value"] > 0
+        assert "# rank 1:" in err and "backend gloo" in err
+        assert "BEV-sharded rig: 2 slabs of 5 rows" in err
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
         bench.main(TINY + flag)
 

@@ -471,7 +471,7 @@ def test_bf16_mixed_precision_fp32_master_keeps_small_updates():
 
 
 TINY = ["--data", "MultiviewC", "--synthetic", "--tiny", "-e", "1",
-        "--pretrained", "0", "--no_augment", "--device", "cpu"]
+        "--pretrained", "0", "--no_augment", "--device", "cpu", "--vis_iter", "0"]
 
 
 def test_train_cli_bf16_tiny_cpu(capsys):

@@ -78,7 +78,7 @@ def test_train_on_disk_then_resume_continues_the_run(two_frames, tmp_path, capsy
     -e, so a run with -e 1 cannot be continued into a run with -e 2's
     schedule, in the JAX CLI as here."""
     argv = TINY + ["--root", two_frames, "-e", "6", "--seed", "3",
-                   "--savedir", str(tmp_path)]
+                   "--savedir", str(tmp_path), "--vis_iter", "0"]
     full = train.main(argv + ["--resume", "full"])
     out = capsys.readouterr().out
     assert "pretrained backbone unavailable (no resnet18 ImageNet weights at" in out
@@ -110,7 +110,8 @@ def test_train_on_disk_then_resume_continues_the_run(two_frames, tmp_path, capsy
 
 def test_debug_nans_raises_naming_the_step(tmp_path):
     argv = TINY + ["--synthetic", "--synthetic_frames", "2", "-e", "1",
-                   "--pretrained", "0", "--no_augment", "--savedir", str(tmp_path)]
+                   "--pretrained", "0", "--no_augment", "--savedir", str(tmp_path),
+                   "--vis_iter", "0"]
     try:
         # a NaN learning rate: the first update makes every parameter NaN
         with pytest.raises(FloatingPointError, match="non-finite values at step 1: loss"):
@@ -122,6 +123,7 @@ def test_debug_nans_raises_naming_the_step(tmp_path):
 def test_profile_steps_leaves_a_trace(tmp_path):
     train.main(TINY + ["--synthetic", "--synthetic_frames", "2", "-e", "1",
                        "--pretrained", "0", "--no_augment", "--profile_steps", "1",
+                       "--vis_iter", "0",
                        "--savedir", str(tmp_path), "--resume", "prof"])
     (trace,) = os.listdir(tmp_path / "prof" / "profile")
     assert os.path.getsize(tmp_path / "prof" / "profile" / trace) > 1000

@@ -33,6 +33,14 @@ def test_entry_matches_graft_entry_tiny():
         np.testing.assert_array_equal(got[key].detach().numpy(), np.asarray(w))
 
 
-def test_dryrun_multichip_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
-        tentry.dryrun_multichip(8)
+def test_dryrun_multichip_is_not_ported(capsys):
+    """dryrun_multichip(4) runs `__graft_entry__.dryrun_multichip`'s four
+    parts in 4 gloo ranks on the CPU (the data-parallel rig step, the
+    (data 2, cam 2) voxel-route step, BEV-sharded sampling with its
+    gradients, the full-model BEV-sharded step at batch 1) and prints its
+    line with finite losses."""
+    res = tentry.dryrun_multichip(4)
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("dryrun_multichip(4): rig-window mesh=data4 loss=")
+    assert "dynamic mesh=data2xcam2" in line and "bev-sharded mesh=bev4" in line
+    assert line.endswith(" OK") and res["bev_grads_finite"]

@@ -30,6 +30,8 @@ from vfa_tpu_torch.ops.rig_cuda import rig_window_bwd, rig_flat_fwd, rig_flat_bw
 from vfa_tpu_torch.ops import stem
 from vfa_tpu_torch import prof_train
 from vfa_tpu_torch import bench, entry
+from vfa_tpu_torch import launch, parallel, parallel_bev
+from vfa_tpu_torch.visualization import bbox, figure
 from vfa_tpu_torch.ops import voxel
 from vfa_tpu_torch import calib, checkpoint, evaluate, observability
 from vfa_tpu_torch.data import adapters, augment, disk, frame_dataset, heatmaps
@@ -51,14 +53,14 @@ assert torch.isfinite(pred["rotation"]).all()
 ObjectEncoder(cfg, dim_mean=[145.0, 120.0, 255.0]).batch_decode(pred, 0.5)
 out = train.main(["--data", "Wildtrack", "--synthetic", "--tiny", "-e", "1",
                   "--synthetic_frames", "2", "--pretrained", "0", "--no_augment",
-                  "--device", "cpu"])
+                  "--vis_iter", "0", "--device", "cpu"])
 assert all(np.isfinite(d["loss"]) for d in out["losses"])
 assert rig_window_fwd.launches == 0 and rig_window_bwd.launches == 0
 import os
 os.environ["VFA_FUSED_STEM"] = "1"
 out = train.main(["--data", "MultiviewC", "--synthetic", "--tiny", "-e", "1",
                   "--synthetic_frames", "2", "--pretrained", "0", "--no_augment",
-                  "--device", "cpu", "--rig_layout", "flat"])
+                  "--vis_iter", "0", "--device", "cpu", "--rig_layout", "flat"])
 assert all(np.isfinite(d["loss"]) for d in out["losses"])
 assert out["model"].base.fused_stem_on() and not out["rig"].scales[0].window_hw
 assert rig_flat_fwd.launches == 0 and rig_flat_bwd.launches == 0
@@ -71,7 +73,7 @@ assert rig_window_fwd_bf16.launches == 0
 from vfa_tpu_torch.ops.rig_cuda import rig_flat_bwd_bf16
 out = train.main(["--data", "MultiviewC", "--synthetic", "--tiny", "-e", "1",
                   "--synthetic_frames", "1", "--pretrained", "0", "--no_augment",
-                  "--device", "cpu", "--rig_layout", "flat", "--dtype", "bfloat16"])
+                  "--vis_iter", "0", "--device", "cpu", "--rig_layout", "flat", "--dtype", "bfloat16"])
 assert all(np.isfinite(d["loss"]) for d in out["losses"])
 assert rig_flat_bwd_bf16.launches == 0 and stem.stem_bwd_dx_bf16.launches == 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "vfa_tpu")

@@ -1124,3 +1124,100 @@ def test_bf16_stem_kernels_refuse_odd_widths_and_mixing(cuda):
     x8 = x[..., :8].contiguous()
     with pytest.raises(TypeError, match="dy must be"):
         tstem.stem_bwd_dx(x8, g[..., :4].float().contiguous(), params)
+
+
+def _unified_slab_scale(dtype, device):
+    """Scale 0 of slab 1 of a 2-slab BEV-sharded rig (tiny MultiviewC,
+    factor 4, tile_v 16, 3 buckets) on the card, and its bucket 0, which
+    the unification gave zero A tiles and origins re-clamped for the
+    common window (both checked against the slab's own build)."""
+    import types
+
+    from vfa_tpu_torch.parallel_bev import build_bev_sharded_rig
+
+    cfg = tiny_config(get_config("MultiviewC"), factor=4)
+    calibs = make_calibrations(cfg)
+    grid = make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name)
+    shapes = trig.pyramid_feat_shapes(cfg.resize_size)
+    srig = build_bev_sharded_rig(calibs, cfg, grid, shapes, num_shards=2,
+                                 tile_v=16, dtype=dtype, band_buckets=3)
+    rank1 = types.SimpleNamespace(index=lambda axis: 1, group=lambda axis: None)
+    sr = srig.slab(rank1, device).scales[0]
+    rows = srig.slab_rows
+    padded = np.concatenate([grid, np.repeat(grid[-1:], 2 * rows - grid.shape[0], 0)])
+    own = trig.build_rig(calibs, cfg, padded[rows:], shapes, tile_v=16, dtype=dtype,
+                         band_buckets=3, device="cpu").scales[0]
+    T_own = own.A[0].shape[1]
+    assert int((sr.A[0].float().abs().amax((2, 3)) == 0).sum()) > 0
+    assert bool((sr.starts[0][:, :T_own].cpu() != own.starts[0]).any())
+    assert sr.window_hw[0] != own.window_hw[0]
+    return sr
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_unified_slab_bucket_fp32_kernels_match_plain(cuda, B):
+    """K1 and K2 (fp32) on a BEV slab's unified bucket (zero A tiles,
+    re-clamped origins, the common window) against their plain versions,
+    rtol / atol 1e-4 of the output scale."""
+    sr = _unified_slab_scale(torch.float32, cuda)
+    A_b, s_b, win = sr.A[0], sr.starts[0], sr.window_hw[0]
+    g = torch.Generator(device="cpu").manual_seed(B)
+    lat = torch.rand((B, A_b.shape[0], *sr.feat_hw, 256), generator=g).to(cuda)
+    k = (torch.randn((256 * sr.nl, 256), generator=g) * 0.05).to(cuda)
+    ii = trig.pad_features(lat)
+    Kr = trig.collapse_per_layer(k, 256, sr.nl, torch.float32)
+    rows = A_b.shape[1] * sr.tile_v
+    out = torch.zeros((A_b.shape[0], B, rows, 256), device=cuda)
+    rig_window_fwd(ii, A_b, s_b, Kr, out, off_t=0, tile_v=sr.tile_v, window=win)
+    want = trig.window_tiles(ii, A_b, s_b, Kr, win, sr.tile_v)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+    gr = torch.randn(out.shape, generator=g).to(cuda)
+    dII, dKr = torch.zeros_like(ii), torch.zeros_like(Kr)
+    rig_window_bwd(ii, A_b, s_b, Kr, gr, dII, dKr, off_t=0, tile_v=sr.tile_v, window=win)
+    want_dII, want_dKr = trig.window_tiles_bwd(ii, A_b, s_b, Kr, gr, win, sr.tile_v)
+    for got, w in ((dII, want_dII), (dKr, want_dKr)):
+        np.testing.assert_allclose(got.cpu().numpy(), w.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("B", [1, 2], ids=["B1-K3", "B2-K2"])
+def test_unified_slab_bucket_bf16_kernels_match_plain(cuda, B):
+    """K1-bf16 (the whole slab scale, one launch) and the bf16 window
+    backward on the unified bucket, through the dII order rebuilt for the
+    unified buckets (`ScaleRig.dii_order`): K2's once-a-window rounding at
+    B = 2, K3's per-layer rounding at B = 1 (JAX runs that bucket
+    serially), against the plain versions within 1e-2 of the plain max and
+    rel-L2 4e-3, and dII the same bits on a second run."""
+    from vfa_tpu_torch.ops.rig_cuda import rig_fwd_scale, rig_window_fwd_bf16, rig_window_bwd_bf16
+
+    sr = _unified_slab_scale(torch.bfloat16, cuda)
+    lat, k = _bf16_inputs(sr, B, 300 + B, cuda)
+    ii = trig.pad_features(lat)
+    Kr = trig.collapse_per_layer(k, 256, sr.nl, torch.bfloat16)
+    rows = sum(a.shape[1] for a in sr.A) * sr.tile_v
+    out = torch.empty((ii.shape[0], B, rows, 256), dtype=torch.bfloat16, device=cuda)
+    n0 = rig_window_fwd_bf16.launches
+    rig_fwd_scale(ii, sr, Kr, out)
+    assert rig_window_fwd_bf16.launches == n0 + 1
+    assert_bf16_close(out, trig.scale_tiles(ii, sr, Kr))
+    A_b, s_b, win = sr.A[0], sr.starts[0], sr.window_hw[0]
+    T, R, K = A_b.shape[1:]
+    assert trig.window_bwd_serial(B, K, R, 2, 2, 256) == (B == 1)
+    g = torch.randn((ii.shape[0], B, T * sr.tile_v, 256),
+                    generator=torch.Generator().manual_seed(B)).to(cuda, torch.bfloat16)
+
+    def kernel():
+        dII = torch.zeros_like(ii)
+        dKr = torch.zeros(Kr.shape, dtype=torch.float32, device=cuda)
+        rig_window_bwd(ii, A_b, s_b, Kr, g, dII, dKr, off_t=0, tile_v=sr.tile_v,
+                       window=win, dii=sr.dii_order[0])
+        return dII, dKr
+
+    n0 = rig_window_bwd_bf16.launches
+    dII, dKr = kernel()
+    assert rig_window_bwd_bf16.launches == n0 + 1
+    want_dII, want_dKr = trig.window_tiles_bwd(ii, A_b, s_b, Kr, g, win, sr.tile_v)
+    assert_bf16_close(dII, want_dII)
+    assert_bf16_close(dKr, want_dKr)
+    assert torch.equal(kernel()[0], dII)

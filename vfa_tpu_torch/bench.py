@@ -9,6 +9,7 @@ path.
     python -m vfa_tpu_torch.bench --dtype bfloat16 --train            # bf16 training
     python -m vfa_tpu_torch.bench --dtype bfloat16 --from_disk           # the real input path
     python -m vfa_tpu_torch.bench --dtype bfloat16 --from_disk --train --batch 8
+    python -m vfa_tpu_torch.bench --dtype bfloat16 --bev_shards 2 --batch 2   # 2 ranks, BEV row slabs
     python -m vfa_tpu_torch.bench --tiny --device cpu --batch 1 --iters 2 --warmup 1
 
 Inputs are synthetic scenes (`make_scene(cfg, seed=s, num_objects=6)`)
@@ -24,7 +25,15 @@ device and reads one value back. `--batch 0` tries 32/16/8/4/2/1 scenes
 (`--image_backend`, `--loader_threads`) into uint8 batches (`drop_last`),
 copied to the card and normalized there, with `--train` through the
 train-split ColorJitter on the card (`--no_augment` skips it); the metric
-name gains `_fromdisk`.
+name gains `_fromdisk`. `--bev_shards N` runs N ranks (`launch.run_ranks`,
+the backend of `parallel.backend_for`: two ranks on one card share it
+through gloo), each on its row slab of the BEV plane
+(`parallel_bev.build_bev_sharded_rig`, the slabs through the rig cache)
+with the halo'd fuse block and heads; it reports the first rank's
+scenes/sec and the metric name gains `_bev{N}`. On one card that is the
+cost of the path, not a speed-up. There is no batch fallback across ranks
+(a rank out of memory would leave the others in a collective): `--batch
+0` takes 2 for serving and 1 for training.
 
 Prints ONE JSON line on stdout with `bench.py`'s keys: metric, value
 (scenes/sec), unit, vs_baseline (null: the root bench divides by targets
@@ -127,7 +136,9 @@ def parse_args(argv=None):
                    choices=["native", "pil"],
                    help="decoder (native falls back to PIL, saying so, "
                         "where native/imageio.cpp cannot be built)")
-    p.add_argument("--bev_shards", type=int, default=None)
+    p.add_argument("--bev_shards", type=int, default=0,
+                   help="shard the BEV plane into this many row slabs, one "
+                        "rank each (0 = unsharded)")
     return p.parse_args(argv)
 
 
@@ -142,8 +153,6 @@ def _refuse_unported(args) -> None:
         (args.remat, f"--remat is not ported yet {memory}"),
         (args.stem_remat, f"--stem_remat is not ported yet {memory}"),
         (args.chunks is not None, f"--chunks is not ported yet {memory}"),
-        (args.bev_shards is not None, "--bev_shards is not ported yet "
-         "(ROADMAP.md Queue 1 item 15, parallelism)"),
     ]
     for hit, message in unported:
         if hit:
@@ -178,7 +187,8 @@ def make_runner(cfg, args, bs: int, rig, device):
     (training). Called with no argument it takes the images staged in its
     closure, else the images it is given (the `--from_disk` loop). Model,
     optimizer and inputs live in its closure and nowhere else, so dropping
-    it frees them."""
+    it frees them. A BEV slab rig brings its mesh (`parallel_bev.BevSlab`),
+    on which the model and the train step then run."""
     from vfa_tpu_torch.codec import decode_frame
     from vfa_tpu_torch.config import TrainConfig
     from vfa_tpu_torch.model.vfanet import VFANet, cast_model, init_weights
@@ -187,13 +197,14 @@ def make_runner(cfg, args, bs: int, rig, device):
     dtype = getattr(torch, args.dtype)
     model = init_weights(VFANet(cfg, rig_impl=args.rig_impl),
                          torch.Generator().manual_seed(0)).to(device)
+    model.mesh = mesh = getattr(rig, "mesh", None)
     batch = make_inputs(cfg, bs, device, args.train, dtype)
     dim_mean = DIM_MEAN if cfg.mode == "3D" else None
     if args.train:
         # mixed precision: fp32 masters, cast at use by the step
         tcfg = TrainConfig(pretrained=False, compute_dtype=args.dtype)
         step = make_train_step(model, make_optimizer(model, tcfg, STEPS_PER_EPOCH),
-                               cfg, tcfg, dim_mean=dim_mean)
+                               cfg, tcfg, dim_mean=dim_mean, mesh=mesh)
         return lambda images=None: step(
             batch if images is None else {**batch, "images": images}, rig)
     model = cast_model(model, dtype).eval()
@@ -364,24 +375,9 @@ def disk_loop(cfg, args, bs: int, run, device) -> float:
     return (time.perf_counter() - t0) / args.iters
 
 
-def main(argv=None, rig=None) -> dict:
-    """Run the bench and print its JSON line; returns the printed dict.
-    `rig` is an already built CameraRig for this configuration (built, or
-    loaded from the rig cache, when None)."""
-    args = parse_args(argv)
-    _refuse_unported(args)
+def bench_config(args):
     from vfa_tpu_torch.config import get_config
-    from vfa_tpu_torch.data.synthetic import make_calibrations, tiny_config
-    from vfa_tpu_torch.rig_cli import RIG_CACHE_DIR, build_cli_rig
-
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but no CUDA device is available")
-    torch.backends.cudnn.allow_tf32 = CUDNN_TF32
-    torch.backends.cuda.matmul.allow_tf32 = MATMUL_TF32
-    log(f"# TF32: torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
-        f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
-    log(card_line(device))
+    from vfa_tpu_torch.data.synthetic import tiny_config
 
     cfg = get_config(args.data)
     if args.grid2x:
@@ -390,6 +386,103 @@ def main(argv=None, rig=None) -> dict:
         log(f"# grid2x: BEV grid {cfg.grid_shape}")
     if args.tiny:
         cfg = tiny_config(cfg)
+    return cfg
+
+
+def main(argv=None, rig=None) -> dict:
+    """Run the bench and print its JSON line; returns the printed dict.
+    `rig` is an already built CameraRig for this configuration (built, or
+    loaded from the rig cache, when None; not taken with --bev_shards,
+    whose ranks build their slabs)."""
+    args = parse_args(argv)
+    _refuse_unported(args)
+    if args.bev_shards:
+        result = bev_main(argv, args)
+    else:
+        device = torch.device(args.device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("--device cuda but no CUDA device is available")
+        result = run(args, rig, device)
+    print(json.dumps(result), flush=True)
+    return result
+
+
+def bev_main(argv, args) -> dict:
+    """--bev_shards N: N ranks of `_bev_rank`, their logs on stderr; the
+    first rank's result."""
+    from vfa_tpu_torch.launch import run_ranks
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but no CUDA device is available")
+    if args.from_disk:
+        # written once here, before the ranks read it
+        from vfa_tpu_torch.data.disk import ensure_dataset
+
+        cfg = bench_config(args)
+        ensure_dataset(os.path.join(args.disk_dir, args.data),
+                       max(args.disk_frames, bev_batch(args)), cfg.num_cam,
+                       cfg.resize_size, quality=90)
+    ranks = run_ranks("vfa_tpu_torch.bench:_bev_rank", args.bev_shards,
+                      args=(list(argv) if argv is not None else sys.argv[1:],),
+                      device=args.device,
+                      threads=max(1, (os.cpu_count() or 1) // args.bev_shards),
+                      timeout=3000)
+    for r, res in enumerate(ranks):
+        log(f"# rank {r}:\n" + res["log"].rstrip())
+        log(f"# rank {r} kernel launches: {json.dumps(res['result']['launches'])}")
+    return ranks[0]["result"]["result"]
+
+
+def bev_batch(args) -> int:
+    return args.batch or (1 if args.train else 2)
+
+
+def _bev_rank(device, argv) -> dict:
+    """One rank of --bev_shards: its slab of the BEV-sharded rig (built on
+    the host through the rig cache), then `run` on a (data 1, bev N)
+    mesh."""
+    from vfa_tpu_torch.data.synthetic import make_calibrations
+    from vfa_tpu_torch.geometry import make_grid
+    from vfa_tpu_torch.ops.rig import default_tile_v, pyramid_feat_shapes
+    from vfa_tpu_torch.parallel_bev import build_bev_sharded_rig, make_bev_mesh
+    from vfa_tpu_torch.rig_cli import RIG_CACHE_DIR
+
+    args = parse_args(argv)
+    args.batch = bev_batch(args)
+    cfg = bench_config(args)
+    mesh = make_bev_mesh(data=1, bev=args.bev_shards)
+    dtype = getattr(torch, args.dtype)
+    buckets = args.buckets or (12 if (args.grid2x or not args.train) else 8)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        srig = build_bev_sharded_rig(
+            make_calibrations(cfg), cfg,
+            make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name),
+            pyramid_feat_shapes(cfg.resize_size), num_shards=args.bev_shards,
+            tile_v=default_tile_v(cfg.num_layers, dtype), dtype=dtype,
+            band_buckets=buckets,
+            cache_dir=os.path.expanduser(RIG_CACHE_DIR)).slab(mesh, device)
+    log(f"# BEV-sharded rig: {args.bev_shards} slabs of {srig.slab_rows} rows, "
+        f"{buckets} buckets, this rank's slab {srig.rows.index} ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    from vfa_tpu_torch.kernels import launch_counts
+
+    return {"result": run(args, srig, device), "launches": launch_counts()}
+
+
+def run(args, rig, device) -> dict:
+    """The bench on `device` (rig: a CameraRig, a BEV slab, or None to
+    build one); returns the result dict."""
+    from vfa_tpu_torch.data.synthetic import make_calibrations
+    from vfa_tpu_torch.rig_cli import RIG_CACHE_DIR, build_cli_rig
+
+    torch.backends.cudnn.allow_tf32 = CUDNN_TF32
+    torch.backends.cuda.matmul.allow_tf32 = MATMUL_TF32
+    log(f"# TF32: torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+        f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    log(card_line(device))
+
+    cfg = bench_config(args)
     buckets = args.buckets or (12 if (args.grid2x or not args.train) else 8)
     if args.no_rig:
         rig = None
@@ -412,12 +505,12 @@ def main(argv=None, rig=None) -> dict:
         attempts = GRID2X_TRAIN_ATTEMPTS if args.train else GRID2X_SERVING_ATTEMPTS
     else:
         attempts = TRAIN_ATTEMPTS if args.train else SERVING_ATTEMPTS
-    run = None
+    runner = None
     for i, bs in enumerate(attempts):
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         try:
-            run = warm_runner(cfg, args, bs, rig, device)
+            runner = warm_runner(cfg, args, bs, rig, device)
             outcome = "ok"
         except torch.cuda.OutOfMemoryError as e:
             outcome = f"out of memory ({str(e).splitlines()[0][:160]})"
@@ -427,7 +520,7 @@ def main(argv=None, rig=None) -> dict:
         peak = (f"{torch.cuda.max_memory_allocated(device)} bytes"
                 if device.type == "cuda" else "not measured (no card)")
         log(f"# batch {bs}: {outcome}; max_memory_allocated {peak}")
-        if run is not None:
+        if runner is not None:
             break
         # the failed attempt's model, inputs and outputs died with its
         # frames; collect them before the next attempt asks for memory
@@ -436,16 +529,16 @@ def main(argv=None, rig=None) -> dict:
             torch.cuda.empty_cache()
 
     if args.from_disk:
-        t = disk_loop(cfg, args, bs, run, device)
+        t = disk_loop(cfg, args, bs, runner, device)
     else:
         t0 = time.perf_counter()
         out = None
         for _ in range(args.iters):
-            out = run()
+            out = runner()
         finish(out, device, args.train)
         t = (time.perf_counter() - t0) / args.iters
 
-    counted, syncs, _ = count_call(run, device, args.train)
+    counted, syncs, _ = count_call(runner, device, args.train)
     flops = call_flops(counted, rig, bs, args.train, device, args.rig_impl)
     log(f"# host syncs in one warm call: {len(syncs)}"
         + "".join(f"\n#   {w.filename}:{w.lineno}: {w.message}" for w in syncs[:5]))
@@ -460,8 +553,11 @@ def main(argv=None, rig=None) -> dict:
     peak = PEAK_BF16_TFLOPS.get(kind)
     log(f"# {flops / 1e9:.1f} GFLOP/call -> {tflops_s:.2f} TFLOP/s"
         + (f" = {tflops_s / peak * 100:.2f}% of {kind}'s dense bf16 peak "
-           f"({peak} TFLOP/s)" if peak else ""))
+           f"({peak} TFLOP/s)" if peak else "")
+        + (" (this rank's: its slab's rig products)" if args.bev_shards else ""))
     g2x = "_grid2x" if args.grid2x else ""
+    if args.bev_shards:
+        g2x += f"_bev{args.bev_shards}"
     if args.from_disk:
         g2x += "_fromdisk"
     mode = "_train" if args.train else ""
@@ -476,7 +572,6 @@ def main(argv=None, rig=None) -> dict:
     }
     if peak:
         result["mfu"] = round(tflops_s / peak, 4)
-    print(json.dumps(result), flush=True)
     return result
 
 

@@ -150,3 +150,17 @@ def launch(name: str, fn: str, device, *args) -> None:
         err = getattr(lib, fn)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}.{fn} launch failed with cudaError_t {err}")
+
+
+def launch_counts() -> Dict[str, int]:
+    """name -> launches so far in this process, of every kernel variant of
+    the port (each wrapper counts where it launches its kernel)."""
+    from vfa_tpu_torch.ops import rig_cuda, stem
+
+    names = ("rig_window_fwd", "rig_window_bwd", "rig_flat_fwd", "rig_flat_bwd",
+             "rig_window_fwd_bf16", "rig_flat_fwd_bf16", "rig_window_bwd_bf16",
+             "rig_flat_bwd_bf16")
+    out = {n: getattr(rig_cuda, n).launches for n in names}
+    for n in ("stem_bwd_stats", "stem_bwd_dx", "stem_bwd_stats_bf16", "stem_bwd_dx_bf16"):
+        out[n] = getattr(stem, n).launches
+    return out

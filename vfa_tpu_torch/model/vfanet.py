@@ -74,9 +74,23 @@ class BatchNorm2dBiased(nn.BatchNorm2d):
     clipped at 0), normalizes in fp32 and rounds once, and writes back, in
     the buffers' dtype, flax's update on the bf16 statistics:
     bf16(bf16(0.9) * stat) + 0.1 * batch_stat, the first product in bf16
-    (the Python scalar takes the array's dtype), the sum in fp32."""
+    (the Python scalar takes the array's dtype), the sum in fp32.
+
+    With `stats_group` set (a process group; `VFANet.mesh` sets it to the
+    mesh's data axis) the training statistics span the batches of all its
+    ranks (`synced`), as GSPMD computes them over a sharded batch."""
+
+    stats_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.stats_group is not None:
+            import torch.distributed as dist
+
+            from vfa_tpu_torch.parallel import sum_shared
+
+            group = self.stats_group
+            return self.synced(x, lambda s: sum_shared(s, group),
+                               x.numel() // x.shape[1] * dist.get_world_size(group))
         if not self.training:
             if x.dtype == torch.bfloat16:
                 shape = (1, -1, 1, 1)
@@ -95,16 +109,41 @@ class BatchNorm2dBiased(nn.BatchNorm2d):
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
 
+    def synced(self, x: torch.Tensor, reduce, count: int) -> torch.Tensor:
+        """The forward with the batch statistics of several ranks: the
+        per-channel sums of x and x^2 (fp32) are summed by `reduce` (a
+        differentiable all-reduce, `parallel.sum_shared`) and divided by
+        `count`, the elements per channel of all of them; var = E[x^2] -
+        E[x]^2, clipped at 0, as flax computes it; then `_normalize`. Eval
+        mode: `forward`."""
+        if not self.training:
+            return self(x)
+        xs = x.float()
+        s = reduce(torch.stack([xs.sum((0, 2, 3)), (xs * xs).sum((0, 2, 3))]))
+        mean = s[0] / count
+        return self._normalize(x, mean, torch.clamp(s[1] / count - mean * mean, min=0.0))
+
     def _train_bf16(self, x: torch.Tensor) -> torch.Tensor:
         # flax casts x to fp32 once for the statistics and once for the
         # normalisation; autograd rounds each cast's cotangent to bf16
         xs = x.float()
         mean = xs.mean((0, 2, 3))
         var = torch.clamp((xs * xs).mean((0, 2, 3)) - mean * mean, min=0.0)
+        return self._normalize(x, mean, var)
+
+    def _normalize(self, x: torch.Tensor, mean: torch.Tensor,
+                   var: torch.Tensor) -> torch.Tensor:
+        """x normalised with the fp32 batch statistics in fp32 and rounded
+        once to x's dtype; the running statistics updated, flax's bf16
+        update on bf16 x (class docstring), a lerp on fp32 x."""
         with torch.no_grad():
-            keep = torch.tensor(1.0 - self.momentum, dtype=x.dtype)
-            for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
-                buf.copy_((keep * buf.to(x.dtype)).float() + self.momentum * stat)
+            if x.dtype == torch.bfloat16:
+                keep = torch.tensor(1.0 - self.momentum, dtype=x.dtype)
+                for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
+                    buf.copy_((keep * buf.to(x.dtype)).float() + self.momentum * stat)
+            else:
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked += 1
         shape = (1, -1, 1, 1)
         mul = torch.rsqrt(var + self.eps) * self.weight.float()
@@ -162,6 +201,21 @@ class VFANet(nn.Module):
                              persistent=False)
         self.register_buffer("img_std", torch.tensor(IMAGENET_STD),
                              persistent=False)
+        self.mesh = None
+
+    @property
+    def mesh(self):
+        """The `parallel.Mesh` of a multi-process run (None: one process),
+        set by the caller, as JAX's VFANet takes its bev_mesh. Setting it
+        gives the fuse BatchNorms the statistics of the global batch (the
+        mesh's data axis)."""
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, mesh) -> None:
+        self._mesh = mesh
+        for bn in (self.fuse[1], self.fuse[4]):
+            bn.stats_group = None if mesh is None else mesh.group("data")
 
     def laterals(self, images: torch.Tensor) -> List[torch.Tensor]:
         """images (B, N, H, W, 3) in [0, 1] -> the three lateral maps
@@ -176,6 +230,12 @@ class VFANet(nn.Module):
             feats, (self.lat8, self.lat16, self.lat32),
             (self.bn8, self.bn16, self.bn32))]
 
+    def feature_modules(self) -> List[nn.Module]:
+        """The modules that see each camera's image alone, upstream of the
+        sampling: the backbone, the laterals and their GroupNorms."""
+        return [self.base, self.lat8, self.lat16, self.lat32, self.bn8,
+                self.bn16, self.bn32]
+
     def collapses(self) -> List[nn.Linear]:
         return [self.vfa8.collapse, self.vfa16.collapse, self.vfa32.collapse]
 
@@ -184,14 +244,29 @@ class VFANet(nn.Module):
         """images (B, N, H, W, 3) in [0, 1] -> BEV features (B, L, W, 256).
         With `rig` the compiled rig samples (calibs and grid unused); with
         rig=None the reference voxel route does, from calibs (B, N, 3, 4)
-        and grid (L, W, 3)."""
+        and grid (L, W, 3). On a mesh (`self.mesh`) the N cameras are this
+        rank's and the sum is all-reduced over the mesh's `cam` axis; with
+        a BEV slab rig (`parallel_bev.BevSlab`) the result is this rank's
+        slab (B, slab_rows, W, 256)."""
         B, N = images.shape[:2]
         lats = self.laterals(images)
+        if rig is not None and hasattr(rig, "slab_rows"):
+            from vfa_tpu_torch.parallel_bev import sample_bev_sharded
+
+            if self.mesh is None:
+                raise ValueError("a BEV slab rig needs VFANet.mesh, the "
+                                 "mesh whose bev axis the slabs shard over")
+            lat5 = [lat.permute(0, 2, 3, 1).reshape(B, N, *lat.shape[2:], -1)
+                    for lat in lats]
+            return sample_bev_sharded(
+                lat5, rig, [lin.weight.t() for lin in self.collapses()],
+                [lin.bias for lin in self.collapses()], out_dtype=lats[0].dtype,
+                impl=self.rig_impl)
         if rig is None:
             if calibs is None or grid is None:
                 raise ValueError("the voxel route (rig=None) needs calibs "
                                  "(B, N, 3, 4) and grid (L, W, 3)")
-            return self.voxel_bev(lats, calibs, grid).to(lats[0].dtype)
+            return self._camera_sum(self.voxel_bev(lats, calibs, grid)).to(lats[0].dtype)
         if self.rig_impl == "cuda":
             from vfa_tpu_torch.ops.rig_cuda import rig_sample_scale_cuda as sample
         else:
@@ -203,7 +278,17 @@ class VFANet(nn.Module):
             lat5 = lat.permute(0, 2, 3, 1).reshape(B, N, *lat.shape[2:], -1)
             ortho = ortho + sample(lat5, sr, lin.weight.t(), lin.bias,
                                    out_dtype=torch.float32, camera_sum=True)
+        ortho = self._camera_sum(ortho)
         return ortho.reshape(B, L, W, 256).to(lats[0].dtype)
+
+    def _camera_sum(self, ortho: torch.Tensor) -> torch.Tensor:
+        """The fp32 sum of this rank's cameras, summed over the mesh's
+        `cam` axis (the downstream layers run alike on every rank of it)."""
+        if self.mesh is None:
+            return ortho
+        from vfa_tpu_torch import parallel
+
+        return parallel.sum_replicated(ortho, self.mesh.group("cam"))
 
     def voxel_bev(self, lats: List[torch.Tensor], calibs: torch.Tensor,
                   grid: torch.Tensor) -> torch.Tensor:
@@ -243,7 +328,12 @@ class VFANet(nn.Module):
         """Returns heatmap (B, 1, L, W), loc_offset (B, L, W, 2) and, in 3D
         mode, dim_offset (B, L, W, 3), rotation (B, L, W, angle_range).
         calibs and grid feed the voxel route (rig=None); see
-        `bev_features`."""
+        `bev_features`. With a BEV slab rig the fuse block and the heads
+        run on this rank's rows (`parallel_bev.heads`)."""
+        if rig is not None and hasattr(rig, "slab_rows"):
+            from vfa_tpu_torch.parallel_bev import heads
+
+            return heads(self, self.bev_features(images, rig), self.mesh, rig.rows)
         ortho = self.bev_features(images, rig, calibs, grid).permute(0, 3, 1, 2)
         fused = self.fuse(ortho)
         nhwc = lambda t: t.permute(0, 2, 3, 1)

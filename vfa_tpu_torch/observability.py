@@ -67,8 +67,13 @@ class MetricsWriter:
             self._tb.add_text(tag, content, step)
 
     def figure(self, tag: str, fig, step: int):
+        """A matplotlib figure to TensorBoard; closed either way."""
         if self._tb:
-            self._tb.add_figure(tag, fig, step)
+            self._tb.add_figure(tag, fig, step)      # closes it
+        else:
+            import matplotlib.pyplot as plt
+
+            plt.close(fig)
 
     def close(self):
         self._jsonl.close()

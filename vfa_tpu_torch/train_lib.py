@@ -212,8 +212,28 @@ def _forward(model: nn.Module, dtype: torch.dtype, batch, rig):
     return torch.func.functional_call(model, params, args)
 
 
+def _mesh_sums(mesh):
+    """(count_sum, report) of a step on `mesh`: the losses' counts summed
+    over its data axis, and the loss dict summed over it (each rank holds
+    its share of the global loss), or (None, identity) without one."""
+    if mesh is None or mesh.group("data") is None:
+        return None, lambda d: d
+    from vfa_tpu_torch import parallel
+
+    group = mesh.group("data")
+    count_sum = lambda n: parallel.sum_nograd(n, group)
+
+    def report(loss_dict):
+        keys = sorted(loss_dict)
+        total = parallel.sum_nograd(torch.stack([loss_dict[k].detach() for k in keys]), group)
+        return dict(zip(keys, total.unbind()))
+
+    return count_sum, report
+
+
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
-                    cfg: DatasetConfig, tcfg: TrainConfig, dim_mean=None):
+                    cfg: DatasetConfig, tcfg: TrainConfig, dim_mean=None,
+                    mesh=None):
     """Returns step(batch, rig) -> loss_dict (detached scalars on the
     device): forward in training mode, target encoding, loss, backward and
     one optimizer update. rig=None samples through the voxel route.
@@ -224,9 +244,16 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     `tcfg.compute_dtype` 'bfloat16' the step is mixed precision (module
     docstring) and the rig must be a bf16 one. Under
     `observability.enable_nan_debugging()` the loss and the gradients are
-    checked before the update (FloatingPointError naming the step)."""
+    checked before the update (FloatingPointError naming the step).
+
+    On a `parallel.Mesh` (`mesh`, also set as `model.mesh`) the batch is
+    this rank's part (`parallel.make_global_batch`), the loss is this
+    rank's share of the global batch's, the gradients are summed as
+    `parallel.reduce_gradients` says before the update, and the returned
+    losses are the global batch's."""
     dtype = _compute_dtype(tcfg.compute_dtype)
     angle_range = _angle_range(model)
+    count_sum, report = _mesh_sums(mesh)
 
     def train_step(batch: Dict[str, torch.Tensor], rig) -> Dict[str, torch.Tensor]:
         model.train()
@@ -242,28 +269,36 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                             dense_rotation=False)
         if cfg.mode == "3D":
             loss, loss_dict = compute_loss3d(pred, gt, cfg.loss_weight,
-                                             rotation_cells=rotation_cells)
+                                             rotation_cells=rotation_cells,
+                                             count_sum=count_sum)
         else:
-            loss, loss_dict = compute_loss2d(pred, gt, cfg.loss_weight)
+            loss, loss_dict = compute_loss2d(pred, gt, cfg.loss_weight,
+                                             count_sum=count_sum)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            from vfa_tpu_torch.parallel import reduce_gradients
+
+            reduce_gradients(model, mesh)
         if nan_debugging():
             check_finite(optimizer.count, loss,
                          ((n, p.grad) for n, p in model.named_parameters()))
         optimizer.step()
-        return {k: v.detach() for k, v in loss_dict.items()}
+        return report({k: v.detach() for k, v in loss_dict.items()})
 
     return train_step
 
 
 def make_eval_step(model: nn.Module, cfg: DatasetConfig, dim_mean=None,
-                   compute_dtype: str = "float32"):
+                   compute_dtype: str = "float32", mesh=None):
     """Returns step(batch, rig) -> (loss_dict, pred): the loss under running
     BatchNorm statistics with dense rotation targets, no update.
     compute_dtype 'bfloat16' casts the parameters, the running statistics
-    and the images at use, as the mixed-precision train step does."""
+    and the images at use, as the mixed-precision train step does. On a
+    mesh the losses are the global batch's, as the train step's."""
     dtype = _compute_dtype(compute_dtype)
     angle_range = _angle_range(model)
+    count_sum, report = _mesh_sums(mesh)
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor], rig):
@@ -272,9 +307,11 @@ def make_eval_step(model: nn.Module, cfg: DatasetConfig, dim_mean=None,
         pred = {k: v.float() for k, v in pred.items()}
         gt = encode_targets(batch, cfg, dim_mean, angle_range)
         if cfg.mode == "3D":
-            _, loss_dict = compute_loss3d(pred, gt, cfg.loss_weight)
+            _, loss_dict = compute_loss3d(pred, gt, cfg.loss_weight,
+                                          count_sum=count_sum)
         else:
-            _, loss_dict = compute_loss2d(pred, gt, cfg.loss_weight)
-        return loss_dict, pred
+            _, loss_dict = compute_loss2d(pred, gt, cfg.loss_weight,
+                                          count_sum=count_sum)
+        return report(loss_dict), pred
 
     return eval_step

@@ -31,6 +31,24 @@ class MetricDict(defaultdict):
         return {key: self[key] / self.count[key] for key in self.keys()}
 
 
+def to_numpy(data) -> np.ndarray:
+    """An array, a tensor (on any device) or a sequence as a numpy array."""
+    if isinstance(data, np.ndarray):
+        return data
+    if isinstance(data, torch.Tensor):
+        return data.detach().cpu().numpy()
+    if hasattr(data, "__array__"):
+        return np.asarray(data)
+    return np.array(data)
+
+
+def grid_rot180(arr):
+    """Rotate a BEV map 180 degrees for display (`vfa/utils.py:83-90`)."""
+    if arr.ndim == 2:
+        return arr[::-1, ::-1]
+    return arr[:, ::-1, ::-1]
+
+
 def device_constant(values, device, dtype=torch.float32) -> torch.Tensor:
     """Host constants as a tensor on `device`. The copy does not make the
     host wait for the device (a pageable copy is staged before the call
