@@ -121,6 +121,21 @@ result line):
      process at -b 2 (2 steps, the same bounds); the bench `--bev_shards 2
      --dtype bfloat16` beside the unsharded bench at batch 2 (the cost of
      the path on one card; both 8 buckets, on the same rigs);
+  5f. the bf16 voxel route and the memory options (PR 15), full MultiviewC
+     width: one scene through the voxel route (rig=None) in bf16 after
+     `cast_model` (no rig kernel), the integral image and `sample_voxels`
+     of camera 0 at scale 0 on the card bit-equal to the CPU's on the same
+     laterals, the summed BEV features against the fp32 and fp64 voxel
+     routes on the same laterals and weights (F7, printed), one
+     mixed-precision step with rig=None at batch 1; a mixed-precision step
+     at batch 8 through the bf16 window rig with the fused stem under each
+     memory option (none, backbone_remat, stem_remat, backbone_chunks=2,
+     all three): peak memory, step p50 of 3, the launches of K1-bf16,
+     K2-bf16, K6-bf16, K7-bf16 equal to the plain step's, its losses bit for
+     bit, its gradients within twice the plain step's run-to-run distance;
+     the bench `--train --dtype bfloat16 --grid2x` at auto batch (remat
+     forced on, on the grid2x rig a seventh host process builds) and
+     `--dtype bfloat16 --no-rig --batch 1`;
   6. time each kernel (CUDA events, warmed up) beside its bound and its
      plain version (the fp32 rig kernels' operations are held to 495 / 3 =
      165 TFLOP/s, fp32-accurate 3xTF32 on the tensor cores, the bf16 ones to
@@ -2015,6 +2030,371 @@ def phase_predict_on_disk(root, ckpt, rig, device, base, tiny=False) -> dict:
     return {"launches": launches, "figure": res["figure"], "ms": res["ms"][0]}
 
 
+# Phase 5f: the bf16 voxel route and the memory options (PR 15)
+MEM_BATCH = 8          # the bench's bf16 training batch
+MEM_STEPS = 3
+MEM_OPTIONS = (("none", {}), ("backbone_remat", {"backbone_remat": True}),
+               ("stem_remat", {"stem_remat": True}),
+               ("backbone_chunks=2", {"backbone_chunks": 2}),
+               ("all three", {"backbone_remat": True, "stem_remat": True,
+                              "backbone_chunks": 2}))
+MEM_KERNELS = ("rig_window_fwd_bf16", "rig_window_bwd_bf16", "stem_bwd_stats_bf16",
+               "stem_bwd_dx_bf16")
+GRID2X_BUCKETS = 12    # the bench's grid2x policy
+
+
+def grid2x_config(tiny: bool = False):
+    """MultiviewC with the ground cube halved (a 312x312 BEV), as the
+    bench's --grid2x makes it (`tiny` only drives the phase on the CPU)."""
+    from vfa_tpu_torch import bench
+
+    return bench.bench_config(bench.parse_args(["--grid2x"] + (["--tiny"] if tiny else [])))
+
+
+def grid2x_rig(device, cache_dir, tiny: bool = False):
+    """The bf16 grid2x MultiviewC rig the bench samples through (12
+    buckets), loaded from or built into the rig cache at `cache_dir`."""
+    from vfa_tpu_torch.data.synthetic import make_calibrations
+    from vfa_tpu_torch.rig_cli import build_cli_rig
+
+    cfg = grid2x_config(tiny)
+    return build_cli_rig(cfg, make_calibrations(cfg), device, buckets=GRID2X_BUCKETS,
+                         cache_dir=cache_dir, dtype=torch.bfloat16)
+
+
+def start_grid2x_rig_build(cache_dir, tiny: bool = False):
+    """A host process that builds the bf16 grid2x rig into the rig cache;
+    returns it running."""
+    code = f"import chip_smoke\nchip_smoke.grid2x_rig('cpu', {cache_dir!r}, {tiny})\n"
+    return subprocess.Popen(
+        [sys.executable, "-c", code], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def errors(got, want) -> tuple:
+    """(max abs err, max abs err / max |want|, rel-L2) in float64."""
+    d = (got.double() - want.double()).abs()
+    ref = want.double()
+    return (float(d.max()), float(d.max() / ref.abs().max()),
+            float(torch.linalg.vector_norm(d) / torch.linalg.vector_norm(ref)))
+
+
+def phase_voxel_bf16(device, tiny=False) -> dict:
+    """Phase 5f (a): the reference voxel route (rig=None) in bf16 at full
+    MultiviewC width, one scene. A serving forward after `cast_model`
+    (finite, no rig kernel launched); the integral image and `sample_voxels`
+    of camera 0 at scale 0 on the card bit-equal to the same code on the
+    CPU for the same bf16 laterals and boxes; the summed BEV features
+    (fp32 sums before the cast) against the fp32 and the fp64 voxel routes
+    on the same laterals and weights, the bf16 sum equal to the model's
+    own (F7, ROADMAP Queue 3); one mixed-precision training step at batch
+    1 with rig=None (the bench's runner): finite losses, ms, peak memory."""
+    import torch.nn.functional as F
+
+    from vfa_tpu_torch import bench
+    from vfa_tpu_torch.config import get_config
+    from vfa_tpu_torch.data.synthetic import make_scene, tiny_config
+    from vfa_tpu_torch.model.vfanet import VFANet, cast_model, init_weights, voxel_contribution
+    from vfa_tpu_torch.ops.voxel import integral_image, sample_voxels, voxel_boxes
+
+    cfg = get_config("MultiviewC")
+    cfg = tiny_config(cfg) if tiny else cfg
+    scene = make_scene(cfg, seed=0, num_objects=6)
+    images = torch.from_numpy(scene.images[None]).to(device=device, dtype=torch.bfloat16)
+    calibs = torch.from_numpy(scene.calibs[None]).to(device)
+    grid = torch.from_numpy(scene.grid).to(device)
+    model = cast_model(init_weights(VFANet(cfg), torch.Generator().manual_seed(0)),
+                       torch.bfloat16).to(device).eval()
+    N, (L, W) = cfg.num_cam, cfg.grid_shape
+    reset_launches()
+    with torch.no_grad():
+        sync(device)
+        t0 = time.perf_counter()
+        pred = model(images, None, calibs, grid)
+        sync(device)
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+        bad = [k for k, v in pred.items() if not bool(torch.isfinite(v.float()).all())]
+        if bad or pred["heatmap"].shape != (1, 1, L, W) or any(launches.values()):
+            raise AssertionError(f"5f bf16 voxel route serving: non-finite {bad}, "
+                                 f"heatmap {tuple(pred['heatmap'].shape)}, launches {launches}")
+        lats = model.laterals(images)
+        boxes = [voxel_boxes(calibs[:, n], grid, dataset=cfg.name, grid_height=cfg.grid_h,
+                             cube_size=cfg.cube_size, image_size=cfg.image_size)
+                 for n in range(N)]
+        lat, box = lats[0][0:1], boxes[0]
+        ii, vox = integral_image(lat), sample_voxels(lat, box)
+        ii_cpu, vox_cpu = integral_image(lat.cpu()), sample_voxels(lat.cpu(), box.cpu())
+        same = (torch.equal(ii.cpu(), ii_cpu), torch.equal(vox.cpu(), vox_cpu))
+        log(f"phase 5f bf16 voxel route: camera 0, scale 0, laterals "
+            f"{tuple(lat.shape)}, boxes {tuple(box.shape)}: the card's integral image "
+            f"{'equals' if same[0] else 'DIFFERS FROM'} the CPU's bit for bit, vox "
+            f"{'equals' if same[1] else 'DIFFERS FROM'} it")
+        if not all(same):
+            raise AssertionError("5f: the bf16 integral image or vox differ between "
+                                 "the card and the CPU")
+        f64 = lambda t: t.to(torch.float64)
+        sums = {"bf16": 0.0, "fp32": 0.0, "fp64": 0.0}
+        for n in range(N):
+            cam = {"bf16": 0.0, "fp32": 0.0, "fp64": 0.0}
+            for lat, lin in zip(lats, model.collapses()):
+                ln = lat[n:n + 1]
+                cam["bf16"] = cam["bf16"] + voxel_contribution(ln, boxes[n], lin)
+                cam["fp32"] = cam["fp32"] + torch.relu(F.linear(
+                    sample_voxels(ln.float(), boxes[n]), lin.weight.float(), lin.bias.float()))
+                cam["fp64"] = cam["fp64"] + torch.relu(F.linear(
+                    sample_voxels(f64(ln), f64(boxes[n])), f64(lin.weight), f64(lin.bias)))
+            sums = {k: sums[k] + cam[k] for k in sums}
+        model_bev = model.bev_features(images, None, calibs, grid)
+    if not torch.equal(model_bev, sums["bf16"].to(torch.bfloat16)):
+        raise AssertionError("5f: the model's bf16 BEV features differ from the "
+                             "route's sum")
+    f7 = {}
+    for tag, got, want in (("bf16 vs fp32", sums["bf16"], sums["fp32"]),
+                           ("bf16 vs fp64", sums["bf16"], sums["fp64"]),
+                           ("fp32 vs fp64", sums["fp32"], sums["fp64"])):
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise AssertionError(f"5f F7 {tag}: non-finite")
+        f7[tag] = errors(got, want)
+        log(f"  F7 summed BEV features, {tag} voxel route (same bf16 laterals and "
+            f"weights, 1 scene): max abs err {f7[tag][0]:.4e}, max rel err "
+            f"{f7[tag][1]:.4e}, rel-L2 {f7[tag][2]:.4e}")
+    # one mixed-precision training step with rig=None, the bench's runner
+    args = bench.parse_args(["--train", "--dtype", "bfloat16", "--no-rig", "--batch", "1"])
+    held = 0
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device)
+    run = bench.make_runner(cfg, args, 1, 0, None, device)
+    ms = []
+    for _ in range(2):
+        sync(device)
+        t0 = time.perf_counter()
+        out = run()
+        sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    losses = {k: float(v) for k, v in out.items()}
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    del run
+    log(f"phase 5f bf16 voxel route: serving forward {serve_ms:.1f} ms; a "
+        f"mixed-precision training step at batch 1 {ms[1]:.1f} ms (first {ms[0]:.1f}), "
+        f"losses {losses}, max_memory_allocated {peak} bytes ({peak - held} above "
+        "what was held before)")
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"5f voxel-route training step: losses {losses}")
+    return {"f7": f7, "serve_ms": serve_ms, "train_ms": ms[1], "train_peak": peak - held}
+
+
+def phase_memory_options(rig, device, tiny=False) -> dict:
+    """Phase 5f (b): a mixed-precision training step through the bf16
+    window rig at batch MEM_BATCH, with the fused stem on, under each of
+    MEM_OPTIONS, from the same seeded weights and batch: peak memory
+    (`max_memory_allocated`, and the part above what was allocated before
+    the model was built: the rig, the batch and earlier phases' tensors are
+    not the option's), the step p50 of MEM_STEPS, the launches of
+    MEM_KERNELS in the first step. Fails unless every option launches what
+    the plain step does (the rig kernels as often; the stem's K6/K7 once a
+    step, once a chunk with backbone chunks, which run the stem per chunk)
+    and its first step is the same step as its reference's: the losses bit
+    for bit, all gradients no farther than twice the plain step's own
+    run-to-run distance (rel-L2; cuDNN's weight-gradient algorithms need
+    not be deterministic). The reference is the plain step; with backbone
+    chunks it is the same chunks run without recompute: the backbone then
+    runs at half the batch (cuDNN may take other algorithms) and a feature
+    module's weight gradient is two bf16 partial sums added, so the chunks
+    against the plain step are held as phase 5c holds a bf16 route against
+    the plain one: losses rel BF16_LOSS_TOL, gradients within
+    BF16_NOISE_RATIO of the plain step's distance from the same step in
+    fp32 (fp32 compute, the rig cast to fp32)."""
+    from vfa_tpu_torch.config import TrainConfig, get_config
+    from vfa_tpu_torch.data.synthetic import tiny_config
+    from vfa_tpu_torch.entry import DIM_MEAN, synthetic_batch
+    from vfa_tpu_torch.model import resnet, vfanet
+    from vfa_tpu_torch.train_lib import batch_to_device, make_optimizer, make_train_step
+
+    cfg = get_config("MultiviewC")
+    cfg = tiny_config(cfg) if tiny else cfg
+    scenes = synthetic_batch(cfg, range(MEM_BATCH))
+    batch = batch_to_device(scenes, device, torch.bfloat16)
+    state = vfanet.init_weights(vfanet.VFANet(cfg),
+                                torch.Generator().manual_seed(0)).state_dict()
+    tcfg = TrainConfig(pretrained=False, lr=float(TRAIN_LR), epochs=1,
+                       compute_dtype="bfloat16")
+
+    def run(options, recompute=True, fp32=False):
+        held = 0
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            held = torch.cuda.memory_allocated(device)
+        model = vfanet.VFANet(cfg, **options)
+        model.load_state_dict(state, strict=True)
+        model.to(device)
+        tc, inputs = tcfg, (batch, rig)
+        if fp32:              # freed with this call: the other peaks stay clean
+            tc = dataclasses.replace(tcfg, compute_dtype="float32")
+            inputs = (batch_to_device(scenes, device), rig_as_fp32(rig))
+        step = make_train_step(model, make_optimizer(model, tc, MEM_STEPS), cfg, tc,
+                               dim_mean=DIM_MEAN)
+        saved = resnet.remat, vfanet.remat
+        if not recompute:          # every recomputed region run once, as is
+            resnet.remat = vfanet.remat = lambda module, fn, *args: fn(*args)
+        ms, losses, grads, launches = [], None, None, None
+        try:
+            for i in range(MEM_STEPS):
+                reset_launches()
+                sync(device)
+                t0 = time.perf_counter()
+                out = step(*inputs)
+                sync(device)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    losses = {k: float(v) for k, v in out.items()}
+                    grads = torch.cat([p.grad.reshape(-1).float() for p in model.parameters()])
+                    launches = {k: v for k, v in read_launches().items() if k in MEM_KERNELS}
+        finally:
+            resnet.remat, vfanet.remat = saved
+        peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+        return {"losses": losses, "grads": grads, "launches": launches,
+                "ms": float(np.median(ms)), "steps_ms": ms, "peak": peak,
+                "own": peak - held}
+
+    norm = lambda t: float(torch.linalg.vector_norm(t))
+    dist = lambda a, b: norm(a["grads"] - b["grads"]) / norm(b["grads"])
+    loss_rel = lambda a, b: max(abs(a["losses"][k] - b["losses"][k]) / abs(b["losses"][k])
+                                for k in b["losses"])
+    old = os.environ.get("VFA_FUSED_STEM")
+    os.environ["VFA_FUSED_STEM"] = "1"
+    out, failures = {}, []
+    try:
+        plain = run({})
+        again = run({})
+        noise = dist(again, plain)
+        if again["losses"] != plain["losses"] or again["launches"] != plain["launches"]:
+            failures.append(f"the plain step run twice: losses {plain['losses']} / "
+                            f"{again['losses']}, launches {plain['launches']} / "
+                            f"{again['launches']}")
+        del again
+        f32 = run({}, fp32=True)
+        bf16_noise = dist(plain, f32)
+        del f32
+        once = run({"backbone_chunks": 2}, recompute=False)
+        log(f"phase 5f memory options: 2 backbone chunks without recompute: "
+            f"max_memory_allocated {once['peak']} bytes ({once['own']} above what was "
+            f"held before the model), step p50 {once['ms']:.1f} ms; "
+            f"losses rel {loss_rel(once, plain):.3e} from the plain step's, gradients "
+            f"rel-L2 {dist(once, plain):.3e} from its (the plain step's distance from "
+            f"its fp32 twin {bf16_noise:.3e})")
+        if not (loss_rel(once, plain) <= BF16_LOSS_TOL
+                and dist(once, plain) <= BF16_NOISE_RATIO * bf16_noise):
+            failures.append(f"2 chunks: losses {loss_rel(once, plain):.3e} (bound "
+                            f"{BF16_LOSS_TOL}), gradients {dist(once, plain):.3e} (bound "
+                            f"{BF16_NOISE_RATIO} x {bf16_noise:.3e}) from the plain step's")
+        for name, options in MEM_OPTIONS:
+            r = plain if name == "none" else run(options)
+            chunks = options.get("backbone_chunks", 1)
+            ref = once if chunks > 1 else plain
+            want = {k: n * (chunks if k.startswith("stem_") else 1)
+                    for k, n in plain["launches"].items()}
+            exact = r["losses"] == ref["losses"]
+            log(f"phase 5f memory options, bf16 training at batch {MEM_BATCH} (window "
+                f"rig, fused stem): {name}: max_memory_allocated {r['peak']} bytes "
+                f"({r['own']} above the {r['peak'] - r['own']} held before the model: the "
+                f"rig, the batch, earlier phases' tensors); step "
+                f"p50 {r['ms']:.1f} ms (steps " + " ".join(f"{t:.1f}" for t in r["steps_ms"])
+                + f"); launches in one step {r['launches']}; against the "
+                f"{'chunks without recompute' if ref is once else 'plain step'}: losses "
+                f"{'bit-equal' if exact else 'DIFFER'}, gradients rel-L2 {dist(r, ref):.3e} "
+                f"(the plain step's own run-to-run {noise:.3e}); from the plain step "
+                f"{dist(r, plain):.3e}")
+            if r["launches"] != want:
+                failures.append(f"{name}: launches {r['launches']}, want {want}")
+            if not exact:
+                failures.append(f"{name}: losses {r['losses']}, reference {ref['losses']}")
+            if not dist(r, ref) <= 2 * noise:
+                failures.append(f"{name}: gradients {dist(r, ref):.3e} from the reference's, "
+                                f"twice the run-to-run distance is {2 * noise:.3e}")
+            out[name] = {k: r[k] for k in ("peak", "own", "ms", "launches", "losses")}
+            out[name]["grad_rel_l2"] = dist(r, plain)
+            del r
+    finally:
+        if old is None:
+            os.environ.pop("VFA_FUSED_STEM")
+        else:
+            os.environ["VFA_FUSED_STEM"] = old
+    if device.type == "cuda" and any(plain["launches"][k] != 1 for k in MEM_KERNELS[2:]):
+        failures.append(f"the fused stem's kernels did not run once a step: {plain['launches']}")
+    if failures:
+        raise AssertionError("5f memory options:\n  " + "\n  ".join(failures))
+    out["run_to_run"], out["bf16_vs_fp32"] = noise, bf16_noise
+    out["chunks_once"] = {"peak": once["peak"], "own": once["own"], "ms": once["ms"],
+                          "grad_rel_l2": dist(once, plain), "loss_rel": loss_rel(once, plain)}
+    return out
+
+
+def phase_grid2x_and_voxel_bench(proc, rig_cache, device, tiny=False) -> dict:
+    """Phase 5f (c): the bench `--train --dtype bfloat16 --grid2x` at auto
+    batch (backbone remat forced on; the (batch, chunks) attempts of the
+    root bench) on the grid2x rig a host process built, and the bench
+    `--dtype bfloat16 --no-rig --batch 1` (the voxel route serving): the
+    batch and chunks reached, scenes/s, the peak memory of each attempt."""
+    import contextlib
+    import io
+
+    from vfa_tpu_torch import bench
+
+    out, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"the grid2x rig build failed:\n{out}")
+    log("host build of the bf16 grid2x MultiviewC rig (a process of its own): "
+        + " ".join(ln for ln in out.splitlines() if ln.startswith("compiled rig:")))
+    rig = grid2x_rig(device, rig_cache, tiny)
+    tail = ["--device", device.type] + (["--tiny"] if tiny else [])
+    argv = ["--data", "MultiviewC", "--dtype", "bfloat16", "--train", "--grid2x",
+            "--iters", "3", "--warmup", "1"] + tail
+    buf = io.StringIO()
+    reset_launches()
+    held = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+    with contextlib.redirect_stderr(buf):
+        res = bench.main(argv, rig=rig)
+    launches = read_launches()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    err = buf.getvalue()
+    sys.stderr.write(err)
+    del rig
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    reached = re.search(r"# batch=(\d+) p50=([0-9.]+) ms/scene .*chunks=(\d+)\)", err)
+    attempts = re.findall(r"# batch (\d+): (ok|out of memory)[^;\n]*; chunks (\d+); "
+                          r"max_memory_allocated (\d+|not measured)", err)
+    log(f"phase 5f bench {' '.join(argv)}: {res}; attempts (batch, outcome, chunks, "
+        f"peak bytes) {attempts}, of which {held} bytes were held before the bench "
+        f"(the grid2x rig, earlier phases' tensors); launches {launches}")
+    if "# grid2x train: backbone remat forced on" not in err or not reached:
+        raise AssertionError(f"bench --grid2x --train: no forced remat or no batch\n{err[-3000:]}")
+    if device.type == "cuda" and not (launches["rig_window_fwd_bf16"] > 0
+                                      and launches["rig_window_bwd_bf16"] > 0):
+        raise AssertionError(f"bench --grid2x --train: launches {launches}")
+    if not (np.isfinite(res["value"]) and res["value"] > 0):
+        raise AssertionError(f"bench --grid2x --train: {res}")
+    argv = ["--data", "MultiviewC", "--dtype", "bfloat16", "--no-rig", "--batch", "1",
+            "--iters", "3", "--warmup", "1"] + tail
+    reset_launches()
+    vox = bench.main(argv)
+    launches_vox = read_launches()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"phase 5f bench {' '.join(argv)}: {vox}; launches {launches_vox}")
+    if any(launches_vox.values()) or not vox["value"] > 0:
+        raise AssertionError(f"bench --no-rig: {vox}, launches {launches_vox}")
+    return {"grid2x": res, "batch": int(reached.group(1)), "chunks": int(reached.group(3)),
+            "attempts": attempts, "held": held, "launches": launches, "no_rig": vox}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -2031,6 +2411,7 @@ def main() -> int:
     try:
         builds.append(start_disk_rig_build(rig_cache, disk))
         builds.append(start_bev_rig_build(rig_cache))
+        builds.append(start_grid2x_rig_build(rig_cache))
         return run_phases(device, t_start, builds, rig_cache, disk)
     finally:
         for proc in builds:
@@ -2192,9 +2573,18 @@ def run_phases(device, t_start, builds, rig_cache, disk) -> int:
     home = rank_home(disk, rig_cache)
     multihost = phase_multihost(mc16t, home, disk, device)
     bev_bench = phase_bev_bench(mc16t, home, device)
+    log(f"phase 5e: {time.perf_counter() - t5e:.1f} s")
+    # 5f: the memory options on the bf16 training rig, the bf16 voxel route,
+    # the grid2x training bench (its rig from the last host process)
+    t5f = time.perf_counter()
+    memory = phase_memory_options(mc16t, device)
     del mc16t
     torch.cuda.empty_cache()
-    log(f"phase 5e: {time.perf_counter() - t5e:.1f} s")
+    voxel16 = phase_voxel_bf16(device)
+    torch.cuda.empty_cache()
+    bench5f = phase_grid2x_and_voxel_bench(builds[len(PREBUILT) + 2], rig_cache, device)
+    torch.cuda.empty_cache()
+    log(f"phase 5f: {time.perf_counter() - t5f:.1f} s")
     num16 = {}
     for data in ("MultiviewX", "Wildtrack"):
         rig16 = prebuilt_rig(builds, (data, 12, "bfloat16"), device, rig_cache)
@@ -2286,8 +2676,31 @@ def run_phases(device, t_start, builds, rig_cache, disk) -> int:
     log(f"MultiviewX rig vs reference voxel route (batch 1): max abs err "
         f"{share[0]:.3e}, max rel err {share[1]:.3e}, {share[2]:.3f} of rtol "
         f"{REF_RTOL:.0e} / atol {REF_ATOL:.0e}")
+    for name, _ in MEM_OPTIONS:
+        r = memory[name]
+        log(f"5f bf16 training step at batch {MEM_BATCH} (window rig, fused stem), "
+            f"{name}: max_memory_allocated {r['peak']} bytes, {r['own']} above what was "
+            f"held before its model, step p50 {r['ms']:.1f} ms, "
+            f"gradients {r['grad_rel_l2']:.3e} from the plain step's (run-to-run "
+            f"{memory['run_to_run']:.3e})")
+    for tag, e in voxel16["f7"].items():
+        log(f"5f F7, summed BEV features of the voxel route, {tag}: max abs err "
+            f"{e[0]:.4e}, max rel err {e[1]:.4e}, rel-L2 {e[2]:.4e}")
+    log(f"5f bf16 voxel route: serving forward {voxel16['serve_ms']:.1f} ms at batch 1; "
+        f"training step {voxel16['train_ms']:.1f} ms at batch 1, max_memory_allocated "
+        f"{voxel16['train_peak']} bytes above what was held before; bench --no-rig bf16 "
+        f"serving at batch 1 "
+        f"{bench5f['no_rig']['value']} scenes/s")
+    log(f"5f bench --train --dtype bfloat16 --grid2x (backbone remat forced on): batch "
+        f"{bench5f['batch']}, chunks {bench5f['chunks']}, {bench5f['grid2x']['value']} "
+        f"scenes/s; attempts {bench5f['attempts']} ({bench5f['held']} bytes held before "
+        "the bench)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card.splitlines()[0]}")
+
+    def mem_launches(name):
+        """A kernel's launches in one step under each memory option (5f)."""
+        return {opt: memory[opt]["launches"][name] for opt, _ in MEM_OPTIONS}
 
     def entry(name, source, replaces, launches, **extra):
         ms, plain_ms, b_ms, by, *rate = num[name]
@@ -2318,6 +2731,8 @@ def run_phases(device, t_start, builds, rig_cache, disk) -> int:
               flat_train_launches["stem_bwd_dx"]),
         entry("rig_window_fwd_bf16", "rig_window_fwd", "vfa_tpu/ops/rig_pallas.py:89",
               serve16_launches["rig_window_fwd_bf16"], dtype="bfloat16",
+              launches_memory_options=mem_launches("rig_window_fwd_bf16"),
+              launches_grid2x_bench=bench5f["launches"]["rig_window_fwd_bf16"],
               launches_disk_train=disk_launches["train"]["rig_window_fwd_bf16"],
               launches_disk_evaluate=disk_launches["evaluate"]["rig_window_fwd_bf16"],
               launches_predict_disk=disk_launches["predict"]["launches"]["rig_window_fwd_bf16"],
@@ -2336,6 +2751,8 @@ def run_phases(device, t_start, builds, rig_cache, disk) -> int:
         entry("rig_window_bwd_bf16", "rig_window_bwd",
               "vfa_tpu/ops/rig_pallas.py:194,355",
               train16_launches["rig_window_bwd_bf16"], dtype="bfloat16",
+              launches_memory_options=mem_launches("rig_window_bwd_bf16"),
+              launches_grid2x_bench=bench5f["launches"]["rig_window_bwd_bf16"],
               passes_ms=passes16[f"bwd_b{BATCH}"]["passes_ms"],
               passes_ms_b1=passes16["bwd_b1"]["passes_ms"], ms_b1=k3_16[0],
               plain_ms_b1=k3_16[1], bound_ms_b1=k3_16[2],
@@ -2351,9 +2768,11 @@ def run_phases(device, t_start, builds, rig_cache, disk) -> int:
               host_gap_ms=passes16_flat[f"bwd_b{BATCH}"]["wall_ms"]
               - passes16_flat[f"bwd_b{BATCH}"]["device_ms"]),
         entry("stem_bwd_stats_bf16", "stem_bwd", "vfa_tpu/ops/stem.py:223",
-              flat16_train_launches["stem_bwd_stats_bf16"], dtype="bfloat16"),
+              flat16_train_launches["stem_bwd_stats_bf16"], dtype="bfloat16",
+              launches_memory_options=mem_launches("stem_bwd_stats_bf16")),
         entry("stem_bwd_dx_bf16", "stem_bwd", "vfa_tpu/ops/stem.py:253",
-              flat16_train_launches["stem_bwd_dx_bf16"], dtype="bfloat16"),
+              flat16_train_launches["stem_bwd_dx_bf16"], dtype="bfloat16",
+              launches_memory_options=mem_launches("stem_bwd_dx_bf16")),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

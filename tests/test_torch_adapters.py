@@ -17,6 +17,8 @@ from vfa_tpu.data import heatmaps as jhm
 from vfa_tpu_torch import calib
 from vfa_tpu_torch.data import adapters, heatmaps
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _same_objects(got, want):
     assert len(got) == len(want)

@@ -13,6 +13,8 @@ from vfa_tpu.data import augment as jaug
 
 from vfa_tpu_torch.data import augment
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 @pytest.fixture(scope="module")
 def images():

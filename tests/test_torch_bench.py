@@ -1,9 +1,12 @@
 """The port's bench (`python -m vfa_tpu_torch.bench`) on the CPU, tiny
 config: one JSON line with the root bench's keys and metric names, the
-auto-batch fallback on out-of-memory only, the refusals of what is not
-ported, and the FLOP count (the plain rig counted once)."""
+auto-batch fallback over the root bench's (batch, chunks) attempts on
+out-of-memory only, the flags that were refused until their paths were
+ported (the bf16 voxel route, the memory options, --bev_shards) running,
+and the FLOP count (the plain rig counted once)."""
 
 import json
+import os
 import re
 
 import numpy as np
@@ -19,6 +22,8 @@ from vfa_tpu_torch.ops.rig import (
     build_rig, pyramid_feat_shapes, rig_matmul_flops, rig_sample_scale,
 )
 from vfa_tpu_torch.ops.rig_cuda import rig_window_fwd
+
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = ["--tiny", "--device", "cpu", "--batch", "1", "--iters", "1", "--warmup", "0"]
 KEYS = {"metric", "value", "unit", "vs_baseline", "tflops_per_sec", "dtype"}
@@ -88,11 +93,11 @@ def _fail_above(limit, error):
     real = bench.make_runner
     tried = []
 
-    def make_runner(cfg, args, bs, rig, device):
-        tried.append(bs)
+    def make_runner(cfg, args, bs, chunks, rig, device):
+        tried.append((bs, chunks))
         if bs > limit:
             raise error
-        return real(cfg, args, bs, rig, device)
+        return real(cfg, args, bs, chunks, rig, device)
 
     return make_runner, tried
 
@@ -102,13 +107,15 @@ def test_auto_batch_falls_back_on_out_of_memory(capsys, monkeypatch):
     monkeypatch.setattr(bench, "make_runner", fake)
     _run(capsys, ["--tiny", "--device", "cpu", "--batch", "0", "--iters", "1",
                   "--warmup", "0"])
-    assert tried == [32, 16, 8, 4, 2]
+    assert tried == [(32, 1), (16, 1), (8, 1), (4, 1), (2, 1)]
     fake, tried = _fail_above(2, torch.cuda.OutOfMemoryError("CUDA out of memory."))
     monkeypatch.setattr(bench, "make_runner", fake)
     res, err = _run(capsys, ["--tiny", "--device", "cpu", "--batch", "0",
                              "--iters", "1", "--warmup", "0", "--train"])
-    assert tried == [8, 4, 2]
-    assert "# batch 8: out of memory" in err and "# batch 2: ok" in err
+    # the root bench's training attempts: a batch unchunked, then in 2 chunks
+    assert tried == [(8, 1), (8, 2), (4, 1), (4, 2), (2, 1)]
+    assert "# batch 8: out of memory" in err and "# batch 2: ok; chunks 1" in err
+    assert re.search(r"# batch 4: out of memory .*; chunks 2; ", err)
     assert "batch=2 " in err and res["value"] > 0
 
 
@@ -117,7 +124,7 @@ def test_auto_batch_raises_other_errors(monkeypatch):
     monkeypatch.setattr(bench, "make_runner", fake)
     with pytest.raises(RuntimeError, match="kernel build failed"):
         bench.main(["--tiny", "--device", "cpu", "--batch", "0", "--iters", "1"])
-    assert tried == [32]
+    assert tried == [(32, 1)]
 
 
 def test_out_of_memory_at_the_last_attempt_is_raised(monkeypatch):
@@ -135,11 +142,15 @@ def test_out_of_memory_at_the_last_attempt_is_raised(monkeypatch):
     (["--chunks", "2"], "item 18"),
     (["--bev_shards", "2"], "item 15"),
 ], ids=lambda v: v if isinstance(v, str) else v[0])
-def test_unported_flags_raise_naming_their_item(flag, item, capsys):
-    """The flags of items 17 and 18 raise, naming their item; --bev_shards
-    (item 15) is ported: 2 gloo ranks on the CPU, each on its BEV row slab,
-    train steps (the sharded forward, halos and norms, and backward), one
-    JSON line with the `_bev2` metric."""
+def test_unported_flags_raise_naming_their_item(flag, item, capsys, monkeypatch):
+    """The flags that raised naming their ROADMAP Queue 1 item until it was
+    ported now run. Items 17 and 18: the bf16 voxel route serving and
+    training, and the memory options training (remat, stem_remat, 2
+    backbone chunks over the 2 images of a tiny scene), each one JSON line
+    and the options it ran with on stderr. --bev_shards (item 15): 2 gloo
+    ranks on the CPU, each on its BEV row slab, train steps (the sharded
+    forward, halos and norms, and backward), one JSON line with the `_bev2`
+    metric."""
     if flag[0] == "--bev_shards":
         res = bench.main(TINY + flag + ["--train"])
         out, err = capsys.readouterr()
@@ -149,8 +160,51 @@ def test_unported_flags_raise_naming_their_item(flag, item, capsys):
         assert "# rank 1:" in err and "backend gloo" in err
         assert "BEV-sharded rig: 2 slabs of 5 rows" in err
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        bench.main(TINY + flag)
+    from vfa_tpu_torch.model import vfanet
+
+    models = []
+    monkeypatch.setattr(vfanet.VFANet, "__init__", lambda self, *a, _f=vfanet.VFANet.__init__,
+                        **k: models.append(self) or _f(self, *a, **k))
+    train = item == "item 18" or "--train" in flag
+    res, err = _run(capsys, TINY + flag + (["--train"] if item == "item 18" else []))
+    assert res["value"] > 0 and res["metric"].endswith(
+        ("_train" if train else "") + "_scenes_per_sec_per_chip")
+    assert res["dtype"] == ("bfloat16" if item == "item 17" else "float32")
+    model = models[-1]
+    if item == "item 17":
+        assert "# sampling: the reference voxel route (no rig)" in err
+        assert "compiled rig" not in err
+    else:
+        opts = (model.base.remat, model.base.stem_remat, model.backbone_chunks)
+        assert opts == {"--remat": (True, False, 1), "--stem_remat": (False, True, 1),
+                        "--chunks": (False, False, 2)}[flag[0]]
+        assert (f"# memory options: remat {opts[0]}, stem_remat {opts[1]}, "
+                f"chunks {2 if opts[2] == 2 else 'per attempt'}") in err
+        assert f"# batch 1: ok; chunks {opts[2]}" in err
+
+
+def test_grid2x_training_forces_backbone_remat(capsys, monkeypatch):
+    """--grid2x --train turns backbone remat on, as the root bench does
+    (`bench.py:141-144`), and says so; the grid is the halved cube's."""
+    from vfa_tpu_torch.model import vfanet
+
+    models = []
+    monkeypatch.setattr(vfanet.VFANet, "__init__", lambda self, *a, _f=vfanet.VFANet.__init__,
+                        **k: models.append(self) or _f(self, *a, **k))
+    res, err = _run(capsys, TINY + ["--grid2x", "--train", "--no-rig"])
+    assert "# grid2x train: backbone remat forced on" in err
+    assert "_train_grid2x_" in res["metric"] and models[-1].base.remat
+    assert "# memory options: remat True, stem_remat False" in err
+
+
+def test_no_refusal_names_a_queue_1_item():
+    """Every module of ROADMAP Queue 1 is ported: no source of the port
+    raises NotImplementedError naming a Queue 1 item (the ones left are the
+    adapters' abstract methods)."""
+    root = os.path.dirname(bench.__file__)
+    named = [os.path.join(d, f) for d, _, files in os.walk(root) for f in files
+             if f.endswith(".py") and "Queue 1 item" in open(os.path.join(d, f)).read()]
+    assert named == []
 
 
 @pytest.mark.parametrize("layout", ["window", "flat"])

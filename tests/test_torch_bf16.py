@@ -40,6 +40,8 @@ from vfa_tpu_torch.ops.rig_cuda import (
     rig_window_fwd_bf16,
 )
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 BUDGET_MAX, BUDGET_L2 = 0.03, 0.03
 
 
@@ -258,8 +260,8 @@ def test_vfanet_bf16_serving_forward_matches_jax(cfg):
     shapes = jrig.pyramid_feat_shapes(tc.resize_size)
 
     jmodel = create_model(tc, TrainConfig(pretrained=False), rig_impl="pallas")
-    variables = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(images),
-                            jnp.asarray(calibs), jnp.asarray(grid))
+    variables = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.asarray(images),
+                                     jnp.asarray(calibs), jnp.asarray(grid))
     params = _perturb(variables["params"], rng)
     stats = _random_stats(variables["batch_stats"], rng)
     jvars = jax.tree_util.tree_map(lambda x: jnp.asarray(x).astype(jnp.bfloat16),

@@ -41,6 +41,9 @@ from vfa_tpu_torch.model.vfanet import BatchNorm2dBiased, VFANet
 from vfa_tpu_torch.ops import rig as trig
 from vfa_tpu_torch.ops import rig_cuda, stem
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_train import jitted_init
+
 MAX_TOL, L2_TOL = 1e-2, 4e-3
 
 
@@ -292,14 +295,19 @@ def test_bf16_batchnorm_train_matches_flax():
     assert int(tbn.num_batches_tracked) == 1
 
 
-def _train_against_jax(steps, layout="window"):
+def _train_against_jax(steps, layout="window", jax_fp32=False, jax_init=jitted_init):
     """`steps` mixed-precision train steps, then one bf16 eval step, both
     packages, same weights, batches (bf16 images) and bf16-built rig; and
     the port's fp32 steps from the same weights on the fp32 rig. JAX
     samples with rig_impl='pallas' (the Pallas kernels and their VJP,
-    interpreted). Returns per step (port losses, JAX losses, port update,
-    JAX update, port fp32 update), the updates by parameter name; the final
-    running statistics of both; the eval losses of both."""
+    interpreted); layout=None samples through the voxel route on both
+    sides (no rig). Returns per step (port losses, JAX losses, port update,
+    JAX update, port fp32 update and, with `jax_fp32`, JAX's fp32 update
+    from JAX's state before the step), the updates by parameter name; the
+    final running statistics of both; the eval losses of both (with
+    `jax_fp32` also the fp32 eval losses of the port's fp32 model and of
+    JAX's fp32 state after the last step). `jax_init(model)` is what
+    `vfa_tpu.train_lib.init_state` takes the initial variables from."""
     kw = dict(epochs=40, batch_size=2, pretrained=False,
               scheduler_step_per_epoch=False)
     jc = tiny_config(mc_opts)
@@ -314,10 +322,18 @@ def _train_against_jax(steps, layout="window"):
 
     jmodel = jtl.create_model(jc, jtcfg, rig_impl="pallas")
     jb0 = {k: jnp.asarray(v) for k, v in batches[0].items()}
-    state, tx = jtl.init_state(jmodel, jc, jtcfg, jax.random.PRNGKey(0), steps, jb0)
-    jrig_ = jrig.build_rig(calibs, jc, grid, shapes, tile_v=16, dtype=jnp.bfloat16,
-                           band_buckets=3, layout=layout)
+    state, tx = jtl.init_state(jax_init(jmodel), jc, jtcfg, jax.random.PRNGKey(0),
+                               steps, jb0)
+    jrig_ = layout and jrig.build_rig(calibs, jc, grid, shapes, tile_v=16,
+                                      dtype=jnp.bfloat16, band_buckets=3,
+                                      layout=layout)
     jstep = jtl.make_train_step(jmodel, tx, jc, jtcfg, dim_mean=loader.dim_mean)
+    if jax_fp32:
+        jstep32 = jtl.make_train_step(jmodel, tx, jc, JTrainConfig(**kw),
+                                      dim_mean=loader.dim_mean)
+        jrig32 = layout and jrig.build_rig(calibs, jc, grid, shapes, tile_v=16,
+                                           dtype=jnp.float32, band_buckets=3,
+                                           layout=layout)
     jeval = jtl.make_eval_step(jmodel, jc, dim_mean=loader.dim_mean,
                                compute_dtype=jnp.bfloat16)
     init = params_from_jax(jax.tree_util.tree_map(np.array, state.params),
@@ -326,8 +342,9 @@ def _train_against_jax(steps, layout="window"):
     def port(dtype):
         model = VFANet(tc)
         model.load_state_dict(init, strict=True)
-        rig = trig.build_rig(calibs, tc, grid, shapes, tile_v=16, dtype=dtype,
-                             band_buckets=3, layout=layout, device="cpu")
+        rig = layout and trig.build_rig(calibs, tc, grid, shapes, tile_v=16,
+                                        dtype=dtype, band_buckets=3,
+                                        layout=layout, device="cpu")
         ttcfg = TrainConfig(compute_dtype=str(dtype).split(".")[-1], **kw)
         opt = ttl.make_optimizer(model, ttcfg, steps)
         return model, rig, opt, ttl.make_train_step(model, opt, tc, ttcfg,
@@ -354,6 +371,10 @@ def _train_against_jax(steps, layout="window"):
     records = []
     for b in batches:
         before_j, before_t, before_32 = jax_named(state), params(model), params(model32)
+        if jax_fp32:          # on a copy: the step donates its state
+            state32, _ = jstep32(jax.tree_util.tree_map(jnp.copy, state),
+                                 {k: jnp.asarray(v) for k, v in b.items()}, jrig32)
+            after_j32 = jax_named(state32)
         state, jld = jstep(state, jbatch(b), jrig_)
         tld = tstep(ttl.batch_to_device(b, "cpu", torch.bfloat16), trig_)
         tstep32(ttl.batch_to_device(b, "cpu"), rig32)
@@ -362,7 +383,9 @@ def _train_against_jax(steps, layout="window"):
                         {k: float(v) for k, v in jld.items()},
                         {k: after_t[k] - before_t[k] for k in after_t},
                         {k: after_j[k] - before_j[k] for k in after_t},
-                        {k: after_32[k] - before_32[k] for k in after_t}))
+                        {k: after_32[k] - before_32[k] for k in after_t},
+                        *([{k: after_j32[k] - before_j[k] for k in after_t}]
+                          if jax_fp32 else [])))
     assert _launches() == counts
     assert all(p.dtype == torch.float32 for p in model.parameters())
     assert all(s["momentum_buffer"].dtype == torch.float32
@@ -374,6 +397,13 @@ def _train_against_jax(steps, layout="window"):
     tld, pred = teval(ttl.batch_to_device(batches[0], "cpu", torch.bfloat16), trig_)
     assert set(pred) == {"heatmap", "loc_offset", "dim_offset", "rotation"}
     evals = ({k: float(v) for k, v in tld.items()}, {k: float(v) for k, v in jld.items()})
+    if jax_fp32:
+        b32 = ttl.batch_to_device(batches[0], "cpu")
+        jld32, _ = jtl.make_eval_step(jmodel, jc, dim_mean=loader.dim_mean)(
+            state32, {k: jnp.asarray(v) for k, v in batches[0].items()}, jrig32)
+        tld32, _ = ttl.make_eval_step(model32, tc, dim_mean=loader.dim_mean)(b32, rig32)
+        evals += ({k: float(v) for k, v in tld32.items()},
+                  {k: float(v) for k, v in jld32.items()})
     return records, stats, evals
 
 

@@ -31,6 +31,8 @@ from vfa_tpu_torch.data.synthetic import tiny_config
 from vfa_tpu_torch.model.vfanet import VFANet, init_weights
 from vfa_tpu_torch.train_lib import make_optimizer
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 CFG = tiny_config(get_config("MultiviewC"))
 
 

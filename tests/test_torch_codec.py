@@ -18,6 +18,8 @@ from vfa_tpu_torch.codec import ObjectEncoder, decode_frame, nms_heatmap
 from vfa_tpu_torch.config import get_config
 from vfa_tpu_torch.data.synthetic import tiny_config
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 DIM_MEAN = np.array([145.0, 120.0, 255.0], np.float32)
 
 

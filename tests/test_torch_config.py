@@ -10,6 +10,8 @@ from vfa_tpu.data.synthetic import tiny_config as jax_tiny
 from vfa_tpu_torch import config as tcfg
 from vfa_tpu_torch.data.synthetic import tiny_config
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 @pytest.mark.parametrize("name", ["MultiviewC", "MultiviewX", "Wildtrack"])
 @pytest.mark.parametrize("tiny", [False, True])

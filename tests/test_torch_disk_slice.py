@@ -41,6 +41,8 @@ from vfa_tpu_torch.observability import enable_nan_debugging
 from vfa_tpu_torch.rig_cli import build_cli_rig
 from vfa_tpu_torch.train_lib import batch_to_device
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 CFG = tiny_config(get_config("MultiviewC"))
 TINY = ["--data", "MultiviewC", "--tiny", "--device", "cpu"]
 

@@ -19,6 +19,8 @@ from vfa_tpu_torch import train_lib as ttl
 from vfa_tpu_torch.config import get_config
 from vfa_tpu_torch.data.synthetic import tiny_config as t_tiny_config
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 RTOL, ATOL = 1e-5, 1e-6
 DIM_MEAN = np.array([145.0, 120.0, 255.0], np.float32)
 

@@ -12,6 +12,8 @@ import jax.numpy as jnp
 import __graft_entry__ as jentry
 from vfa_tpu_torch import entry as tentry
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 @pytest.mark.medium
 def test_entry_matches_graft_entry_tiny():

@@ -23,6 +23,8 @@ from vfa_tpu_torch.eval.evaluate import (
     evaluate_ap_aos, evaluate_rcll_prec_moda_modp,
 )
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 FIXTURES = Path(__file__).parent / "fixtures"
 
 

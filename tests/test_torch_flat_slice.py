@@ -22,6 +22,8 @@ from vfa_tpu_torch.model.vfanet import VFANet
 from vfa_tpu_torch.ops.rig import build_rig
 from vfa_tpu_torch.ops.rig_cuda import rig_flat_fwd, rig_window_fwd
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 @pytest.mark.medium
 def test_flat_predict_matches_jax_forward(monkeypatch):
@@ -40,8 +42,8 @@ def test_flat_predict_matches_jax_forward(monkeypatch):
     shapes = pyramid_feat_shapes(tc.resize_size)
 
     jmodel = create_model(tc, TrainConfig(pretrained=False), rig_impl="pallas")
-    variables = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(images),
-                            jnp.asarray(calibs), jnp.asarray(grid))
+    variables = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.asarray(images),
+                                     jnp.asarray(calibs), jnp.asarray(grid))
     params = jax.tree_util.tree_map(
         lambda x: (np.asarray(x) + 0.05 * rng.normal(size=x.shape)).astype(np.float32),
         variables["params"])

@@ -29,6 +29,8 @@ from vfa_tpu_torch.native import (
 from vfa_tpu_torch.native import imageio
 from vfa_tpu_torch.train_lib import stage_images
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _same_batches(got, want):
     assert len(got) == len(want)

@@ -8,6 +8,8 @@ import re
 import subprocess
 import sys
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "vfa_tpu_torch")
 
@@ -86,6 +88,7 @@ print("ISOLATED-OK")
 def test_port_runs_with_jax_blocked(tmp_path):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"      # one torch thread, as the fixture gives a test
     # the train CLI writes its runs under experiments/ of the working directory
     res = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=300)

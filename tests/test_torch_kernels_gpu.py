@@ -1221,3 +1221,31 @@ def test_unified_slab_bucket_bf16_kernels_match_plain(cuda, B):
     assert_bf16_close(dII, want_dII)
     assert_bf16_close(dKr, want_dKr)
     assert torch.equal(kernel()[0], dII)
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 90, 160), (7, 256, 23, 40), (2, 45, 640)], ids=str)
+def test_bf16_integral_image_on_the_card_equals_the_cpu(cuda, shape):
+    """The voxel route's bf16 integral image (`ops/voxel.py::
+    BlockedIntegralImage`, JAX's blocked bf16 cumsum) and its backward on
+    the card bit for bit as on the CPU, which tests/test_torch_voxel_bf16.py
+    holds to JAX: every op is one bf16 add of two tensors, rounded once on
+    both devices. Full MultiviewC lateral shapes (scale 8 of one camera,
+    scale 32 of 7) and a two-level row."""
+    from vfa_tpu_torch.ops.voxel import integral_image, sample_voxels
+
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.rand(shape, generator=g).to(torch.bfloat16)
+    dy = torch.randn(shape, generator=g).to(torch.bfloat16)
+    leaves = [x.to(cuda).requires_grad_(), x.clone().requires_grad_()]
+    (got, want) = (integral_image(t) for t in leaves)
+    (dx, dx_cpu) = (torch.autograd.grad(y, t, dy.to(t.device))[0]
+                    for y, t in zip((got, want), leaves))
+    assert got.dtype == torch.bfloat16 and got.is_cuda == (cuda.type == "cuda")
+    assert torch.equal(got.cpu(), want) and torch.equal(dx.cpu(), dx_cpu)
+    if shape[-3] == 256:
+        boxes = torch.rand((shape[0], 5, 9, 9, 4), generator=g) * 1.8 - 0.9
+        boxes = torch.cat([boxes[..., :2], boxes[..., :2] + 0.1 + boxes[..., 2:].abs() * 0.05],
+                          -1)
+        with torch.no_grad():
+            vox = sample_voxels(x.to(cuda), boxes.to(cuda))
+            assert torch.equal(vox.cpu(), sample_voxels(x, boxes))

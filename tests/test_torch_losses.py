@@ -11,6 +11,8 @@ from vfa_tpu import losses as jl
 
 from vfa_tpu_torch import losses as tl
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 RTOL, ATOL = 1e-5, 1e-6
 B, L, W, A = 2, 9, 11, 36
 

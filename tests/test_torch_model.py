@@ -27,6 +27,8 @@ from vfa_tpu_torch.model.resnet import ResNetGN
 from vfa_tpu_torch.model.vfanet import VFANet
 from vfa_tpu_torch.ops.rig import build_rig
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 RTOL, ATOL = 5e-3, 5e-4
 
 
@@ -79,8 +81,8 @@ def test_vfanet_rig_forward_matches_jax(cfg):
     shapes = pyramid_feat_shapes(tc.resize_size)
 
     jmodel = create_model(tc, TrainConfig(pretrained=False), rig_impl="pallas")
-    variables = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(images),
-                            jnp.asarray(calibs), jnp.asarray(grid))
+    variables = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.asarray(images),
+                                     jnp.asarray(calibs), jnp.asarray(grid))
     params = _perturb(variables["params"], rng)
     stats = _random_stats(variables["batch_stats"], rng)
     jr = jax_build_rig(scenes[0].calibs, tc, grid, shapes, tile_v=16,

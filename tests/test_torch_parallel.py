@@ -14,6 +14,8 @@ from vfa_tpu_torch import parallel
 from vfa_tpu_torch.convert import params_from_jax
 from vfa_tpu_torch.launch import run_ranks
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 HERE = __import__("os").path.dirname(__file__)
 
 

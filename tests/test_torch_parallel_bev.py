@@ -19,6 +19,8 @@ from vfa_tpu_torch.launch import run_ranks
 from vfa_tpu_torch.ops.rig import build_rig, window_dii_index
 from vfa_tpu_torch.ops.rig_cuda import rig_sample_scale_cuda
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 HERE = __import__("os").path.dirname(__file__)
 
 

@@ -19,6 +19,8 @@ from vfa_tpu_torch.data.synthetic import tiny_config as t_tiny_config
 from vfa_tpu_torch.ops import rig as trig
 from vfa_tpu_torch.ops.rig_cuda import rig_sample_scale_cuda, rig_window_fwd
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _both_rigs(cfg, buckets, tile_v=16, shapes=None):
     tc = tiny_config(cfg)

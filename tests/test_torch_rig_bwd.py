@@ -26,6 +26,8 @@ from vfa_tpu_torch.ops.rig_cuda import (
     rig_sample_scale_cuda, rig_scale_bwd, rig_window_bwd, rig_window_fwd,
 )
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 RTOL, ATOL = 1e-4, 1e-4
 
 

@@ -21,6 +21,8 @@ from vfa_tpu_torch.config import get_config
 from vfa_tpu_torch.data.synthetic import tiny_config as t_tiny_config
 from vfa_tpu_torch.ops import rig as trig
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _inputs(cfg=mc_opts):
     tc = tiny_config(cfg)

@@ -17,6 +17,8 @@ from vfa_tpu_torch.data.synthetic import make_calibrations, tiny_config
 from vfa_tpu_torch.geometry import make_grid
 from vfa_tpu_torch.ops import rig as trig
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 @pytest.fixture(scope="module")
 def scale():

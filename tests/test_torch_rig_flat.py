@@ -25,6 +25,8 @@ from vfa_tpu_torch.ops.rig_cuda import (
     rig_flat_bwd, rig_flat_fwd, rig_sample_scale_cuda, rig_scale_bwd,
 )
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _both_rigs(cfg, buckets, fold_prefix=True, tile_v=16, shapes=None,
                layout="flat"):

@@ -21,6 +21,8 @@ from vfa_tpu_torch.data.synthetic import make_calibrations, tiny_config
 from vfa_tpu_torch.geometry import make_grid
 from vfa_tpu_torch.ops import rig as trig
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 RIGS = {"window": dict(layout="window"),
         "flat": dict(layout="flat"),
         "flat-taps": dict(layout="flat", fold_prefix=False, band_buckets=1)}

@@ -17,6 +17,8 @@ from vfa_tpu.ops import stem as jstem
 from vfa_tpu_torch.model.resnet import ResNetGN
 from vfa_tpu_torch.ops import stem as tstem
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 # (M, H, W, C) as the JAX package takes them
 EVEN_SHAPES = [(2, 12, 16, 64), (1, 20, 48, 64), (3, 24, 32, 64),
                (1, 48, 256, 64)]          # the last: several row blocks

@@ -28,6 +28,8 @@ from vfa_tpu.ops.stem import _pallas_bwd
 
 from vfa_tpu_torch.ops import stem
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 PAY, RW, ROW2 = 0x4000, 256, 512      # the kernels' BF_PAY, BF_RW, 2 * BF_RW
 LANES, OWNERS = 32, 30
 SOURCE = (Path(stem.__file__).parents[1] / "csrc" / "stem_bwd.cu").read_text()

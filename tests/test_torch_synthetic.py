@@ -16,6 +16,8 @@ from vfa_tpu_torch.config import get_config
 from vfa_tpu_torch.data import synthetic as tsyn
 from vfa_tpu_torch.ops import voxel as tvox
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 NAMES = ["MultiviewC", "MultiviewX", "Wildtrack"]
 
 

@@ -3,6 +3,8 @@ OneCycle schedules and the SGD update, train steps on tiny MultiviewC (3D)
 and tiny Wildtrack (2D) with the weights carried across by
 `params_from_jax`, and the train CLI."""
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +31,8 @@ from vfa_tpu_torch.ops.rig_cuda import (
     rig_flat_bwd, rig_flat_fwd, rig_window_bwd, rig_window_fwd,
 )
 from vfa_tpu_torch.ops.stem import stem_bwd_dx, stem_bwd_stats
+
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)
@@ -121,6 +125,13 @@ def _launches():
         stem_bwd_stats, stem_bwd_dx))
 
 
+def jitted_init(model):
+    """`model` for `vfa_tpu.train_lib.init_state`, which calls only its
+    `init`: jitted here, the same values as flax's eager init (checked on
+    the tiny MultiviewC model) in a third of the time on the CPU."""
+    return types.SimpleNamespace(init=jax.jit(model.init, static_argnames="train"))
+
+
 def _train_against_jax(cfg, steps, layout="window"):
     """`steps` train steps then one eval step, both packages, same weights
     and batches. JAX samples with rig_impl='pallas' (the Pallas kernels and
@@ -143,7 +154,8 @@ def _train_against_jax(cfg, steps, layout="window"):
 
     jmodel = jtl.create_model(jc, jtcfg, rig_impl="pallas")
     jb0 = {k: jnp.asarray(v) for k, v in batches[0].items()}
-    state, tx = jtl.init_state(jmodel, jc, jtcfg, jax.random.PRNGKey(0), steps, jb0)
+    state, tx = jtl.init_state(jitted_init(jmodel), jc, jtcfg, jax.random.PRNGKey(0),
+                               steps, jb0)
     jrig = layout and jax_build_rig(calibs, jc, grid, shapes, tile_v=16,
                                     dtype=jnp.float32, band_buckets=3,
                                     layout=layout)
@@ -380,13 +392,16 @@ def _train_cli_multihost(tmp_path):
 
 @pytest.mark.parametrize("case", ["bf16", "figures", "multihost"])
 def test_train_cli_refuses_what_is_not_ported(case, tmp_path, capsys):
-    """What is not ported raises naming its ROADMAP item (the voxel route
-    in bf16, item 17); the figures (item 14) and --multihost (item 15) are
-    ported and run."""
+    """The paths that raised naming their ROADMAP item until they were
+    ported run: --no_rig --dtype bfloat16 (the voxel route in bf16, item
+    17: mixed-precision steps and the bf16 validation, finite losses), the
+    figures (item 14) and --multihost (item 15)."""
     if case == "bf16":
-        with pytest.raises(NotImplementedError, match="bfloat16") as e:
-            train_cli.main(TINY + ["--dtype", "bfloat16", "--no_rig", "--device", "cpu"])
-        assert "ROADMAP.md Queue 1 item 17" in str(e.value)
+        out = train_cli.main(TINY + ["--dtype", "bfloat16", "--no_rig", "--device", "cpu"])
+        text = capsys.readouterr().out
+        assert "mixed precision: bfloat16 compute, float32 master params" in text
+        assert "[TRAIN]" in text and "[VAL]" in text and "compiled rig" not in text
+        assert out["losses"] and all(np.isfinite(d["loss"]) for d in out["losses"])
     elif case == "figures":
         _train_cli_figures(tmp_path, capsys)
     else:
@@ -394,16 +409,21 @@ def test_train_cli_refuses_what_is_not_ported(case, tmp_path, capsys):
 
 
 def test_train_step_refuses_bf16_and_cuda_needs_a_card():
-    """A bf16 step refuses the reference voxel route (rig=None), which is
-    not ported in bf16, naming its ROADMAP item; an unknown compute dtype
-    is refused when the step is made."""
+    """A bf16 step takes the reference voxel route (rig=None), which
+    raised naming its ROADMAP item (17) until it was ported: finite losses,
+    fp32 masters updated; an unknown compute dtype is refused when the step
+    is made."""
     tc = t_tiny_config(get_config("MultiviewC"))
     model = VFANet(tc)
     tcfg = TrainConfig(compute_dtype="bfloat16")        # the dataclass takes it
-    step = ttl.make_train_step(model, ttl.make_optimizer(model, tcfg, 1), tc, tcfg)
     loader = SyntheticSceneLoader(tc, num_frames=1, batch_size=1, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 17"):
-        step(ttl.batch_to_device(next(iter(loader)), "cpu", torch.bfloat16), None)
+    step = ttl.make_train_step(model, ttl.make_optimizer(model, tcfg, 1), tc, tcfg,
+                               dim_mean=loader.dim_mean)
+    before = model.vfa8.collapse.weight.detach().clone()
+    losses = step(ttl.batch_to_device(next(iter(loader)), "cpu", torch.bfloat16), None)
+    assert all(torch.isfinite(v) for v in losses.values())
+    assert model.vfa8.collapse.weight.dtype == torch.float32
+    assert not torch.equal(model.vfa8.collapse.weight, before)
     with pytest.raises(ValueError, match="compute_dtype"):
         ttl.make_train_step(model, ttl.make_optimizer(model, tcfg, 1), tc,
                             TrainConfig(compute_dtype="float16"))

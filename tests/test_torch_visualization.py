@@ -15,6 +15,8 @@ from vfa_tpu_torch.data.synthetic import make_calibrations, make_scene, tiny_con
 from vfa_tpu_torch.utils import Obj2D, Obj3D, grid_rot180, to_numpy
 from vfa_tpu_torch.visualization import bbox, figure
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _pixels(fig):
     fig.canvas.draw()

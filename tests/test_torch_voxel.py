@@ -24,6 +24,8 @@ from vfa_tpu_torch.model.vfanet import VFANet, init_weights
 from vfa_tpu_torch.ops import voxel as tvox
 from vfa_tpu_torch.ops.rig import build_rig, pyramid_feat_shapes
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 OP_RTOL, OP_ATOL = 1e-4, 1e-4          # tests/test_voxel.py:71,90
 FWD_RTOL, FWD_ATOL = 5e-3, 5e-4        # tests/test_parity.py, test_torch_model.py
 RIG_RTOL, RIG_ATOL = 2e-3, 2e-4        # tests/test_rig.py:47
@@ -143,8 +145,8 @@ def test_vfanet_voxel_route_matches_jax(cfg):
     tc = tiny_config(cfg)
     images, calibs, grid = _scenes(tc)
     jmodel = create_model(tc, TrainConfig(pretrained=False))
-    variables = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(images),
-                            jnp.asarray(calibs), jnp.asarray(grid))
+    variables = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.asarray(images),
+                                     jnp.asarray(calibs), jnp.asarray(grid))
     want = jmodel.apply(variables, jnp.asarray(images), jnp.asarray(calibs),
                         jnp.asarray(grid))
     model = VFANet(t_tiny_config(get_config(cfg.name)))

@@ -47,7 +47,7 @@ def main(argv=None):
                             buckets=args.buckets or (8 if args.train else 12),
                             layout=args.layout, cache_dir=RIG_CACHE_DIR,
                             dtype=getattr(torch, args.dtype))
-    run = bench.warm_runner(cfg, args, args.batch, rig, device)
+    run = bench.warm_runner(cfg, args, args.batch, 0, rig, device)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

@@ -10,6 +10,8 @@ path.
     python -m vfa_tpu_torch.bench --dtype bfloat16 --from_disk           # the real input path
     python -m vfa_tpu_torch.bench --dtype bfloat16 --from_disk --train --batch 8
     python -m vfa_tpu_torch.bench --dtype bfloat16 --bev_shards 2 --batch 2   # 2 ranks, BEV row slabs
+    python -m vfa_tpu_torch.bench --dtype bfloat16 --train --grid2x     # backbone remat forced on
+    python -m vfa_tpu_torch.bench --dtype bfloat16 --no-rig --batch 1   # the reference voxel route
     python -m vfa_tpu_torch.bench --tiny --device cpu --batch 1 --iters 2 --warmup 1
 
 Inputs are synthetic scenes (`make_scene(cfg, seed=s, num_objects=6)`)
@@ -17,8 +19,14 @@ staged on the device before timing, weights are seeded random
 (`init_weights`, seed 0), the rig is built once (or loaded from the rig
 cache, `rig_cli.RIG_CACHE_DIR`). Warm-up runs inside the batch fallback;
 the timed loop dispatches `--iters` calls and then waits once for the
-device and reads one value back. `--batch 0` tries 32/16/8/4/2/1 scenes
-(training 8/4/2/1) and falls back on `torch.cuda.OutOfMemoryError` only.
+device and reads one value back. `--batch 0` tries the root bench's
+(batch, backbone chunks) attempts (`bench.py:326-337`: serving 32/16/8/4/
+2/1 scenes unchunked, training (8, 1), (8, 2), (4, 1), (4, 2), (2, 1),
+(1, 1)) and falls back on `torch.cuda.OutOfMemoryError` only; `--chunks N`
+overrides an attempt's chunks. `--remat`, `--stem_remat` and `--chunks` are
+the model's memory options (`VFANet(backbone_remat=, stem_remat=,
+backbone_chunks=)`); `--grid2x --train` forces `--remat` on, as the root
+bench does (`bench.py:141-144`).
 `--from_disk` feeds the timed loop from an on-disk JPEG frame set instead
 (the root `bench.py:364-420`): written once under `--disk_dir`
 (`data.disk.ensure_dataset`), decoded by the SceneLoader's threads
@@ -73,10 +81,12 @@ PEAK_BF16_TFLOPS = {"NVIDIA H100 80GB HBM3": 989.4}
 # by their own code, so neither setting touches them.
 CUDNN_TF32 = True
 MATMUL_TF32 = False
-SERVING_ATTEMPTS = (32, 16, 8, 4, 2, 1)
-TRAIN_ATTEMPTS = (8, 4, 2, 1)
-GRID2X_SERVING_ATTEMPTS = (8, 4, 2, 1)
-GRID2X_TRAIN_ATTEMPTS = (4, 2, 1)
+# (batch, backbone chunks) attempts of `--batch 0`, the root bench's
+# (`bench.py:326-337`): training tries a batch unchunked, then in 2 chunks
+SERVING_ATTEMPTS = ((32, 1), (16, 1), (8, 1), (4, 1), (2, 1), (1, 1))
+TRAIN_ATTEMPTS = ((8, 1), (8, 2), (4, 1), (4, 2), (2, 1), (1, 1))
+GRID2X_SERVING_ATTEMPTS = ((8, 1), (4, 1), (2, 1), (1, 1))
+GRID2X_TRAIN_ATTEMPTS = ((4, 2), (2, 1), (2, 2), (1, 1))
 STEPS_PER_EPOCH = 100          # the schedule's length, as `bench.py:217`
 MAX_OBJECTS = 16               # objects a training scene is padded to
 DIM_MEAN = np.array([145.0, 120.0, 255.0], np.float32)
@@ -114,10 +124,14 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda")
     p.add_argument("--tiny", action="store_true",
                    help="the shrunken test configuration")
-    # flags of the root bench whose paths are not ported yet: each raises
-    p.add_argument("--remat", action="store_true")
-    p.add_argument("--stem_remat", action="store_true")
-    p.add_argument("--chunks", type=int, default=None)
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each backbone block in the backward")
+    p.add_argument("--stem_remat", action="store_true",
+                   help="recompute the stem (conv1 + GN + ReLU + pool) in "
+                        "the backward")
+    p.add_argument("--chunks", type=int, default=0,
+                   help="run the backbone over the B*N images in this many "
+                        "recomputed chunks (0 = each attempt's own)")
     p.add_argument("--from_disk", action="store_true",
                    help="feed the timed loop from an on-disk JPEG frame set "
                         "through the SceneLoader (decode, uint8 staging, "
@@ -142,23 +156,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    """Every flag whose path is not ported yet raises, naming its ROADMAP
-    item; nothing is silently skipped."""
-    memory = "(ROADMAP.md Queue 1 item 18, the memory options)"
-    unported = [
-        (args.dtype == "bfloat16" and args.no_rig, "--dtype bfloat16 --no-rig "
-         "is not ported yet (ROADMAP.md Queue 1 item 17, the voxel route in "
-         "bf16)"),
-        (args.remat, f"--remat is not ported yet {memory}"),
-        (args.stem_remat, f"--stem_remat is not ported yet {memory}"),
-        (args.chunks is not None, f"--chunks is not ported yet {memory}"),
-    ]
-    for hit, message in unported:
-        if hit:
-            raise NotImplementedError(message)
-
-
 def make_inputs(cfg, bs: int, device, train: bool, dtype=torch.float32):
     """A batch of `bs` synthetic scenes as tensors on `device`: images (in
     `dtype`, `bench.py:252`), calibs, grid and, for training, the gt heatmap
@@ -181,13 +178,15 @@ def make_inputs(cfg, bs: int, device, train: bool, dtype=torch.float32):
     return out
 
 
-def make_runner(cfg, args, bs: int, rig, device):
+def make_runner(cfg, args, bs: int, chunks: int, rig, device):
     """A function that runs one call at batch `bs` and returns its outputs
     on the device: the decoded detections (serving) or the loss dict
-    (training). Called with no argument it takes the images staged in its
-    closure, else the images it is given (the `--from_disk` loop). Model,
-    optimizer and inputs live in its closure and nowhere else, so dropping
-    it frees them. A BEV slab rig brings its mesh (`parallel_bev.BevSlab`),
+    (training), the model with the memory options of `args` and
+    `args.chunks or chunks or 1` backbone chunks, as the root bench's
+    `model_for` (`bench.py:155-167`). Called with no argument it takes
+    the images staged in its closure, else the images it is given (the
+    `--from_disk` loop). Model, optimizer and inputs live in its closure
+    and nowhere else, so dropping it frees them. A BEV slab rig brings its mesh (`parallel_bev.BevSlab`),
     on which the model and the train step then run."""
     from vfa_tpu_torch.codec import decode_frame
     from vfa_tpu_torch.config import TrainConfig
@@ -195,8 +194,11 @@ def make_runner(cfg, args, bs: int, rig, device):
     from vfa_tpu_torch.train_lib import make_optimizer, make_train_step
 
     dtype = getattr(torch, args.dtype)
-    model = init_weights(VFANet(cfg, rig_impl=args.rig_impl),
-                         torch.Generator().manual_seed(0)).to(device)
+    model = init_weights(
+        VFANet(cfg, rig_impl=args.rig_impl, backbone_remat=args.remat,
+               backbone_chunks=args.chunks or chunks or 1,
+               stem_remat=args.stem_remat),
+        torch.Generator().manual_seed(0)).to(device)
     model.mesh = mesh = getattr(rig, "mesh", None)
     batch = make_inputs(cfg, bs, device, args.train, dtype)
     dim_mean = DIM_MEAN if cfg.mode == "3D" else None
@@ -226,10 +228,11 @@ def finish(out, device, train: bool) -> float:
     return float(out["loss"] if train else out["conf"].sum())
 
 
-def warm_runner(cfg, args, bs, rig, device):
-    """The runner at batch `bs` after its first call and the warm-up (both
-    inside the fallback: either can be the one that runs out of memory)."""
-    run = make_runner(cfg, args, bs, rig, device)
+def warm_runner(cfg, args, bs, chunks, rig, device):
+    """The runner at batch `bs` (and `chunks`, `make_runner`) after its
+    first call and the warm-up (both inside the fallback: either can be the
+    one that runs out of memory)."""
+    run = make_runner(cfg, args, bs, chunks, rig, device)
     finish(run(), device, args.train)
     for _ in range(args.warmup):
         finish(run(), device, args.train)
@@ -395,7 +398,6 @@ def main(argv=None, rig=None) -> dict:
     loaded from the rig cache, when None; not taken with --bev_shards,
     whose ranks build their slabs)."""
     args = parse_args(argv)
-    _refuse_unported(args)
     if args.bev_shards:
         result = bev_main(argv, args)
     else:
@@ -483,6 +485,9 @@ def run(args, rig, device) -> dict:
     log(card_line(device))
 
     cfg = bench_config(args)
+    if args.grid2x and args.train and not args.remat:
+        args.remat = True
+        log("# grid2x train: backbone remat forced on")
     buckets = args.buckets or (12 if (args.grid2x or not args.train) else 8)
     if args.no_rig:
         rig = None
@@ -500,26 +505,29 @@ def run(args, rig, device) -> dict:
             "buckets per scale")
 
     if args.batch:
-        attempts = (args.batch,)
+        attempts = ((args.batch, 0),)
     elif args.grid2x:
         attempts = GRID2X_TRAIN_ATTEMPTS if args.train else GRID2X_SERVING_ATTEMPTS
     else:
         attempts = TRAIN_ATTEMPTS if args.train else SERVING_ATTEMPTS
+    log(f"# memory options: remat {args.remat}, stem_remat {args.stem_remat}, "
+        f"chunks {args.chunks or 'per attempt'}")
     runner = None
-    for i, bs in enumerate(attempts):
+    for i, (bs, chunks) in enumerate(attempts):
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         try:
-            runner = warm_runner(cfg, args, bs, rig, device)
+            runner = warm_runner(cfg, args, bs, chunks, rig, device)
             outcome = "ok"
         except torch.cuda.OutOfMemoryError as e:
             outcome = f"out of memory ({str(e).splitlines()[0][:160]})"
             if i == len(attempts) - 1:
-                log(f"# batch {bs}: {outcome}")
+                log(f"# batch {bs}: {outcome}; chunks {args.chunks or chunks or 1}")
                 raise
         peak = (f"{torch.cuda.max_memory_allocated(device)} bytes"
                 if device.type == "cuda" else "not measured (no card)")
-        log(f"# batch {bs}: {outcome}; max_memory_allocated {peak}")
+        log(f"# batch {bs}: {outcome}; chunks {args.chunks or chunks or 1}; "
+            f"max_memory_allocated {peak}")
         if runner is not None:
             break
         # the failed attempt's model, inputs and outputs died with its
@@ -548,7 +556,7 @@ def run(args, rig, device) -> dict:
     scenes_per_sec = bs / t
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     log(f"# batch={bs} p50={t / bs * 1e3:.2f} ms/scene over {args.iters} iters "
-        f"(dtype={args.dtype}, device={kind})")
+        f"(dtype={args.dtype}, device={kind}, chunks={args.chunks or chunks or 1})")
     tflops_s = flops / t / 1e12
     peak = PEAK_BF16_TFLOPS.get(kind)
     log(f"# {flops / 1e9:.1f} GFLOP/call -> {tflops_s:.2f} TFLOP/s"

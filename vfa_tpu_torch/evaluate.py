@@ -106,10 +106,6 @@ def main(argv=None, rig=None) -> dict:
     from vfa_tpu_torch.rig_cli import RIG_CACHE_DIR, build_cli_rig
     from vfa_tpu_torch.train_lib import batch_to_device
 
-    if args.no_rig and args.dtype == "bfloat16":
-        raise NotImplementedError(
-            "--no_rig --dtype bfloat16 is not ported yet (ROADMAP.md Queue 1 "
-            "item 17, the voxel route in bf16)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available")

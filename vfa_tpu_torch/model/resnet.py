@@ -13,8 +13,31 @@ from typing import Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.nn.utils.stateless import _reparametrize_module
+from torch.utils.checkpoint import checkpoint
 
 GN_EPS = 1e-5
+
+
+def remat(module: nn.Module, fn, *args):
+    """fn(*args) with its activations recomputed in the backward instead
+    of kept (non-reentrant `torch.utils.checkpoint`, as flax's `nn.remat`
+    and `jax.checkpoint`); `fn` reads its parameters from `module`. The
+    recompute runs on the parameters the forward saw: under
+    `torch.func.functional_call` (mixed precision casts the fp32 masters at
+    use, `train_lib._forward`) those are the call's bf16 tensors, which
+    `module` no longer holds when the backward runs. Without autograd it
+    is fn(*args)."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    params = dict(module.named_parameters())
+    return checkpoint(_on_params, module, params, fn, *args, use_reentrant=False)
+
+
+def _on_params(module, params, fn, *args):
+    # the context torch.func.functional_call runs a module's forward in
+    with _reparametrize_module(module, params):
+        return fn(*args)
 
 
 def group_norm(channels: int) -> nn.GroupNorm:
@@ -51,12 +74,19 @@ class ResNetGN(nn.Module):
     `ops.stem.gn_relu_pool` (same forward, the hand-written backward that
     keeps only conv1's output); the parameters stay under `bn1`, so the
     state dict is the same. VFA_FUSED_STEM=1/0 overrides the attribute, as
-    in the JAX package."""
+    in the JAX package. The memory options of `vfa_tpu/model/resnet.py:
+    84-145` recompute in the backward (`remat`) what they do not keep:
+    `remat` each BasicBlock, `stem_remat` conv1 + GN + ReLU + pool (with
+    the fused stem, conv1 + `gn_relu_pool`, whose backward kernels still
+    run once). Neither changes the parameters or what is computed."""
 
     def __init__(self, layers: Sequence[int] = (2, 2, 2, 2),
-                 fused_stem: bool = False):
+                 fused_stem: bool = False, remat: bool = False,
+                 stem_remat: bool = False):
         super().__init__()
         self.fused_stem = fused_stem
+        self.remat = remat
+        self.stem_remat = stem_remat
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = group_norm(64)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
@@ -76,17 +106,20 @@ class ResNetGN(nn.Module):
         env = os.environ.get("VFA_FUSED_STEM")
         return env != "0" if env is not None else self.fused_stem
 
-    def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv1(x)
         if self.fused_stem_on():
             from vfa_tpu_torch.ops.stem import gn_relu_pool
 
-            x = gn_relu_pool(x, self.bn1.weight, self.bn1.bias,
-                             self.bn1.num_groups, self.bn1.eps)
-        else:
-            x = self.maxpool(torch.relu(self.bn1(x)))
-        x = self.layer1(x)
-        f8 = self.layer2(x)
-        f16 = self.layer3(f8)
-        f32 = self.layer4(f16)
-        return f8, f16, f32
+            return gn_relu_pool(x, self.bn1.weight, self.bn1.bias,
+                                self.bn1.num_groups, self.bn1.eps)
+        return self.maxpool(torch.relu(self.bn1(x)))
+
+    def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        x = remat(self, self.stem, x) if self.stem_remat else self.stem(x)
+        feats = []
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            for block in layer:
+                x = remat(block, block, x) if self.remat else block(x)
+            feats.append(x)
+        return feats[1], feats[2], feats[3]

@@ -23,10 +23,9 @@ from typing import Dict, List
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from vfa_tpu_torch.config import DatasetConfig
-from vfa_tpu_torch.model.resnet import ResNetGN, group_norm
+from vfa_tpu_torch.model.resnet import ResNetGN, group_norm, remat
 from vfa_tpu_torch.ops.voxel import sample_voxels, voxel_boxes
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -156,10 +155,21 @@ class VFANet(nn.Module):
     (`ops/rig_cuda.py`; the plain versions for CPU tensors), 'plain' through
     the plain PyTorch versions (`ops/rig.py`). The fused stem is switched
     on as in the JAX package: VFA_FUSED_STEM=1, or `ResNetGN(fused_stem=
-    True)` (see `model/resnet.py`)."""
+    True)` (see `model/resnet.py`).
+
+    The memory options of `vfa_tpu/model/vfanet.py:62-72` trade a
+    recompute in the backward for activations not kept; none changes the
+    parameters: `backbone_remat` and `stem_remat` go to `ResNetGN` (its
+    `remat` and `stem_remat`); `backbone_chunks` > 1 runs the ImageNet
+    normalisation, the backbone and the laterals over the B*N images in
+    that many chunks, each recomputed in the backward, so the stem's
+    temporaries peak at one chunk's (`laterals`). The rig kernels run
+    outside every recomputed region."""
 
     def __init__(self, cfg: DatasetConfig, base: str = "resnet18",
-                 angle_range: int = 360, rig_impl: str = "cuda"):
+                 angle_range: int = 360, rig_impl: str = "cuda",
+                 backbone_remat: bool = False, backbone_chunks: int = 1,
+                 stem_remat: bool = False):
         super().__init__()
         if base not in RESNET_LAYERS:
             raise ValueError(
@@ -170,8 +180,10 @@ class VFANet(nn.Module):
             raise ValueError(f"rig_impl must be 'cuda' or 'plain', got {rig_impl}")
         self.cfg = cfg
         self.rig_impl = rig_impl
+        self.backbone_chunks = backbone_chunks
         nl = cfg.num_layers
-        self.base = ResNetGN(RESNET_LAYERS[base])
+        self.base = ResNetGN(RESNET_LAYERS[base], remat=backbone_remat,
+                             stem_remat=stem_remat)
         self.lat8 = Conv2d(128, 256, 1)
         self.lat16 = Conv2d(256, 256, 1)
         self.lat32 = Conv2d(512, 256, 1)
@@ -219,13 +231,27 @@ class VFANet(nn.Module):
 
     def laterals(self, images: torch.Tensor) -> List[torch.Tensor]:
         """images (B, N, H, W, 3) in [0, 1] -> the three lateral maps
-        relu(GN(1x1 conv)) of the pyramid, each (B*N, 256, fh, fw)."""
+        relu(GN(1x1 conv)) of the pyramid, each (B*N, 256, fh, fw). With
+        `backbone_chunks` > 1 the B*N images go through `trunk` in that
+        many chunks, each recomputed in the backward (`remat`), and the
+        maps are concatenated; as in JAX (`vfa_tpu/model/vfanet.py:164`),
+        only when the chunk count divides B*N, else in one pass."""
         B, N = images.shape[:2]
+        x = images.reshape(B * N, *images.shape[2:])
+        chunks = self.backbone_chunks
+        if chunks <= 1 or x.shape[0] % chunks:
+            return self.trunk(x)
+        parts = [remat(self, self.trunk, xc) for xc in x.chunk(chunks)]
+        return [torch.cat(maps) for maps in zip(*parts)]
+
+    def trunk(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """images (M, H, W, 3) in [0, 1] -> the three lateral maps, each
+        (M, 256, fh, fw): the ImageNet normalisation, the backbone, the
+        laterals."""
         # the constants in the image dtype, as JAX makes them
         # (`vfa_tpu/model/vfanet.py:151-152`)
-        mean, std = (t.to(images.dtype) for t in (self.img_mean, self.img_std))
-        x = (images.reshape(B * N, *images.shape[2:]) - mean) / std
-        feats = self.base(x.permute(0, 3, 1, 2))
+        mean, std = (t.to(x.dtype) for t in (self.img_mean, self.img_std))
+        feats = self.base(((x - mean) / std).permute(0, 3, 1, 2))
         return [torch.relu(bn(lat(f))) for f, lat, bn in zip(
             feats, (self.lat8, self.lat16, self.lat32),
             (self.bn8, self.bn16, self.bn32))]
@@ -295,8 +321,8 @@ class VFANet(nn.Module):
         """The reference route (`vfa_tpu/model/vfanet.py:255-300`): the
         fp32 sum over cameras, taken one at a time as JAX's default
         camera_reduce='scan' does, of `one_camera`. Under autograd each
-        camera is recomputed in the backward (torch.utils.checkpoint, as
-        jax.checkpoint there), so memory stays constant in N."""
+        camera is recomputed in the backward (`remat`, as jax.checkpoint
+        there), so memory stays constant in N."""
         B, N = calibs.shape[:2]
         L, W = grid.shape[:2]
         cfg = self.cfg
@@ -306,12 +332,7 @@ class VFANet(nn.Module):
                                 grid_height=cfg.grid_h, cube_size=cfg.cube_size,
                                 image_size=cfg.image_size)       # (B, nl, L, W, 4)
             lat_n = [lat.reshape(B, N, *lat.shape[1:])[:, n] for lat in lats]
-            if torch.is_grad_enabled():
-                contrib = checkpoint(self.one_camera, boxes, *lat_n,
-                                     use_reentrant=False)
-            else:
-                contrib = self.one_camera(boxes, *lat_n)
-            ortho = ortho + contrib
+            ortho = ortho + remat(self, self.one_camera, boxes, *lat_n)
         return ortho
 
     def one_camera(self, boxes: torch.Tensor, *lats: torch.Tensor) -> torch.Tensor:
@@ -351,9 +372,13 @@ def voxel_contribution(lat: torch.Tensor, boxes: torch.Tensor,
                        collapse: nn.Linear) -> torch.Tensor:
     """relu(collapse(sample_voxels(lat, boxes))) in fp32: one scale's BEV
     contribution of one camera, lat (*lead, C, fh, fw) -> (*lead, L, W,
-    n_out)."""
+    n_out). vox is fp32 on bf16 features too (`sample_voxels`), and a bf16
+    weight and bias are widened to it exactly, as JAX promotes
+    `jnp.dot(vox, kernel, preferred_element_type=f32) + bias`
+    (`vfa_tpu/model/vfanet.py:272-274`)."""
     vox = sample_voxels(lat, boxes)
-    return torch.relu(F.linear(vox, collapse.weight, collapse.bias)).float()
+    weight, bias = (t.to(vox.dtype) for t in (collapse.weight, collapse.bias))
+    return torch.relu(F.linear(vox, weight, bias)).float()
 
 
 def cast_model(model: nn.Module, dtype) -> nn.Module:

@@ -314,8 +314,10 @@ class GnReluPool(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        dx, dscale, dbias = gn_relu_pool_bwd(*ctx.saved_tensors[:3], dy,
-                                             *ctx.saved_tensors[3:])
+        # read once: under torch.utils.checkpoint (stem_remat) each saved
+        # tensor is recomputed and may be unpacked only once
+        x, scale, bias, mu, rstd = ctx.saved_tensors
+        dx, dscale, dbias = gn_relu_pool_bwd(x, scale, bias, dy, mu, rstd)
         return dx, dscale, dbias, None, None
 
 

@@ -14,6 +14,8 @@ route) and is the rig's reference.
 The torch functions take optional leading batch dims where the JAX ones
 are vmapped over cameras: `voxel_boxes` on calibs (*lead, 3, 4),
 `sample_voxels` on features (*lead, C, fh, fw) with boxes (*lead, ...).
+On bf16 features the integral image is JAX's, bit for bit: XLA's blocked
+cumsum (`blocked_cumsum`), not `torch.cumsum`, which rounds elsewhere.
 No hand kernel: the JAX module has no Pallas call.
 """
 
@@ -23,6 +25,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from vfa_tpu_torch.geometry import grid_sample_bilinear, project, worldgrid_to_worldcoord
 from vfa_tpu_torch.utils import device_constant
@@ -83,8 +87,68 @@ def box_area_visibility(boxes: torch.Tensor, feat_hw) -> Tuple[torch.Tensor, tor
 
 def integral_image(feature: torch.Tensor) -> torch.Tensor:
     """Double cumsum over (W, H) of (..., C, fH, fW)
-    (`vfa/model/vfa_op.py:172-173`)."""
+    (`vfa/model/vfa_op.py:172-173`). On bf16 it is JAX's bf16 cumsum bit
+    for bit (`BlockedIntegralImage`), forward and backward; on fp32 it is
+    `torch.cumsum`."""
+    if feature.dtype == torch.bfloat16:
+        return BlockedIntegralImage.apply(feature)
     return torch.cumsum(torch.cumsum(feature, dim=-1), dim=-2)
+
+
+# JAX lowers `jnp.cumsum` to a reduce-window, which XLA rewrites into a
+# tree of windows of this length (its `ReduceWindowRewriter`; the CPU
+# compiler's optimised HLO of a 640-long bf16 cumsum holds f32[..., 40, 16]
+# windows), rounding every add to bf16.
+SCAN_BLOCK = 16
+
+
+def blocked_cumsum(x: torch.Tensor, dim: int, reverse: bool = False) -> torch.Tensor:
+    """XLA's bf16 cumsum along `dim`, bit for bit: the axis padded with
+    zeros to blocks of SCAN_BLOCK; inside a block a sequential scan from
+    the block's start, each add rounded to x's dtype; the block totals
+    scanned the same way (recursively) and each block's exclusive prefix
+    added to it once. `reverse` is the suffix sum, JAX's transpose of
+    cumsum (its backward): inside a block output i is x_i + x_i+1 + ... in
+    that order, each add rounded (not the forward scan of the flipped
+    block), the totals the first column, the exclusive suffix added once.
+    Every op is one bf16 add of two tensors, which rounds the exact sum
+    once, on the CPU and on a card alike."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    nb = -(-n // SCAN_BLOCK)
+    x = F.pad(x, (0, nb * SCAN_BLOCK - n)).reshape(*x.shape[:-1], nb, SCAN_BLOCK)
+    out = x.clone()
+    if reverse:
+        for k in range(1, SCAN_BLOCK):
+            out[..., :SCAN_BLOCK - k] += x[..., k:]
+    else:
+        for k in range(1, SCAN_BLOCK):
+            out[..., k] += out[..., k - 1]
+    if nb > 1:
+        totals = blocked_cumsum(out[..., 0 if reverse else -1], -1, reverse)
+        carry = torch.zeros_like(totals)
+        if reverse:
+            carry[..., :-1] = totals[..., 1:]
+        else:
+            carry[..., 1:] = totals[..., :-1]
+        out += carry[..., None]
+    return out.reshape(*out.shape[:-2], nb * SCAN_BLOCK)[..., :n].movedim(-1, dim)
+
+
+class BlockedIntegralImage(torch.autograd.Function):
+    """The bf16 integral image as JAX computes it (`vfa_tpu/ops/voxel.py:
+    107-109` on bf16 features): `blocked_cumsum` over -1 then -2; the
+    backward is JAX's transpose, the reverse scans over -2 then -1."""
+
+    @staticmethod
+    def forward(ctx, feature):
+        return blocked_cumsum(blocked_cumsum(feature, -1), -2)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        return blocked_cumsum(blocked_cumsum(grad, -2, reverse=True), -1,
+                              reverse=True)
 
 
 def sample_voxels(feature: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
@@ -93,7 +157,9 @@ def sample_voxels(feature: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     feature (*lead, C, fH, fW); boxes (*lead, nl, L, W, 4) from
     `voxel_boxes`. Returns (*lead, L, W, C*nl), channel-major then layer
     (the reference's flatten order, `vfa/model/vfa_op.py:120`), so the
-    collapse Linear maps 1:1 from the reference checkpoint."""
+    collapse Linear maps 1:1 from the reference checkpoint. On bf16
+    features vox is fp32, as in JAX: the bf16 taps of the integral image
+    meet fp32 bilinear weights."""
     C = feature.shape[-3]
     nl, L, W = boxes.shape[-4:-1]
     lead = feature.shape[:-3]

@@ -112,10 +112,6 @@ def main(argv=None, rig=None) -> dict:
     already built CameraRig for this configuration (built here when
     None)."""
     args = parse_args(argv)
-    if args.no_rig and args.dtype == "bfloat16":
-        raise NotImplementedError(
-            "--no_rig --dtype bfloat16 is not ported yet (ROADMAP.md Queue 1 "
-            "item 17, the voxel route in bf16)")
     if args.synthetic:
         return _synthetic(args, rig)
     return _on_disk(args, rig)

@@ -144,15 +144,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    """Every flag whose path is not ported yet raises, naming its ROADMAP
-    item; nothing is silently skipped."""
-    if args.dtype == "bfloat16" and args.no_rig:
-        raise NotImplementedError(
-            "--no_rig --dtype bfloat16 (the reference voxel route in bf16) is "
-            "not ported yet (ROADMAP.md Queue 1 item 17)")
-
-
 def build_config(args):
     """(DatasetConfig, TrainConfig) of the arguments, as the root
     `train.py:114-135` builds them: the geometry overrides and
@@ -300,7 +291,6 @@ def main(argv=None, rig=None) -> dict:
     validation losses, the step times and learning rates, the model, the
     rig and the run directory."""
     args = parse_args(argv)
-    _refuse_unported(args)
     from vfa_tpu_torch import observability
     from vfa_tpu_torch.checkpoint import (
         latest_checkpoint, load_state, restore_checkpoint, save_checkpoint,

@@ -199,15 +199,10 @@ def _compute_dtype(name: str) -> torch.dtype:
 def _forward(model: nn.Module, dtype: torch.dtype, batch, rig):
     """The model on the batch, its parameters and images cast to `dtype`
     at use (a no-op cast in fp32); the cast is differentiable, so the fp32
-    masters receive the gradients. The voxel route (rig=None) takes fp32
-    only."""
+    masters receive the gradients."""
     args = (batch["images"].to(dtype), rig, batch.get("calibs"), batch.get("grid"))
     if dtype == torch.float32:
         return model(*args)
-    if rig is None:
-        raise NotImplementedError(
-            "the reference voxel route (rig=None) in bfloat16 is not ported "
-            "yet (ROADMAP.md Queue 1 item 17)")
     params = {name: p.to(dtype) for name, p in model.named_parameters()}
     return torch.func.functional_call(model, params, args)
 
