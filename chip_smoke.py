@@ -7,7 +7,8 @@ result line):
   1. build every hand-written kernel from csrc/ with nvcc (one process per
      source, all started together) and print ptxas' registers and spills
      per kernel (fails if a tensor-core pass, `rig_*_mma` or a pass
-     `rig_ws*` of csrc/rig_ws.cuh, or a stem kernel `stem_bwd_*` spills);
+     `rig_ws*` of csrc/rig_ws.cuh, a stem kernel `stem_bwd_*` or
+     `voxel_tap_bwd_kernel` spills);
   2. hold each kernel against its plain PyTorch version at B = 1 and B = 2
      on the full MultiviewC fp32 rigs (7 x 720x1280 cameras, 156x156 BEV,
      nl 5), all 3 scales, every bucket (the forwards bucket by bucket): the
@@ -126,8 +127,16 @@ result line):
      `cast_model` (no rig kernel), the integral image and `sample_voxels`
      of camera 0 at scale 0 on the card bit-equal to the CPU's on the same
      laterals, the summed BEV features against the fp32 and fp64 voxel
-     routes on the same laterals and weights (F7, printed), one
-     mixed-precision step with rig=None at batch 1; a mixed-precision step
+     routes on the same laterals and weights (F7, printed); the ordered
+     transpose of the corner reads (`voxel_tap_bwd`, fp32 and bf16,
+     csrc/voxel_tap_bwd.cu) on camera 0 at scale 0 against its plain
+     version bit for bit and twice, timed beside its bound, its plain
+     version and one `scatter_add_` of the same updates, and the card's
+     `sample_voxels` gradient against the CPU's bit for bit; the voxel-route
+     step at batch 1 in bf16 and in fp32 (cuDNN deterministic), each run
+     twice from the same weights (losses and gradients the same bits; 21
+     launches of the transpose a step, nothing else); one mixed-precision
+     step with rig=None at batch 1 (the bench's runner); a mixed-precision step
      at batch 8 through the bf16 window rig with the fused stem under each
      memory option (none, backbone_remat, stem_remat, backbone_chunks=2,
      all three): peak memory, step p50 of 3, the launches of K1-bf16,
@@ -226,7 +235,7 @@ RUNS_DIR = None
 def counters():
     """name -> wrapper of every kernel of the port; each wrapper counts its
     launches in `.launches`."""
-    from vfa_tpu_torch.ops import rig_cuda, stem
+    from vfa_tpu_torch.ops import rig_cuda, stem, voxel
 
     return {"rig_window_fwd": rig_cuda.rig_window_fwd,
             "rig_window_bwd": rig_cuda.rig_window_bwd,
@@ -239,7 +248,9 @@ def counters():
             "rig_window_bwd_bf16": rig_cuda.rig_window_bwd_bf16,
             "rig_flat_bwd_bf16": rig_cuda.rig_flat_bwd_bf16,
             "stem_bwd_stats_bf16": stem.stem_bwd_stats_bf16,
-            "stem_bwd_dx_bf16": stem.stem_bwd_dx_bf16}
+            "stem_bwd_dx_bf16": stem.stem_bwd_dx_bf16,
+            "voxel_tap_bwd": voxel.voxel_tap_bwd,
+            "voxel_tap_bwd_bf16": voxel.voxel_tap_bwd_bf16}
 
 
 def reset_launches() -> None:
@@ -275,7 +286,7 @@ def ptxas_kernels(text: str):
     for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
-            short = re.search(r"\d((?:rig|stem)_[a-z0-9_]+)", m.group(1))
+            short = re.search(r"\d((?:rig|stem|voxel)_[a-z0-9_]+)", m.group(1))
             name = short.group(1) if short else m.group(1)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -299,7 +310,7 @@ def phase_build():
         for kernel, regs, spill in ptxas_kernels(LIBRARY.ptxas_log.get(name, "")):
             log(f"  ptxas[{name}]: {kernel}: {regs} registers, {spill} bytes "
                 "spilled")
-            if spill and re.match(r"rig_(\w+_mma|ws\w+)|stem_bwd_", kernel):
+            if spill and re.match(r"rig_(\w+_mma|ws\w+)|stem_bwd_|voxel_tap_bwd", kernel):
                 raise AssertionError(f"{kernel} spills {spill} bytes")
     log(f"phase 1 build: {names} in {time.perf_counter() - t0:.1f} s")
 
@@ -2081,6 +2092,175 @@ def errors(got, want) -> tuple:
             float(torch.linalg.vector_norm(d) / torch.linalg.vector_norm(ref)))
 
 
+VOXEL_TAP_REPS = 5
+VOXEL_TAP = {torch.float32: "voxel_tap_bwd", torch.bfloat16: "voxel_tap_bwd_bf16"}
+
+
+def voxel_tap_work(order, shape, dtype) -> tuple:
+    """(bytes, operations) of the ordered transpose of one sample_voxels
+    call: the stacked corner cotangents (4 B P, C) fp32 and the order index
+    read once, the integral image's cotangent written once; a product and
+    an add an update and channel, the chain's 15 joins a pixel and channel."""
+    B, C, H, W = shape
+    entries = order.rows.numel()
+    nbytes = (entries // 4 * C * 4 + order.ptr.numel() * 4 + entries * 8
+              + B * C * H * W * torch.finfo(dtype).bits // 8)
+    return nbytes, 2 * entries * C + 15 * B * H * W * C
+
+
+def scatter_add_ms(g, order, shape, dtype) -> float:
+    """One `scatter_add_` of the same updates (the 16 taps' rnd(g * w), in
+    `dtype`) into the integral image's cotangent (B = 1), laid out as
+    torch.gather's backward lays it out: what the port ran before, the sums
+    in another order, with atomics."""
+    B, C, H, W = shape
+    counts = order.ptr[1:] - order.ptr[:-1]
+    key = torch.repeat_interleave(torch.arange(counts.numel(), device=g.device), counts,
+                                  output_size=order.rows.numel())
+    src = (g[order.rows.long()] * order.w[:, None]).to(dtype).t().contiguous()[None]
+    index = (key % (H * W))[None, None].expand(1, C, -1)
+    target = torch.zeros((1, C, H * W), dtype=dtype, device=g.device)
+    ms = cuda_time_ms(lambda: target.zero_().scatter_add_(-1, index, src), 3)
+    del src, index
+    return ms
+
+
+def phase_voxel_tap(lat, box, device) -> dict:
+    """Phase 5f: csrc/voxel_tap_bwd.cu at full MultiviewC width, camera 0 at
+    scale 0 (laterals (1, 256, 90, 160), boxes (1, 5, 156, 156, 4)). For
+    fp32 and bf16, on seeded corner cotangents: the kernel against its
+    plain version on the card (`corner_taps_bwd`, XLA's order) bit for bit,
+    and the same bits on a second launch; its time, the plain version's,
+    the order index's build (`tap_order`), one `scatter_add_` of the same
+    updates (library_ms) and the bound. Then the gradient of
+    `sample_voxels` w.r.t. the laterals on the card against the CPU's (the
+    same laterals, boxes and cotangent; the plain version there), bit for
+    bit. Launches made here are not the main path's."""
+    from vfa_tpu_torch.ops.voxel import (corner_taps_bwd, sample_voxels, tap_order,
+                                         voxel_tap_bwd)
+
+    B, C, H, W = lat.shape
+    shape = (B, C, H, W)
+    order = tap_order(box, (H, W))
+    index_ms = cuda_time_ms(lambda: tap_order(box, (H, W)), 3) if device.type == "cuda" else 0.0
+    most = int((order.ptr[1:] - order.ptr[:-1]).max())
+    gen = torch.Generator().manual_seed(5)
+    g = torch.randn((order.rows.numel() // 4, C), generator=gen).to(device)
+    out = {}
+    for dtype, name in VOXEL_TAP.items():
+        got = voxel_tap_bwd(g, order, shape, dtype)
+        again = voxel_tap_bwd(g, order, shape, dtype)
+        want = corner_taps_bwd(g, order, shape, dtype)
+        sync(device)
+        e = errors(got.float(), want.float())
+        if not (torch.equal(got, want) and torch.equal(again, got)):
+            raise AssertionError(f"5f {name}: the kernel differs from its plain version "
+                                 f"({e}) or from its own second launch")
+        nbytes, flops = voxel_tap_work(order, shape, dtype)
+        b_ms, by = bound_ms(flops, nbytes, PEAK_FP32_FLOPS)
+        if device.type == "cuda":
+            ms = cuda_time_ms(lambda: voxel_tap_bwd(g, order, shape, dtype), VOXEL_TAP_REPS)
+            plain_ms = cuda_time_ms(lambda: corner_taps_bwd(g, order, shape, dtype), 1, 0)
+            library_ms = scatter_add_ms(g, order, shape, dtype)
+        else:
+            ms = plain_ms = library_ms = 0.0
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                     "library_ms": library_ms, "err": e[:2], "bytes": nbytes,
+                     "flops": flops}
+        log(f"phase 5f {name} (camera 0, scale 0, {tuple(shape)} under "
+            f"{tuple(box.shape)} boxes, {order.rows.numel()} updates, up to {most} a "
+            f"pixel from one tap): equals its plain version bit for bit, twice; "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms by {by} "
+            f"({nbytes} bytes, {b_ms / ms if ms else 0:.1%} of the bound), one "
+            f"scatter_add_ of the same updates {library_ms:.3f} ms; order index "
+            f"{index_ms:.3f} ms")
+    del g
+    nl, L, Wd = box.shape[1:4]
+    dv = torch.randn((B, L, Wd, C * nl), generator=gen)
+    card = {}
+    for dtype, name in VOXEL_TAP.items():
+        x = lat.detach().to(dtype)
+        leaves = [x.clone().requires_grad_(), x.cpu().requires_grad_()]
+        dx = [torch.autograd.grad(sample_voxels(t, box.to(t.device)), t,
+                                  dv.to(t.device))[0] for t in leaves]
+        card[name] = torch.equal(dx[0].cpu(), dx[1])
+        log(f"phase 5f {name}: the gradient of sample_voxels w.r.t. the {dtype} "
+            f"laterals on the card {'equals' if card[name] else 'DIFFERS FROM'} the "
+            f"CPU's bit for bit ({errors(dx[0].cpu().float(), dx[1].float())[2]:.3e} "
+            "rel-L2)")
+    if not all(card.values()):
+        raise AssertionError(f"5f: the card's voxel-route gradient differs from the CPU's {card}")
+    for name in out:
+        out[name]["index_ms"] = index_ms
+    return out
+
+
+def _voxel_steps(cfg, device, dtype, batch, want):
+    """`voxel_step_twice`'s two runs: (losses, gradients, launches, ms) each."""
+    from vfa_tpu_torch import bench
+    from vfa_tpu_torch.config import TrainConfig
+    from vfa_tpu_torch.model.vfanet import VFANet, init_weights
+    from vfa_tpu_torch.train_lib import make_optimizer, make_train_step
+
+    runs = []
+    for _ in range(2):
+        model = init_weights(VFANet(cfg), torch.Generator().manual_seed(0)).to(device)
+        tcfg = TrainConfig(pretrained=False, compute_dtype=dtype)
+        step = make_train_step(model, make_optimizer(model, tcfg, bench.STEPS_PER_EPOCH),
+                               cfg, tcfg, dim_mean=bench.DIM_MEAN if cfg.mode == "3D" else None)
+        ms = []
+        for i in range(2 if runs else 1):
+            reset_launches()
+            sync(device)
+            t0 = time.perf_counter()
+            losses = step(batch, None)
+            sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches = read_launches()
+            check_bev_launches(f"5f voxel-route step ({dtype})", launches, want)
+            if i == 0:
+                runs.append(({k: float(v) for k, v in losses.items()},
+                             {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                              if p.grad is not None}, launches, ms))
+        del model, step
+    return runs
+
+
+def voxel_step_twice(cfg, device, dtype: str) -> dict:
+    """One training step at batch 1 through the voxel route (rig=None;
+    `--dtype bfloat16`: mixed precision), twice from the same seeded
+    weights and batch: the losses and every gradient the same bits in both
+    runs (the integral image's gradient is added in XLA's order, no
+    atomics). Counts set to 0 just before each step and read just after:
+    the ordered transpose once a camera and scale, nothing else. fp32 runs
+    with `torch.backends.cudnn.deterministic`. The second run's step and a
+    third step after it are timed (host clock, synced)."""
+    from vfa_tpu_torch import bench
+
+    batch = bench.make_inputs(cfg, 1, device, True, getattr(torch, dtype))
+    name = VOXEL_TAP[getattr(torch, dtype)]
+    want = {name: cfg.num_cam * 3} if device.type == "cuda" else {}
+    # fp32: cuDNN's default convolution backward algorithms add with atomics
+    # (83 of 98 gradients differ run to run without this flag; bf16 gets
+    # deterministic ones; tools/voxel_step_twice.py)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = dtype == "float32"
+    try:
+        runs = _voxel_steps(cfg, device, dtype, batch, want)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (l0, g0, launches, _), (l1, g1, _, ms) = runs
+    same = l0 == l1 and set(g0) == set(g1) and all(torch.equal(g0[k], g1[k]) for k in g0)
+    finite = all(np.isfinite(v) for v in l0.values())
+    log(f"phase 5f voxel-route training step at batch 1 ({dtype}), twice from the same "
+        f"weights and batch: losses {l0}; losses and {len(g0)} gradients "
+        f"{'the same bits' if same else 'DIFFERENT'} in both runs; launches {launches}; "
+        f"{ms[0]:.1f} ms, then {ms[1]:.1f} ms")
+    if not (same and finite):
+        raise AssertionError(f"5f voxel-route step ({dtype}): same bits {same}, losses {l0}, {l1}")
+    return {"launches": launches[name], "ms": ms, "losses": l0}
+
+
 def phase_voxel_bf16(device, tiny=False) -> dict:
     """Phase 5f (a): the reference voxel route (rig=None) in bf16 at full
     MultiviewC width, one scene. A serving forward after `cast_model`
@@ -2089,8 +2269,13 @@ def phase_voxel_bf16(device, tiny=False) -> dict:
     CPU for the same bf16 laterals and boxes; the summed BEV features
     (fp32 sums before the cast) against the fp32 and the fp64 voxel routes
     on the same laterals and weights, the bf16 sum equal to the model's
-    own (F7, ROADMAP Queue 3); one mixed-precision training step at batch
-    1 with rig=None (the bench's runner): finite losses, ms, peak memory."""
+    own (F7, ROADMAP Queue 3); the ordered transpose of the corner reads
+    on camera 0 at scale 0 (`phase_voxel_tap`: the kernel against its plain
+    version, the card's gradient against the CPU's); the voxel-route step
+    at batch 1 in bf16 and in fp32, each run twice (`voxel_step_twice`: the
+    same bits, the kernel once a camera and scale); one mixed-precision
+    training step at batch 1 with rig=None (the bench's runner): finite
+    losses, ms, peak memory."""
     import torch.nn.functional as F
 
     from vfa_tpu_torch import bench
@@ -2161,6 +2346,13 @@ def phase_voxel_bf16(device, tiny=False) -> dict:
         log(f"  F7 summed BEV features, {tag} voxel route (same bf16 laterals and "
             f"weights, 1 scene): max abs err {f7[tag][0]:.4e}, max rel err "
             f"{f7[tag][1]:.4e}, rel-L2 {f7[tag][2]:.4e}")
+    # the ordered transpose of the corner reads (csrc/voxel_tap_bwd.cu) on
+    # camera 0 at scale 0, then the voxel-route step run twice
+    taps = phase_voxel_tap(lats[0][0:1], boxes[0], device)
+    del lats, boxes, model_bev, sums, pred, model
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    twice = {d: voxel_step_twice(cfg, device, d) for d in ("bfloat16", "float32")}
     # one mixed-precision training step with rig=None, the bench's runner
     args = bench.parse_args(["--train", "--dtype", "bfloat16", "--no-rig", "--batch", "1"])
     held = 0
@@ -2185,7 +2377,8 @@ def phase_voxel_bf16(device, tiny=False) -> dict:
         "what was held before)")
     if not all(np.isfinite(v) for v in losses.values()):
         raise AssertionError(f"5f voxel-route training step: losses {losses}")
-    return {"f7": f7, "serve_ms": serve_ms, "train_ms": ms[1], "train_peak": peak - held}
+    return {"f7": f7, "serve_ms": serve_ms, "train_ms": ms[1], "train_peak": peak - held,
+            "taps": taps, "twice": twice}
 
 
 def phase_memory_options(rig, device, tiny=False) -> dict:
@@ -2691,6 +2884,15 @@ def run_phases(device, t_start, builds, rig_cache, disk) -> int:
         f"{voxel16['train_peak']} bytes above what was held before; bench --no-rig bf16 "
         f"serving at batch 1 "
         f"{bench5f['no_rig']['value']} scenes/s")
+    for name, r in voxel16["taps"].items():
+        log(f"5f {name} (camera 0, scale 0, batch 1): {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms by {r['bound_by']} "
+            f"({r['bound_ms'] / r['ms']:.1%} of the bound), scatter_add_ "
+            f"{r['library_ms']:.3f} ms, order index {r['index_ms']:.3f} ms")
+    for dtype, r in voxel16["twice"].items():
+        log(f"5f voxel-route training step at batch 1 ({dtype}): {r['ms'][0]:.1f} ms, "
+            f"{r['ms'][1]:.1f} ms; the same bits twice; {r['launches']} launches of the "
+            "ordered transpose a step")
     log(f"5f bench --train --dtype bfloat16 --grid2x (backbone remat forced on): batch "
         f"{bench5f['batch']}, chunks {bench5f['chunks']}, {bench5f['grid2x']['value']} "
         f"scenes/s; attempts {bench5f['attempts']} ({bench5f['held']} bytes held before "
@@ -2712,6 +2914,21 @@ def run_phases(device, t_start, builds, rig_cache, disk) -> int:
                 "launches": launches, "max_abs_err": err[name][0],
                 "max_rel_err": err[name][1], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": by, "library_ms": None, **extra}
+
+    def voxel_entry(name, dtype):
+        """The ordered transpose of the voxel route's corner reads (5f):
+        launches a training step at batch 1, camera 0 at scale 0 timed."""
+        r = voxel16["taps"][name]
+        return {"name": name, "route": "cuda",
+                "source": "vfa_tpu_torch/csrc/voxel_tap_bwd.cu",
+                "replaces": "vfa_tpu/geometry.py:117 (XLA scatter-add, the transpose "
+                            "of jnp.take; not a Pallas kernel)",
+                "launches": voxel16["twice"][dtype]["launches"],
+                "max_abs_err": r["err"][0], "max_rel_err": r["err"][1], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "dtype": dtype, "index_ms": r["index_ms"], "same_bits_twice": True,
+                "card_equals_cpu": True}
 
     print(json.dumps({"kernels": [
         entry("rig_window_fwd", "rig_window_fwd", "vfa_tpu/ops/rig_pallas.py:89",
@@ -2773,6 +2990,8 @@ def run_phases(device, t_start, builds, rig_cache, disk) -> int:
         entry("stem_bwd_dx_bf16", "stem_bwd", "vfa_tpu/ops/stem.py:253",
               flat16_train_launches["stem_bwd_dx_bf16"], dtype="bfloat16",
               launches_memory_options=mem_launches("stem_bwd_dx_bf16")),
+        *(voxel_entry(name, dtype) for name, dtype in (("voxel_tap_bwd", "float32"),
+                                                        ("voxel_tap_bwd_bf16", "bfloat16"))),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

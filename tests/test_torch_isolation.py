@@ -78,6 +78,11 @@ out = train.main(["--data", "MultiviewC", "--synthetic", "--tiny", "-e", "1",
                   "--vis_iter", "0", "--device", "cpu", "--rig_layout", "flat", "--dtype", "bfloat16"])
 assert all(np.isfinite(d["loss"]) for d in out["losses"])
 assert rig_flat_bwd_bf16.launches == 0 and stem.stem_bwd_dx_bf16.launches == 0
+out = train.main(["--data", "MultiviewC", "--synthetic", "--tiny", "-e", "1",
+                  "--synthetic_frames", "1", "--pretrained", "0", "--no_augment",
+                  "--vis_iter", "0", "--device", "cpu", "--no_rig", "--dtype", "bfloat16"])
+assert all(np.isfinite(d["loss"]) for d in out["losses"])
+assert voxel.voxel_tap_bwd.launches == 0 and voxel.voxel_tap_bwd_bf16.launches == 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "vfa_tpu")
        and sys.modules[m] is not None]
 assert not bad, bad

@@ -1226,7 +1226,7 @@ def test_unified_slab_bucket_bf16_kernels_match_plain(cuda, B):
 @pytest.mark.parametrize("shape", [(1, 256, 90, 160), (7, 256, 23, 40), (2, 45, 640)], ids=str)
 def test_bf16_integral_image_on_the_card_equals_the_cpu(cuda, shape):
     """The voxel route's bf16 integral image (`ops/voxel.py::
-    BlockedIntegralImage`, JAX's blocked bf16 cumsum) and its backward on
+    IntegralImage`, JAX's blocked bf16 cumsum) and its backward on
     the card bit for bit as on the CPU, which tests/test_torch_voxel_bf16.py
     holds to JAX: every op is one bf16 add of two tensors, rounded once on
     both devices. Full MultiviewC lateral shapes (scale 8 of one camera,
@@ -1249,3 +1249,66 @@ def test_bf16_integral_image_on_the_card_equals_the_cpu(cuda, shape):
         with torch.no_grad():
             vox = sample_voxels(x.to(cuda), boxes.to(cuda))
             assert torch.equal(vox.cpu(), sample_voxels(x, boxes))
+
+
+def _voxel_tap_inputs(cuda, cfg, C, B, seed, hw=None):
+    """Boxes of camera 0 of `cfg` on the card (B scenes of them), the scale-8
+    (or `hw`) map and stacked corner cotangents g (4 * B * P, C)."""
+    from vfa_tpu_torch.ops.voxel import voxel_boxes
+
+    calib = torch.from_numpy(make_calibrations(cfg)[:1]).to(cuda)
+    grid = torch.from_numpy(make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name)).to(cuda)
+    boxes = voxel_boxes(calib, grid, dataset=cfg.name, grid_height=cfg.grid_h,
+                        cube_size=cfg.cube_size, image_size=cfg.image_size)
+    boxes = boxes.expand(B, *boxes.shape[1:]).clone()
+    H, W = hw or (cfg.resize_size[0] // 8, cfg.resize_size[1] // 8)
+    g = torch.Generator().manual_seed(seed)
+    P = boxes[0, ..., 0].numel()
+    grads = torch.randn((4 * B * P, C), generator=g).to(cuda)
+    return boxes, (H, W), grads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_voxel_tap_bwd_full_multiviewc_matches_plain(cuda, dtype):
+    """csrc/voxel_tap_bwd.cu at full MultiviewC, one camera at scale 8
+    ((256, 90, 160) under (5, 156, 156) boxes, up to 164 updates a pixel
+    from one tap): bit for bit its plain version (`corner_taps_bwd` on the
+    card: XLA's order, one tensor add a step), and the same bits on a
+    second launch."""
+    from vfa_tpu_torch.ops import voxel as tvox
+
+    boxes, (H, W), g = _voxel_tap_inputs(cuda, get_config("MultiviewC"), 256, 1, 0)
+    order = tvox.tap_order(boxes, (H, W))
+    counter = tvox.voxel_tap_bwd_bf16 if dtype == torch.bfloat16 else tvox.voxel_tap_bwd
+    n0 = counter.launches
+    got = tvox.voxel_tap_bwd(g, order, (1, 256, H, W), dtype)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 1 and got.dtype == dtype
+    want = tvox.corner_taps_bwd(g, order, (1, 256, H, W), dtype)
+    assert torch.equal(got, want) and float(want.abs().max()) > 0
+    assert torch.equal(tvox.voxel_tap_bwd(g, order, (1, 256, H, W), dtype), got)
+
+
+@pytest.mark.parametrize("C", [3, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_voxel_tap_bwd_channels_and_scenes(cuda, dtype, C):
+    """Fewer channels than lanes and more than one pass (256 a pass), two
+    scenes, the tiny MultiviewC boxes: the kernel equals its plain version;
+    `sample_voxels`' gradient on the card (one launch) equals the CPU's."""
+    from vfa_tpu_torch.ops import voxel as tvox
+
+    cfg = tiny_config(get_config("MultiviewC"))
+    boxes, (H, W), g = _voxel_tap_inputs(cuda, cfg, C, 2, C)
+    order = tvox.tap_order(boxes, (H, W))
+    got = tvox.voxel_tap_bwd(g, order, (2, C, H, W), dtype)
+    assert torch.equal(got, tvox.corner_taps_bwd(g, order, (2, C, H, W), dtype))
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((2, C, H, W), generator=gen).to(dtype)
+    dv = torch.randn((2, *boxes.shape[2:4], C * boxes.shape[1]), generator=gen)
+    leaves = [x.to(cuda).requires_grad_(), x.clone().requires_grad_()]
+    counter = tvox.voxel_tap_bwd_bf16 if dtype == torch.bfloat16 else tvox.voxel_tap_bwd
+    n0 = counter.launches
+    dx, dx_cpu = (torch.autograd.grad(tvox.sample_voxels(t, boxes.to(t.device)), t,
+                                      dv.to(t.device))[0] for t in leaves)
+    assert counter.launches == n0 + 1
+    assert torch.equal(dx.cpu(), dx_cpu)

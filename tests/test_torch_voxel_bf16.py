@@ -10,9 +10,9 @@ route is held bit for bit where it can be: the port's
 transpose) and `sample_voxels` equal JAX's bits. The whole model then
 differs only where the two frameworks' convolutions and norms round
 differently, and is held at the bf16 bounds of test_torch_bf16.py (serving)
-and test_torch_bf16_train.py (a mixed-precision step): the gradient that
-reaches the bf16 integral image is scattered by four `torch.gather`
-backwards, which add in torch's order, not XLA's.
+and test_torch_bf16_train.py (a mixed-precision step); the gradient that
+reaches the bf16 integral image is added in XLA's order
+(tests/test_torch_voxel_order.py holds the route's backward bit for bit).
 
 F7 (ROADMAP Queue 3) is the reference's own distance between its bf16 and
 fp32 routes, which the port reproduces: `test_f7_bf16_route_is_far_from_fp32`
@@ -151,6 +151,11 @@ def test_f7_bf16_route_is_far_from_fp32():
     assert f7 > 1e-2 and port / np.abs(t32).max() == pytest.approx(f7, rel=1e-3)
 
 
+# all parameters' update, port against JAX, over both sides' bf16 rounding
+# (test_bf16_voxel_route_train_step_matches_jax: measured 0.919)
+STEP_NOISE_RATIO = 1.35
+
+
 def _jax_laterals(mdl, images):
     """JAX's three lateral maps of `images` (B, N, H, W, 3), NHWC, as its
     `bev_features` computes them (`vfa_tpu/model/vfanet.py:145-158`)."""
@@ -230,24 +235,28 @@ def test_bf16_voxel_route_train_step_matches_jax():
     JAX's, at test_torch_bf16_train.py's bounds: losses and eval losses
     LOSS_REL, running statistics STATS_TOL, each parameter after the
     integral image (collapse, fuse block, heads) within PARAM_L2 of JAX's
-    update (measured at most 0.20, fuse.1.bias).
+    update (measured at most 0.180, fuse.0.weight).
 
     Upstream of the integral image the update is F7's (ROADMAP Queue 3):
     the backward's bf16 suffix sums of the corners' gradient cancel, and
     their rounding is a large share of the backbone's gradient on both
-    sides. JAX's own bf16 update is 1.68e-2 from its fp32 update (rel-L2
-    of all parameters, of a 5.3e-2 update), the port's 1.04e-2 from its
-    own (the gradient reaches the bf16 integral image through four
-    `torch.gather` backwards, which add in torch's order, not XLA's), and
-    the two bf16 updates 1.96e-2 apart: independent rounding noise. So
-    the yardstick of NOISE_RATIO is both sides' bf16 rounding, the hypot
-    of the two distances, for all parameters as one vector (measured 0.99
-    of it) and for each backbone and lateral parameter (measured at most
-    1.19, base.layer1.1.bn2.weight; against JAX's own update they reach
-    1.10 of its size, past PARAM_L2). The eval after the step runs that
-    backbone: its losses within LOSS_REL of JAX's plus NOISE_RATIO of both
-    sides' bf16-vs-fp32 eval distance (measured at most 0.58 of the bound,
-    loss_hwl: the port's 1.5 % above its fp32 model's, JAX's 1.5 % below)."""
+    sides. The voxel route's backward is JAX's bit for bit on the same
+    inputs (tests/test_torch_voxel_order.py), but its inputs are not the
+    same: the two frameworks' bf16 convolutions round the laterals and the
+    cotangent that reaches the route elsewhere, and the cancellation
+    amplifies that as before. Measured (tests/voxel_order_report.py
+    --step; rel-L2 of all parameters as one vector): JAX's bf16 update is
+    1.046e-2 from its fp32 update (of a 3.68e-2 update), the port's
+    9.03e-3 from its own, the two bf16 updates 1.270e-2 apart, 0.919 of
+    the hypot of the two distances (1.036 while torch.gather's backward
+    added in torch's order); each backbone and lateral parameter at most
+    0.997 of its own hypot (base.layer3.0.bn1.weight; before 1.147). So
+    the yardstick stays both sides' bf16 rounding: STEP_NOISE_RATIO (1.47x
+    the measured 0.919) for all parameters, NOISE_RATIO for each backbone
+    and lateral one (against JAX's own update they reach 1.06 of its size,
+    past PARAM_L2). The eval after the step runs that backbone: its losses
+    within LOSS_REL of JAX's plus NOISE_RATIO of both sides' bf16-vs-fp32
+    eval distance (measured at most 0.73 of the bound, loss_hwl)."""
     init = lambda m: types.SimpleNamespace(
         init=lambda key, *args, train: port_weights_for_jax(m, *args))
     records, stats, evals = _train_against_jax(1, layout=None, jax_fp32=True,
@@ -265,7 +274,7 @@ def test_bf16_voxel_route_train_step_matches_jax():
                         l2([upd_j[k] - upd_j32[k] for k in keys]))
 
     keys = [k for k in upd_j if k not in ZERO_GRAD]
-    assert l2([upd_t[k] - upd_j[k] for k in keys]) <= NOISE_RATIO * noise(keys)
+    assert l2([upd_t[k] - upd_j[k] for k in keys]) <= STEP_NOISE_RATIO * noise(keys)
     for k in keys:
         if k.split(".")[0] in ("base", "lat8", "lat16", "lat32", "bn8", "bn16", "bn32"):
             assert l2([upd_t[k] - upd_j[k]]) <= NOISE_RATIO * noise([k]), k

@@ -67,6 +67,27 @@ def _unnormalize(coord: torch.Tensor, size: int) -> torch.Tensor:
     return ((coord + 1.0) * size - 1.0) * 0.5
 
 
+def bilinear_taps(coords: torch.Tensor, H: int, W: int):
+    """The four bilinear taps of normalized `coords` (..., 2) in (x, y)
+    order on an (H, W) image, in the order `grid_sample_bilinear` adds
+    them, (x0, y0), (x1, y0), (x0, y1), (x1, y1): per tap the flat pixel
+    index y * W + x (clamped into the image), whether the tap lies inside
+    the image, and its weight, each (...)."""
+    x = _unnormalize(coords[..., 0], W)
+    y = _unnormalize(coords[..., 1], H)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    x1, y1 = x0 + 1.0, y0 + 1.0
+    wx1, wy1 = x - x0, y - y0
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+    out = []
+    for xi, yi, w in ((x0, y0, wx0 * wy0), (x1, y0, wx1 * wy0),
+                      (x0, y1, wx0 * wy1), (x1, y1, wx1 * wy1)):
+        inb = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
+        idx = yi.clamp(0, H - 1).long() * W + xi.clamp(0, W - 1).long()
+        out.append((idx, inb, w))
+    return out
+
+
 def grid_sample_bilinear(image: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Bilinear samples of `image` (*lead, C, H, W) at normalized `coords`
     (*lead, *pts, 2) in (x, y) order, as torch ``F.grid_sample`` with its
@@ -76,25 +97,14 @@ def grid_sample_bilinear(image: torch.Tensor, coords: torch.Tensor) -> torch.Ten
     C, H, W = image.shape[-3:]
     lead = image.shape[:-3]
     pts = coords.shape[len(lead):-1]
-    x = _unnormalize(coords[..., 0], W)
-    y = _unnormalize(coords[..., 1], H)
-    x0, y0 = torch.floor(x), torch.floor(y)
-    x1, y1 = x0 + 1.0, y0 + 1.0
-    wx1, wy1 = x - x0, y - y0
-    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
     flat = image.reshape(*lead, C, H * W)
-
-    def tap(xi, yi):
-        inb = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
-        idx = (yi.clamp(0, H - 1).long() * W + xi.clamp(0, W - 1).long())
+    out = None
+    for idx, inb, w in bilinear_taps(coords, H, W):
         idx = idx.reshape(*lead, 1, -1).expand(*lead, C, -1)
         vals = torch.gather(flat, -1, idx).movedim(-2, -1)     # (*lead, P, C)
-        return vals.reshape(*lead, *pts, C) * inb[..., None].to(image.dtype)
-
-    return (tap(x0, y0) * (wx0 * wy0)[..., None]
-            + tap(x1, y0) * (wx1 * wy0)[..., None]
-            + tap(x0, y1) * (wx0 * wy1)[..., None]
-            + tap(x1, y1) * (wx1 * wy1)[..., None])
+        vals = vals.reshape(*lead, *pts, C) * inb[..., None].to(image.dtype)
+        out = vals * w[..., None] if out is None else out + vals * w[..., None]
+    return out
 
 
 def rodrigues(rvec: np.ndarray) -> np.ndarray:

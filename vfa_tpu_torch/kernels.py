@@ -55,6 +55,11 @@ SIGNATURES = {
         "stem_bwd_stats_bf16": [P] * 5 + [I] * 5 + [P],
         "stem_bwd_dx_bf16": [P] * 4 + [I] * 4 + [P],
     },
+    "voxel_tap_bwd": {
+        # g, the order index (ptr, rows, w), out; B, H * W, C
+        "voxel_tap_bwd_f32": [P] * 5 + [I] * 3 + [P],
+        "voxel_tap_bwd_bf16": [P] * 5 + [I] * 3 + [P],
+    },
 }
 
 
@@ -155,7 +160,7 @@ def launch(name: str, fn: str, device, *args) -> None:
 def launch_counts() -> Dict[str, int]:
     """name -> launches so far in this process, of every kernel variant of
     the port (each wrapper counts where it launches its kernel)."""
-    from vfa_tpu_torch.ops import rig_cuda, stem
+    from vfa_tpu_torch.ops import rig_cuda, stem, voxel
 
     names = ("rig_window_fwd", "rig_window_bwd", "rig_flat_fwd", "rig_flat_bwd",
              "rig_window_fwd_bf16", "rig_flat_fwd_bf16", "rig_window_bwd_bf16",
@@ -163,4 +168,6 @@ def launch_counts() -> Dict[str, int]:
     out = {n: getattr(rig_cuda, n).launches for n in names}
     for n in ("stem_bwd_stats", "stem_bwd_dx", "stem_bwd_stats_bf16", "stem_bwd_dx_bf16"):
         out[n] = getattr(stem, n).launches
+    for n in ("voxel_tap_bwd", "voxel_tap_bwd_bf16"):
+        out[n] = getattr(voxel, n).launches
     return out

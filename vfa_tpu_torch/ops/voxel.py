@@ -16,19 +16,25 @@ are vmapped over cameras: `voxel_boxes` on calibs (*lead, 3, 4),
 `sample_voxels` on features (*lead, C, fh, fw) with boxes (*lead, ...).
 On bf16 features the integral image is JAX's, bit for bit: XLA's blocked
 cumsum (`blocked_cumsum`), not `torch.cumsum`, which rounds elsewhere.
-No hand kernel: the JAX module has no Pallas call.
+The backward is JAX's in both dtypes, bit for bit: the corner reads'
+gradient is added into the integral image in XLA's order (`CornerTaps`,
+on a card by the hand-written kernel `csrc/voxel_tap_bwd.cu`, which
+replaces no Pallas kernel: the JAX module has none, its gathers'
+transpose is XLA's scatter-add), then scanned back as XLA scans it.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from vfa_tpu_torch.geometry import grid_sample_bilinear, project, worldgrid_to_worldcoord
+from vfa_tpu_torch.geometry import (bilinear_taps, grid_sample_bilinear, project,
+                                    worldgrid_to_worldcoord)
+from vfa_tpu_torch.kernels import LaunchCount
 from vfa_tpu_torch.utils import device_constant
 
 EPSILON = 1e-6
@@ -87,12 +93,10 @@ def box_area_visibility(boxes: torch.Tensor, feat_hw) -> Tuple[torch.Tensor, tor
 
 def integral_image(feature: torch.Tensor) -> torch.Tensor:
     """Double cumsum over (W, H) of (..., C, fH, fW)
-    (`vfa/model/vfa_op.py:172-173`). On bf16 it is JAX's bf16 cumsum bit
-    for bit (`BlockedIntegralImage`), forward and backward; on fp32 it is
-    `torch.cumsum`."""
-    if feature.dtype == torch.bfloat16:
-        return BlockedIntegralImage.apply(feature)
-    return torch.cumsum(torch.cumsum(feature, dim=-1), dim=-2)
+    (`vfa/model/vfa_op.py:172-173`), `IntegralImage`: on bf16 JAX's bf16
+    cumsum bit for bit, on fp32 `torch.cumsum`; the backward is JAX's
+    transpose in both."""
+    return IntegralImage.apply(feature)
 
 
 # JAX lowers `jnp.cumsum` to a reduce-window, which XLA rewrites into a
@@ -135,20 +139,222 @@ def blocked_cumsum(x: torch.Tensor, dim: int, reverse: bool = False) -> torch.Te
     return out.reshape(*out.shape[:-2], nb * SCAN_BLOCK)[..., :n].movedim(-1, dim)
 
 
-class BlockedIntegralImage(torch.autograd.Function):
-    """The bf16 integral image as JAX computes it (`vfa_tpu/ops/voxel.py:
-    107-109` on bf16 features): `blocked_cumsum` over -1 then -2; the
-    backward is JAX's transpose, the reverse scans over -2 then -1."""
+class IntegralImage(torch.autograd.Function):
+    """The integral image (`vfa_tpu/ops/voxel.py:107-109`). The forward is
+    `blocked_cumsum` over -1 then -2 on bf16, as JAX computes it there, and
+    `torch.cumsum` on fp32 (XLA's fp32 scan rounds elsewhere, within the
+    fp32 tests' 1e-4; the port keeps torch's). The backward is JAX's transpose
+    in every dtype: the reverse `blocked_cumsum` over -2 then -1 (XLA
+    lowers the fp32 cumsum to the same blocked windows, each add in fp32)."""
 
     @staticmethod
     def forward(ctx, feature):
-        return blocked_cumsum(blocked_cumsum(feature, -1), -2)
+        if feature.dtype == torch.bfloat16:
+            return blocked_cumsum(blocked_cumsum(feature, -1), -2)
+        return torch.cumsum(torch.cumsum(feature, dim=-1), dim=-2)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad):
         return blocked_cumsum(blocked_cumsum(grad, -2, reverse=True), -1,
                               reverse=True)
+
+
+# The transpose of the four corner reads, as XLA adds it (the CPU
+# compiler's optimised HLO of `jax.vjp` of `vfa_tpu.ops.voxel.sample_voxels`,
+# JAX 0.9.0, bf16 and fp32 features, live boxes and cotangent, at (3, 5, 7)
+# under (2, 3, 4) boxes and at full MultiviewC (256, 90, 160) under
+# (5, 156, 156) boxes vmapped over 2 scenes; and `jax.vjp` run op by op):
+#
+# - The cotangent of the corner reads: gs = (g * visible) / area in fp32
+#   (`broadcast_divide_fusion`), +gs for lt and rb, -gs for rt and lb (a
+#   negate before the products). Autograd of `sample_voxels`' last lines
+#   computes the same bits.
+# - Each of a corner's 4 bilinear taps (`vfa_tpu/geometry.py:117`, one
+#   `jnp.take`) transposes to its own scatter-add into a zeroed fp32
+#   operand laid out pixel-major, f32[(scene,) H*W, C]. Its update of
+#   point p is the fp32 product (+-gs)_p * w_p (w the tap's bilinear
+#   weight, as the forward computes it) rounded to ii's dtype, times the
+#   tap's in-image mask. The scatter visits the updates in point order
+#   ((nl, L, W) row-major; XLA's CPU scatter is a loop over the updates in
+#   index order, the scenes of a vmap in parallel, each scene's pixels its
+#   own), and rounds each add to ii's dtype (bf16: the combiner adds in fp32
+#   and converts to bf16 and back), from 0.
+# - The 16 scatters (4 corners x 4 taps) are joined in one chain, each add
+#   rounded to ii's dtype, in the reverse of their use: lb, rt, rb, lt, and
+#   inside a corner tap (x1, y1), (x0, y1), (x1, y0), (x0, y0). JAX
+#   accumulates the cotangents as it walks the forward backwards.
+# - The sum, transposed to (C, H, W), is the cotangent of the integral
+#   image: `IntegralImage.backward` scans it back (reverse blocked scans
+#   over H, then W).
+#
+# bf16 and fp32 differ only in the rounding, so one code path serves both
+# (`CHAIN_LENGTH` chain positions, `TapOrder`), and both equal `jax.vjp` of
+# JAX's op, run op by op, bit for bit. Under `jax.jit` XLA changes two
+# things: it contracts ((x + 1) * W - 1) of the tap coordinates into one
+# fused multiply-add, and on fp32 its algebraic simplifier rewrites
+# add(A, scatter(0, u)) into scatter(A, u) for every other tap of the chain
+# (A + u1 + u2 ...). JAX's jitted gradient is then 3.7e-3 rel-L2 from its
+# own op-by-op one on bf16 (97.4 % of the elements equal) and 4.3e-5 on
+# fp32, on the full MultiviewC boxes over (32, 90, 160); at the tiny
+# MultiviewC boxes 0 and 9.8e-6 (tests/voxel_order_report.py).
+CHAIN_LENGTH = 16
+
+
+def corner_coords(boxes: torch.Tensor):
+    """The (x, y) points of boxes (..., 4) = (l, t, r, b) at the corners
+    lt, rb, rt, lb, each (..., 2). By slicing and stacking: an index list
+    would be a host tensor copied to the device, and waited for, at every
+    call."""
+    l, t, r, b = boxes.unbind(-1)
+    return (boxes[..., 0:2], boxes[..., 2:4], torch.stack([r, t], dim=-1),
+            torch.stack([l, b], dim=-1))
+
+
+class TapOrder(NamedTuple):
+    """The order index of the corner reads' transpose over B scenes of
+    (H, W) pixels and P points: entry e is one update, at `rows[e]` of the
+    stacked cotangents (4 * B * P, C) (corner, scene, point) with weight
+    `w[e]` (the bilinear weight times the in-image mask). The entries of
+    chain position j, scene b, pixel q are e in [ptr[k], ptr[k + 1]), k =
+    (j * B + b) * H * W + q, in XLA's order (point order)."""
+    ptr: torch.Tensor      # (CHAIN_LENGTH * B * H * W + 1,) int32
+    rows: torch.Tensor     # (CHAIN_LENGTH * B * P,) int32
+    w: torch.Tensor        # (CHAIN_LENGTH * B * P,) the boxes' dtype
+
+
+def tap_order(boxes: torch.Tensor, feat_hw) -> TapOrder:
+    """The `TapOrder` of boxes (B, nl, L, W, 4) on an (H, W) feature map,
+    built on the boxes' device with no host sync: one stable sort of the
+    entries' keys (chain position, scene, pixel), whose input is in point
+    order."""
+    H, W = feat_hw
+    B, P = boxes.shape[0], boxes[0, ..., 0].numel()
+    dev = boxes.device
+    bx = boxes.reshape(B, P, 4)
+    taps = [bilinear_taps(c, H, W) for c in corner_coords(bx)]
+    scene = torch.arange(B, device=dev)[:, None]
+    point = torch.arange(B * P, device=dev).reshape(B, P)
+    keys, rows, ws = [], [], []
+    for j in range(CHAIN_LENGTH):
+        corner, tap = divmod(CHAIN_LENGTH - 1 - j, 4)
+        idx, inb, w = taps[corner][tap]
+        keys.append((j * B + scene) * (H * W) + idx)
+        rows.append(corner * B * P + point)
+        ws.append(w * inb)
+    keys = torch.stack(keys).reshape(-1)
+    order = torch.sort(keys, stable=True).indices
+    n = CHAIN_LENGTH * B * H * W
+    ptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    ptr[1:] = torch.cumsum(torch.bincount(keys, minlength=n), 0)
+    return TapOrder(ptr.int(), torch.stack(rows).reshape(-1)[order].int(),
+                    torch.stack(ws).reshape(-1)[order])
+
+
+def corner_taps_bwd(g: torch.Tensor, order: TapOrder, shape, dtype) -> torch.Tensor:
+    """The plain version of `voxel_tap_bwd`: the cotangent of the integral
+    image (B, C, H, W) in `dtype` from the stacked cotangents g (4 * B * P,
+    C) of the corners lt, rb, rt, lb (fp32: vox is fp32 on bf16 features
+    too), in XLA's order. Every chain position's scatter runs from 0 at
+    once: step k adds the k-th update of every (position, scene, pixel)
+    that has one, no two of them on one row, as one add of two tensors in
+    `dtype`; then the chain joins the 16 sums, each add rounded. As many
+    steps as the most updates a pixel takes from one tap (one host sync
+    for that count)."""
+    B, C, H, W = shape
+    n = CHAIN_LENGTH * B * H * W
+    counts = order.ptr[1:] - order.ptr[:-1]
+    entries = order.rows.numel()
+    key = torch.repeat_interleave(torch.arange(n, device=g.device), counts,
+                                  output_size=entries)
+    rank = torch.arange(entries, device=g.device) - order.ptr[:-1].long()[key]
+    by_rank = torch.sort(rank, stable=True).indices
+    acc = torch.zeros((n, C), dtype=dtype, device=g.device)
+    start = 0
+    for size in torch.bincount(rank).tolist():
+        e = by_rank[start:start + size]
+        start += size
+        k = key[e]
+        acc[k] = acc[k] + (g[order.rows[e].long()] * order.w[e, None]).to(dtype)
+    acc = acc.reshape(CHAIN_LENGTH, B, H * W, C)
+    out = acc[0]
+    for j in range(1, CHAIN_LENGTH):
+        out = out + acc[j]
+    return out.transpose(1, 2).reshape(B, C, H, W)
+
+
+def _check_launch(g, order, out):
+    """One device, contiguous, the dtypes the kernel takes."""
+    if g.device.type != "cuda":
+        raise ValueError(f"voxel_tap_bwd: unsupported device {g.device}")
+    if out.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"voxel_tap_bwd: the integral image must be float32 or "
+                        f"bfloat16, got {out.dtype}")
+    B, C, H, W = out.shape
+    want = {"g": (g, torch.float32, (g.shape[0], C)),
+            "ptr": (order.ptr, torch.int32, (CHAIN_LENGTH * B * H * W + 1,)),
+            "rows": (order.rows, torch.int32, (g.shape[0] * 4,)),
+            "w": (order.w, torch.float32, (g.shape[0] * 4,))}
+    for name, (t, dtype, shape) in want.items():
+        if t.device != g.device or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"voxel_tap_bwd: {name} is {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}, expected {dtype} {shape} on {g.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"voxel_tap_bwd: {name} must be contiguous")
+
+
+def voxel_tap_bwd(g: torch.Tensor, order: TapOrder, shape, dtype) -> torch.Tensor:
+    """The cotangent of the integral image (B, C, H, W) in `dtype` (float32
+    or bfloat16) from the stacked corner cotangents g (4 * B * P, C) fp32,
+    in XLA's order (`corner_taps_bwd`). On a CPU tensor the plain version;
+    on a CUDA tensor the kernel `csrc/voxel_tap_bwd.cu` or an error.
+    `voxel_tap_bwd.launches` counts fp32 kernel launches,
+    `voxel_tap_bwd_bf16.launches` bf16 ones."""
+    if g.device.type == "cpu":
+        return corner_taps_bwd(g, order, shape, dtype)
+    from vfa_tpu_torch.kernels import launch
+
+    out = torch.empty(shape, dtype=dtype, device=g.device)
+    _check_launch(g, order, out)
+    suffix = "bf16" if dtype == torch.bfloat16 else "f32"
+    B, C, H, W = shape
+    launch("voxel_tap_bwd", f"voxel_tap_bwd_{suffix}", g.device, g.data_ptr(),
+           order.ptr.data_ptr(), order.rows.data_ptr(), order.w.data_ptr(),
+           out.data_ptr(), B, H * W, C)
+    (voxel_tap_bwd_bf16 if dtype == torch.bfloat16 else voxel_tap_bwd).launches += 1
+    return out
+
+
+voxel_tap_bwd.launches = 0
+voxel_tap_bwd_bf16 = LaunchCount()
+
+
+class CornerTaps(torch.autograd.Function):
+    """The four corner reads lt, rb, rt, lb of the integral image ii
+    (*lead, C, H, W) at boxes (*lead, nl, L, W, 4), each (*lead, nl, L, W,
+    C): the forward is `grid_sample_bilinear`'s, the backward adds their
+    cotangents into ii's in XLA's order (`tap_order`, `voxel_tap_bwd`).
+    The boxes take no gradient (they come from the calibrations, which no
+    route trains)."""
+
+    @staticmethod
+    def forward(ctx, ii, boxes):
+        ctx.save_for_backward(boxes)
+        ctx.ii_meta = (ii.shape, ii.dtype)
+        return tuple(grid_sample_bilinear(ii, c) for c in corner_coords(boxes))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        if ctx.needs_input_grad[1]:
+            raise NotImplementedError("CornerTaps: no gradient for the boxes")
+        (boxes,), (shape, dtype) = ctx.saved_tensors, ctx.ii_meta
+        C, H, W = shape[-3:]
+        boxes = boxes.reshape(-1, *boxes.shape[-4:])
+        B = boxes.shape[0]
+        g = torch.stack(grads).reshape(4 * B * boxes[0, ..., 0].numel(), C)
+        out = voxel_tap_bwd(g, tap_order(boxes, (H, W)), (B, C, H, W), dtype)
+        return out.reshape(shape), None
 
 
 def sample_voxels(feature: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
@@ -164,14 +370,7 @@ def sample_voxels(feature: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     nl, L, W = boxes.shape[-4:-1]
     lead = feature.shape[:-3]
     area, visible = box_area_visibility(boxes, feature.shape[-2:])
-    ii = integral_image(feature)
-    # corners by slicing and stacking: an index list would be a host tensor
-    # copied to the device, and waited for, at every call
-    l, t, r, b = boxes.unbind(-1)
-    lt = grid_sample_bilinear(ii, boxes[..., 0:2])
-    rb = grid_sample_bilinear(ii, boxes[..., 2:4])
-    rt = grid_sample_bilinear(ii, torch.stack([r, t], dim=-1))
-    lb = grid_sample_bilinear(ii, torch.stack([l, b], dim=-1))
+    lt, rb, rt, lb = CornerTaps.apply(integral_image(feature), boxes)
     vox = (lt + rb - rt - lb) / area[..., None]               # (*lead, nl, L, W, C)
     vox = vox * visible[..., None].to(vox.dtype)
     return vox.movedim(-4, -1).reshape(*lead, L, W, C * nl)
