@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vfa_tpu_torch import observability
 from vfa_tpu_torch.config import DatasetConfig
 from vfa_tpu_torch.utils import Obj2D, Obj3D, device_constant
 
@@ -161,6 +162,7 @@ def nms_heatmap(heatmap: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
+@observability.traced("decode")
 def decode_frame(pred: Dict[str, torch.Tensor], cfg: DatasetConfig,
                  cls_thresh: float, topk: int = 100,
                  dim_mean: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:

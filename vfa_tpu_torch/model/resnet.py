@@ -8,6 +8,7 @@ module names follow the reference state-dict keys (`base.layerX.Y.*`).
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Sequence, Tuple
 
@@ -15,6 +16,8 @@ import torch
 from torch import nn
 from torch.nn.utils.stateless import _reparametrize_module
 from torch.utils.checkpoint import checkpoint
+
+from vfa_tpu_torch import observability
 
 GN_EPS = 1e-5
 
@@ -27,11 +30,18 @@ def remat(module: nn.Module, fn, *args):
     `torch.func.functional_call` (mixed precision casts the fp32 masters at
     use, `train_lib._forward`) those are the call's bf16 tensors, which
     `module` no longer holds when the backward runs. Without autograd it
-    is fn(*args)."""
+    is fn(*args). The recompute records no span (`observability.
+    untraced`)."""
     if not torch.is_grad_enabled():
         return fn(*args)
     params = dict(module.named_parameters())
-    return checkpoint(_on_params, module, params, fn, *args, use_reentrant=False)
+    return checkpoint(_on_params, module, params, fn, *args, use_reentrant=False,
+                      context_fn=_recompute_untraced)
+
+
+def _recompute_untraced():
+    # (forward context, recompute context) of a non-reentrant checkpoint
+    return contextlib.nullcontext(), observability.untraced()
 
 
 def _on_params(module, params, fn, *args):

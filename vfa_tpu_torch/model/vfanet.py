@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vfa_tpu_torch import observability
 from vfa_tpu_torch.config import DatasetConfig
 from vfa_tpu_torch.model.resnet import ResNetGN, group_norm, remat
 from vfa_tpu_torch.ops.voxel import sample_voxels, voxel_boxes
@@ -251,10 +252,16 @@ class VFANet(nn.Module):
         # the constants in the image dtype, as JAX makes them
         # (`vfa_tpu/model/vfanet.py:151-152`)
         mean, std = (t.to(x.dtype) for t in (self.img_mean, self.img_std))
-        feats = self.base(((x - mean) / std).permute(0, 3, 1, 2))
-        return [torch.relu(bn(lat(f))) for f, lat, bn in zip(
-            feats, (self.lat8, self.lat16, self.lat32),
-            (self.bn8, self.bn16, self.bn32))]
+        x = ((x - mean) / std).permute(0, 3, 1, 2)
+        with observability.span("backbone"):
+            feats = self.base(x)
+        # the backbone's backward ends with the gradient of the weight its
+        # first convolution used (under mixed precision this call's cast)
+        observability.backward_span("backbone.bwd", feats, self.base.conv1.weight)
+        with observability.span("laterals"):
+            return [torch.relu(bn(lat(f))) for f, lat, bn in zip(
+                feats, (self.lat8, self.lat16, self.lat32),
+                (self.bn8, self.bn16, self.bn32))]
 
     def feature_modules(self) -> List[nn.Module]:
         """The modules that see each camera's image alone, upstream of the
@@ -276,6 +283,15 @@ class VFANet(nn.Module):
         slab (B, slab_rows, W, 256)."""
         B, N = images.shape[:2]
         lats = self.laterals(images)
+        with observability.span("sampling"):
+            bev = self.sampling(lats, B, N, rig, calibs, grid)
+        observability.backward_span("sampling.bwd", bev, lats)
+        return bev
+
+    def sampling(self, lats: List[torch.Tensor], B: int, N: int, rig, calibs,
+                 grid) -> torch.Tensor:
+        """The sampling layer of `bev_features`: the laterals' maps of B
+        scenes of N cameras each -> the BEV features."""
         if rig is not None and hasattr(rig, "slab_rows"):
             from vfa_tpu_torch.parallel_bev import sample_bev_sharded
 
@@ -299,7 +315,7 @@ class VFANet(nn.Module):
             from vfa_tpu_torch.ops.rig import rig_sample_scale as sample
         L, W = rig.grid_shape
         ortho = torch.zeros((B, L * W, 256), dtype=torch.float32,
-                            device=images.device)
+                            device=lats[0].device)
         for sr, lat, lin in zip(rig.scales, lats, self.collapses()):
             lat5 = lat.permute(0, 2, 3, 1).reshape(B, N, *lat.shape[2:], -1)
             ortho = ortho + sample(lat5, sr, lin.weight.t(), lin.bias,
@@ -344,6 +360,7 @@ class VFANet(nn.Module):
             out = out + voxel_contribution(lat, boxes, lin)
         return out
 
+    @observability.traced("forward")
     def forward(self, images: torch.Tensor, rig, calibs=None,
                 grid=None) -> Dict[str, torch.Tensor]:
         """Returns heatmap (B, 1, L, W), loc_offset (B, L, W, 2) and, in 3D
@@ -354,17 +371,20 @@ class VFANet(nn.Module):
         if rig is not None and hasattr(rig, "slab_rows"):
             from vfa_tpu_torch.parallel_bev import heads
 
-            return heads(self, self.bev_features(images, rig), self.mesh, rig.rows)
+            bev = self.bev_features(images, rig)
+            with observability.span("heads"):
+                return heads(self, bev, self.mesh, rig.rows)
         ortho = self.bev_features(images, rig, calibs, grid).permute(0, 3, 1, 2)
-        fused = self.fuse(ortho)
-        nhwc = lambda t: t.permute(0, 2, 3, 1)
-        pred = {
-            "heatmap": self.map_classifier(fused),
-            "loc_offset": nhwc(self.tytx_pred(ortho)),
-        }
-        if self.cfg.mode == "3D":
-            pred["dim_offset"] = nhwc(self.thtwtl_pred(ortho))
-            pred["rotation"] = nhwc(self.orient_pred(fused))
+        with observability.span("heads"):
+            fused = self.fuse(ortho)
+            nhwc = lambda t: t.permute(0, 2, 3, 1)
+            pred = {
+                "heatmap": self.map_classifier(fused),
+                "loc_offset": nhwc(self.tytx_pred(ortho)),
+            }
+            if self.cfg.mode == "3D":
+                pred["dim_offset"] = nhwc(self.thtwtl_pred(ortho))
+                pred["rotation"] = nhwc(self.orient_pred(fused))
         return pred
 
 

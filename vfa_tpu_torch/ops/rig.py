@@ -36,6 +36,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from vfa_tpu_torch import observability
 from vfa_tpu_torch.config import DatasetConfig
 from vfa_tpu_torch.ops.voxel import (
     EPSILON, MAXIMUM_AREA_RATIO, cube_corner_offsets, z_layer_offsets,
@@ -640,27 +641,33 @@ def _save_rig(path: str, rig: CameraRig) -> None:
 
 def _load_rig(path: str, feat_shapes, tile_v: int, fold_prefix: bool,
               layout: str, grid_shape, device) -> CameraRig:
+    """The rig `_save_rig` wrote to `path`, on `device`, with the dII order
+    index rebuilt (set-up spans rig.load.read and rig.load.dii_index, one
+    of each a scale)."""
     scales = []
     with np.load(path) as z:
         for i, (fh, fw) in enumerate(feat_shapes):
-            nb = int(z[f"nb{i}"])
-            A = []
-            for b in range(nb):
-                a = z[f"A{i}_{b}"]
-                A.append(torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
-                         .to(device) if a.dtype == np.uint16
-                         else torch.from_numpy(a).to(device))
-            starts = [z[f"s{i}_{b}"] for b in range(nb)]
-            win_hw = (tuple(tuple(int(x) for x in z[f"w{i}_{b}"])
-                            for b in range(nb)) if layout == "window" else ())
+            with observability.setup_span("rig.load.read"):
+                nb = int(z[f"nb{i}"])
+                A = []
+                for b in range(nb):
+                    a = z[f"A{i}_{b}"]
+                    A.append(torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+                             .to(device) if a.dtype == np.uint16
+                             else torch.from_numpy(a).to(device))
+                starts = [z[f"s{i}_{b}"] for b in range(nb)]
+                win_hw = (tuple(tuple(int(x) for x in z[f"w{i}_{b}"])
+                                for b in range(nb)) if layout == "window" else ())
+                inv_perm = torch.from_numpy(z[f"p{i}"].astype(np.int64)).to(device)
+            with observability.setup_span("rig.load.dii_index"):
+                dii_order = _dii_orders(starts, win_hw, [a.shape[-1] for a in A],
+                                        (fh, fw), device)
             scales.append(ScaleRig(
                 A=tuple(A),
                 starts=tuple(torch.from_numpy(s).to(device) for s in starts),
-                inv_perm=torch.from_numpy(z[f"p{i}"].astype(np.int64)).to(device),
-                feat_hw=(fh, fw), nl=int(z[f"nl{i}"]), tile_v=tile_v,
-                on_raw=fold_prefix, window_hw=win_hw,
-                dii_order=_dii_orders(starts, win_hw, [a.shape[-1] for a in A],
-                                      (fh, fw), device)))
+                inv_perm=inv_perm, feat_hw=(fh, fw), nl=int(z[f"nl{i}"]),
+                tile_v=tile_v, on_raw=fold_prefix, window_hw=win_hw,
+                dii_order=dii_order))
     return CameraRig(scales=scales, grid_shape=grid_shape)
 
 
@@ -700,7 +707,9 @@ def build_rig(
     requires fold_prefix) or 'flat' (contiguous bands of the flattened
     features; fold_prefix=False keeps the 16-tap integral-image form, one
     bucket only). With `cache_dir`, the rig is loaded from the npz that
-    `rig_cache_path` names if it exists, else built and written there."""
+    `rig_cache_path` names if it exists, else built and written there.
+    Set-up spans (`observability.setup_span`): rig.load on a cache hit,
+    rig.build otherwise."""
     if layout not in ("flat", "window"):
         raise ValueError(f"unknown rig layout {layout!r}")
     if layout == "window" and not fold_prefix:
@@ -715,31 +724,33 @@ def build_rig(
                               tile_v, dtype, crange, fold_prefix,
                               band_buckets, layout)
         if os.path.exists(path):
-            return _load_rig(path, feat_shapes, tile_v, fold_prefix, layout,
-                             (L, W), device)
-    place = lambda a: torch.from_numpy(a).to(device=device, dtype=dtype)
-    scales = []
-    for fh, fw in feat_shapes:
-        if layout == "window":
-            A_bk, s_bk, win_hw, inv_perm, nl = _build_scale_window(
-                calibs, cfg, grid, (fh, fw), crange, tile_v, band_buckets,
-                dtype=dtype)
-            A_bk = [place(a) for a in A_bk]
-        else:
-            A_bk, s_bk, inv_perm, nl = _build_scale_flat(
-                calibs, cfg, grid, (fh, fw), crange, tile_v, band_buckets,
-                fold_prefix, place)
-            win_hw = ()
-        scales.append(ScaleRig(
-            A=tuple(A_bk),
-            starts=tuple(torch.from_numpy(s).to(device) for s in s_bk),
-            inv_perm=torch.from_numpy(inv_perm.astype(np.int64)).to(device),
-            feat_hw=(fh, fw), nl=nl, tile_v=tile_v, on_raw=fold_prefix,
-            window_hw=tuple(win_hw),
-            dii_order=_dii_orders(s_bk, win_hw, [a.shape[-1] for a in A_bk],
-                                  (fh, fw), device),
-        ))
-    rig = CameraRig(scales=scales, grid_shape=(L, W))
+            with observability.setup_span("rig.load"):
+                return _load_rig(path, feat_shapes, tile_v, fold_prefix, layout,
+                                 (L, W), device)
+    with observability.setup_span("rig.build"):
+        place = lambda a: torch.from_numpy(a).to(device=device, dtype=dtype)
+        scales = []
+        for fh, fw in feat_shapes:
+            if layout == "window":
+                A_bk, s_bk, win_hw, inv_perm, nl = _build_scale_window(
+                    calibs, cfg, grid, (fh, fw), crange, tile_v, band_buckets,
+                    dtype=dtype)
+                A_bk = [place(a) for a in A_bk]
+            else:
+                A_bk, s_bk, inv_perm, nl = _build_scale_flat(
+                    calibs, cfg, grid, (fh, fw), crange, tile_v, band_buckets,
+                    fold_prefix, place)
+                win_hw = ()
+            scales.append(ScaleRig(
+                A=tuple(A_bk),
+                starts=tuple(torch.from_numpy(s).to(device) for s in s_bk),
+                inv_perm=torch.from_numpy(inv_perm.astype(np.int64)).to(device),
+                feat_hw=(fh, fw), nl=nl, tile_v=tile_v, on_raw=fold_prefix,
+                window_hw=tuple(win_hw),
+                dii_order=_dii_orders(s_bk, win_hw, [a.shape[-1] for a in A_bk],
+                                      (fh, fw), device),
+            ))
+        rig = CameraRig(scales=scales, grid_shape=(L, W))
     if path is not None:
         os.makedirs(cache_dir, exist_ok=True)
         _save_rig(path, rig)

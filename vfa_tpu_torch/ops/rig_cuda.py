@@ -42,6 +42,7 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
+from vfa_tpu_torch import observability
 from vfa_tpu_torch.kernels import LaunchCount
 from vfa_tpu_torch.ops.rig import (
     ScaleRig, collapse_per_layer, flat_dii_index, flat_tiles, flat_tiles_bwd,
@@ -499,7 +500,8 @@ class RigScaleTiles(torch.autograd.Function):
         T_total = sum(a.shape[1] for a in rig.A)
         out = torch.empty((N, B, T_total * rig.tile_v, Kr.shape[-1]),
                           dtype=ii.dtype, device=ii.device)
-        rig_fwd_scale(ii, rig, Kr, out)
+        with observability.span("sampling.kernel"):
+            rig_fwd_scale(ii, rig, Kr, out)
         ctx.save_for_backward(ii, Kr)
         ctx.rig = rig
         return out

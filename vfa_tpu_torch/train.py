@@ -110,7 +110,8 @@ def parse_args(argv=None):
                    help="the shrunken test configuration")
     p.add_argument("--profile_steps", type=int, default=0,
                    help="capture a torch.profiler trace of the step with "
-                        "this global index (0 disables) into <run>/profile")
+                        "this global index (0 disables) into <run>/profile, "
+                        "the port's spans on; their totals print at the end")
     p.add_argument("--debug_nans", action="store_true",
                    help="check the loss and the gradients after every step "
                         "and fail on a NaN or Inf (one host sync a step)")
@@ -412,6 +413,7 @@ def main(argv=None, rig=None) -> dict:
             torch.cuda.synchronize(device)
 
     losses, val_losses, step_ms, lrs, wait_ms, checkpoints = [], [], [], [], [], []
+    step_spans = None
     global_it = 0
     for epoch in range(start_epoch, tcfg.epochs + 1):
         t_epoch = time.time()
@@ -429,6 +431,8 @@ def main(argv=None, rig=None) -> dict:
                 loss_dict = {k: float(v) for k, v in loss_dict.items()}
             sync()
             step_ms.append((time.perf_counter() - t0) * 1e3)
+            if tracing and main_rank:
+                step_spans = observability.span_totals()
             lrs.append(optimizer.param_groups[0]["lr"])
             losses.append(loss_dict)
             epoch_loss += loss_dict
@@ -471,6 +475,8 @@ def main(argv=None, rig=None) -> dict:
         from vfa_tpu_torch.kernels import launch_counts
 
         print(f"kernel launches (this process): {json.dumps(launch_counts())}")
+    if step_spans is not None:
+        print(f"spans of step {args.profile_steps} (ms): {json.dumps(step_spans)}")
     if mesh is not None:
         torch.distributed.destroy_process_group()
     if step_ms:

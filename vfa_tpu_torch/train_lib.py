@@ -28,10 +28,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from vfa_tpu_torch import observability
 from vfa_tpu_torch.codec import encode_frame, gaussian_csl_labels, object_cells
 from vfa_tpu_torch.config import DatasetConfig, TrainConfig
 from vfa_tpu_torch.losses import compute_loss2d, compute_loss3d
-from vfa_tpu_torch.observability import check_finite, nan_debugging
+from vfa_tpu_torch.observability import check_finite, nan_debugging, span
 
 OBJECT_KEYS = ("location", "valid", "dimension", "rotation")
 
@@ -123,6 +124,7 @@ def make_optimizer(model: nn.Module, tcfg: TrainConfig,
     return ScheduledSGD(model.parameters(), tcfg, steps_per_epoch)
 
 
+@observability.traced("stage")
 def stage_images(images: np.ndarray, device, dtype=None,
                  jitter=None) -> torch.Tensor:
     """A uint8-staged (B, N, H, W, 3) host batch on `device` as [0, 1]
@@ -203,7 +205,8 @@ def _forward(model: nn.Module, dtype: torch.dtype, batch, rig):
     args = (batch["images"].to(dtype), rig, batch.get("calibs"), batch.get("grid"))
     if dtype == torch.float32:
         return model(*args)
-    params = {name: p.to(dtype) for name, p in model.named_parameters()}
+    with span("cast"):
+        params = {name: p.to(dtype) for name, p in model.named_parameters()}
     return torch.func.functional_call(model, params, args)
 
 
@@ -250,35 +253,41 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     angle_range = _angle_range(model)
     count_sum, report = _mesh_sums(mesh)
 
+    @observability.traced("train_step")
     def train_step(batch: Dict[str, torch.Tensor], rig) -> Dict[str, torch.Tensor]:
         model.train()
         pred = _forward(model, dtype, batch, rig)
-        # the rotation loss is evaluated at the object cells, so the dense
-        # (B, L, W, angle) CSL target is never built
-        rotation_cells = None
-        if cfg.mode == "3D":
-            rotation_cells = gather_rotation_cells(
-                pred.pop("rotation"), batch, cfg, angle_range)
-        pred = {k: v.float() for k, v in pred.items()}
-        gt = encode_targets(batch, cfg, dim_mean, angle_range,
-                            dense_rotation=False)
-        if cfg.mode == "3D":
-            loss, loss_dict = compute_loss3d(pred, gt, cfg.loss_weight,
-                                             rotation_cells=rotation_cells,
-                                             count_sum=count_sum)
-        else:
-            loss, loss_dict = compute_loss2d(pred, gt, cfg.loss_weight,
-                                             count_sum=count_sum)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if mesh is not None:
-            from vfa_tpu_torch.parallel import reduce_gradients
+        with span("targets"):
+            # the rotation loss is evaluated at the object cells, so the
+            # dense (B, L, W, angle) CSL target is never built
+            rotation_cells = None
+            if cfg.mode == "3D":
+                rotation_cells = gather_rotation_cells(
+                    pred.pop("rotation"), batch, cfg, angle_range)
+            pred = {k: v.float() for k, v in pred.items()}
+            gt = encode_targets(batch, cfg, dim_mean, angle_range,
+                                dense_rotation=False)
+        with span("loss"):
+            if cfg.mode == "3D":
+                loss, loss_dict = compute_loss3d(pred, gt, cfg.loss_weight,
+                                                 rotation_cells=rotation_cells,
+                                                 count_sum=count_sum)
+            else:
+                loss, loss_dict = compute_loss2d(pred, gt, cfg.loss_weight,
+                                                 count_sum=count_sum)
+        with span("optimizer"):
+            optimizer.zero_grad(set_to_none=True)
+        with span("backward"):
+            loss.backward()
+            if mesh is not None:
+                from vfa_tpu_torch.parallel import reduce_gradients
 
-            reduce_gradients(model, mesh)
-        if nan_debugging():
-            check_finite(optimizer.count, loss,
-                         ((n, p.grad) for n, p in model.named_parameters()))
-        optimizer.step()
+                reduce_gradients(model, mesh)
+            if nan_debugging():
+                check_finite(optimizer.count, loss,
+                             ((n, p.grad) for n, p in model.named_parameters()))
+        with span("optimizer"):
+            optimizer.step()
         return report({k: v.detach() for k, v in loss_dict.items()})
 
     return train_step
