@@ -101,7 +101,8 @@ result line):
   5e. the BEV-sharded path and multi-process training (`parallel_bev.py`,
      `parallel.py`), bf16, full MultiviewC width, each step fatal: the
      predict CLI on disk (`--root`, the resumed checkpoint of 5d,
-     `--dtype bfloat16`; K1-bf16 once a scale and nothing else, the
+     `--dtype bfloat16`; K1-bf16 once a scale, the serving epilogue
+     `rig_bev_epilogue` once and nothing else, the
      heatmap within rel-L2 1e-2 of the plain route's, whether the figure
      was written); then 2 ranks sharing the card (gloo on CUDA tensors,
      `launch.run_ranks`), each on its slab of the 8-bucket BEV-sharded rig
@@ -250,7 +251,8 @@ def counters():
             "stem_bwd_stats_bf16": stem.stem_bwd_stats_bf16,
             "stem_bwd_dx_bf16": stem.stem_bwd_dx_bf16,
             "voxel_tap_bwd": voxel.voxel_tap_bwd,
-            "voxel_tap_bwd_bf16": voxel.voxel_tap_bwd_bf16}
+            "voxel_tap_bwd_bf16": voxel.voxel_tap_bwd_bf16,
+            "rig_bev_epilogue": rig_cuda.rig_bev_epilogue}
 
 
 def reset_launches() -> None:
@@ -310,7 +312,8 @@ def phase_build():
         for kernel, regs, spill in ptxas_kernels(LIBRARY.ptxas_log.get(name, "")):
             log(f"  ptxas[{name}]: {kernel}: {regs} registers, {spill} bytes "
                 "spilled")
-            if spill and re.match(r"rig_(\w+_mma|ws\w+)|stem_bwd_|voxel_tap_bwd", kernel):
+            if spill and re.match(r"rig_(\w+_mma|ws\w+|bev_epilogue)|stem_bwd_|voxel_tap_bwd",
+                                  kernel):
                 raise AssertionError(f"{kernel} spills {spill} bytes")
     log(f"phase 1 build: {names} in {time.perf_counter() - t0:.1f} s")
 
@@ -752,8 +755,9 @@ def phase_train_path_bf16(rig, rig32, device, fused_stem: bool):
     stem_n = 1 if fused_stem else 0
     if len(res["losses"]) != 1 or launches[fwd] <= fwd_launches(rig):
         raise AssertionError(f"the bf16 training path never launched {fwd}")
+    # the validation forward (no gradient) takes the one-launch epilogue
     want = {fwd: None, bwd: buckets, "stem_bwd_stats_bf16": stem_n,
-            "stem_bwd_dx_bf16": stem_n}
+            "stem_bwd_dx_bf16": stem_n, "rig_bev_epilogue": None}
     for name, n in launches.items():
         if want.get(name, 0) is not None and n != want.get(name, 0):
             raise AssertionError(f"{name} launched {n} times on the {tag} "
@@ -932,7 +936,12 @@ def phase_main_path(rig, device, scenes: int):
     if launches[fwd] != per * len(res["ms"]):
         raise AssertionError(f"the serving path launched {fwd} {launches[fwd]} "
                              f"times, expected {per} per request")
-    if any(n for name, n in launches.items() if name != fwd):
+    # bf16: the one-launch epilogue once a request
+    epilogue = len(res["ms"]) if bf16 else 0
+    if launches["rig_bev_epilogue"] != epilogue:
+        raise AssertionError(f"the serving path launched rig_bev_epilogue "
+                             f"{launches['rig_bev_epilogue']} times, expected {epilogue}")
+    if any(n for name, n in launches.items() if name not in (fwd, "rig_bev_epilogue")):
         raise AssertionError("the serving path launched another kernel")
     ref = predict.main(argv + ["--rig_impl", "plain"], rig=rig)
 
@@ -1001,6 +1010,69 @@ def phase_bench(argv, rig, kernels, calls=None):
     per = f"; {buckets} per call over {calls} calls" if calls else ""
     log(f"phase 5 bench {tag}: {res}; launches {launches}{per}")
     return res, launches
+
+
+EPILOGUE_BATCH = 32    # the benchmark's serving batch
+EPILOGUE_REPS = 10
+
+
+def phase_bev_epilogue(rig, device, data: str, batch: int = EPILOGUE_BATCH) -> dict:
+    """The serving epilogue `csrc/rig_bev_epilogue.cu` on a bf16 serving
+    rig at `batch` (random tiles of each scale's rows, the rig's inv_perms):
+    bit for bit its plain version `rig_bev_sum`; its time against the
+    per-scale chain it replaces (three `rig_epilogue` camera sums, the fp32
+    adds over scales, the bf16 cast), CUDA events, best of two interleaved
+    rounds of EPILOGUE_REPS; its bound: the gathered rows, the inv_perms
+    and the BEV written, at PEAK_BYTES_PER_S."""
+    from vfa_tpu_torch.ops.rig import rig_bev_sum, rig_epilogue
+    from vfa_tpu_torch.ops.rig_cuda import rig_bev_epilogue
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    tiles, inv_perms, biases = [], [], []
+    for sr in rig.scales:
+        rows = sum(a.shape[1] for a in sr.A) * sr.tile_v
+        N = sr.inv_perm.shape[0]
+        tiles.append(torch.randn((N, batch, rows, 256), device=device, dtype=torch.bfloat16,
+                                 generator=gen))
+        biases.append((torch.randn((256,), device=device, generator=gen) * 0.5).to(
+            torch.bfloat16))
+        inv_perms.append(sr.inv_perm)
+    N, V2d = inv_perms[0].shape
+    kernel = lambda: rig_bev_epilogue(tiles, inv_perms, biases)
+    chain = lambda: sum(rig_epilogue(t, ip, b, torch.float32, True)
+                        for t, ip, b in zip(tiles, inv_perms, biases)).to(torch.bfloat16)
+    got = kernel()
+    same = torch.equal(got.view(torch.int16),
+                       rig_bev_sum(tiles, inv_perms, biases).view(torch.int16))
+    differs = (got.float() - chain().float()).abs() > 0
+    if not same:
+        raise AssertionError(f"rig_bev_epilogue {data}: not its plain version's bits")
+    del got
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms, plain_ms = [], []
+    for _ in range(2):
+        ms.append(cuda_time_ms(kernel, EPILOGUE_REPS))
+        plain_ms.append(cuda_time_ms(chain, EPILOGUE_REPS))
+    chain_peak = torch.cuda.max_memory_allocated() - base
+    S = len(tiles)
+    nbytes = S * N * batch * V2d * 512 + S * N * V2d * 8 + batch * V2d * 512
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    res = {"ms": min(ms), "plain_ms": min(plain_ms), "bound_ms": bound, "bytes": nbytes,
+           "share_of_bound": bound / min(ms), "gb_per_s": nbytes / min(ms) * 1e-6,
+           "batch": batch, "tiles_bytes": sum(t.numel() * 2 for t in tiles),
+           "chain_transient_bytes": chain_peak, "chain_elements_changed": int(differs.sum())}
+    log(f"rig_bev_epilogue {data} at B={batch}: {res['ms']:.3f} ms "
+        f"({res['ms'] / batch:.4f} a scene), per-scale chain {res['plain_ms']:.3f} ms; "
+        f"bound {bound:.3f} ms by bytes ({nbytes} B; {res['share_of_bound']:.1%} of the "
+        f"bound, {res['gb_per_s']:.0f} GB/s); the same bits as rig_bev_sum; "
+        f"{res['chain_elements_changed']} of {batch * V2d * 256} elements differ from the "
+        f"chain's (its camera sum's order); tiles {res['tiles_bytes']} B, the chain's "
+        f"transients {chain_peak} B")
+    del tiles, kernel, chain
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_rig_vs_reference(rig, device, data: str):
@@ -1482,8 +1554,10 @@ def phase_disk_path(proc, base, rig_cache, device, serve_rig, staged):
         log(f"  train on disk ({tag}): launches {launches}; steps "
             f"{len(res['ms'])}, p50 {np.median(res['ms']):.2f} ms a step, loader "
             f"wait p50 {np.median(res['wait_ms']):.2f} ms")
-        if any(launches[k] <= 0 for k in kernels) or any(
-                n for k, n in launches.items() if k not in kernels):
+        # + the one-launch epilogue in the validation forward
+        if any(launches[k] <= 0 for k in kernels + ("rig_bev_epilogue",)) or any(
+                n for k, n in launches.items()
+                if k not in kernels + ("rig_bev_epilogue",)):
             raise AssertionError(f"train on disk ({tag}) launched {launches}")
         if not all(np.isfinite(d["loss"]) for d in res["losses"]):
             raise AssertionError(f"train on disk ({tag}): a non-finite loss")
@@ -2015,7 +2089,8 @@ def phase_bev_bench(rig16, home, device, tiny=False) -> dict:
 def phase_predict_on_disk(root, ckpt, rig, device, base, tiny=False) -> dict:
     """Phase 5e (1): the predict CLI on disk (a val scene of the written
     set, the resumed run's checkpoint, bf16, the 8-bucket rig), counts set
-    to 0 before and read after (K1-bf16 once a scale, no other kernel),
+    to 0 before and read after (K1-bf16 once a scale, the serving epilogue
+    once, no other kernel),
     its heatmap against the plain route's (rel-L2 BF16_PATH_L2)."""
     from vfa_tpu_torch import predict
 
@@ -2034,7 +2109,8 @@ def phase_predict_on_disk(root, ckpt, rig, device, base, tiny=False) -> dict:
         f"{BF16_PATH_L2:.0e}); {res['ms'][0]:.1f} ms; figure "
         + (f"written to {res['figure']}" if res["figure"] else "not written "
            "(matplotlib is not installed)"))
-    want_launches = {"rig_window_fwd_bf16": 3} if device.type == "cuda" else {}
+    want_launches = ({"rig_window_fwd_bf16": 3, "rig_bev_epilogue": 1}
+                     if device.type == "cuda" else {})
     check_bev_launches("predict on disk", launches, want_launches)
     if not l2 <= BF16_PATH_L2:
         raise AssertionError("predict on disk disagrees with the plain route")
@@ -2748,10 +2824,11 @@ def run_phases(device, t_start, builds, rig_cache, disk) -> int:
     serve16_launches, serve16_res, serve16_peak = phase_main_path(mc16, device, scenes=6)
     num["rig_window_fwd_bf16"] = phase_numbers(mc16, device, backward=False)
     torch.cuda.empty_cache()
+    epilogue = {"MultiviewC": phase_bev_epilogue(mc16, device, "MultiviewC")}
     passes16 = phase_bf16_passes(rig_cache, "window")
     bench16 = {"MultiviewC": phase_bench(
         ["--data", "MultiviewC", "--dtype", "bfloat16", "--batch", "0", "--iters",
-         "5", "--warmup", "1"], mc16, ["rig_window_fwd_bf16"])[0]}
+         "5", "--warmup", "1"], mc16, ["rig_window_fwd_bf16", "rig_bev_epilogue"])[0]}
     # the on-disk path: its rig comes from the last host process
     disk_launches = phase_disk_path(
         builds[len(PREBUILT)], disk, rig_cache, device, mc16,
@@ -2787,9 +2864,11 @@ def run_phases(device, t_start, builds, rig_cache, disk) -> int:
         torch.cuda.empty_cache()
         num16[data] = (phase_numbers(rig16, device, backward=False, rounds=1),
                        fwd_launches(rig16))
+        if data == "Wildtrack":
+            epilogue[data] = phase_bev_epilogue(rig16, device, data)
         bench16[data] = phase_bench(
             ["--data", data, "--dtype", "bfloat16", "--batch", "0", "--iters", "5",
-             "--warmup", "1"], rig16, ["rig_window_fwd_bf16"])[0]
+             "--warmup", "1"], rig16, ["rig_window_fwd_bf16", "rig_bev_epilogue"])[0]
         del rig16
         torch.cuda.empty_cache()
 
@@ -2992,6 +3071,15 @@ def run_phases(device, t_start, builds, rig_cache, disk) -> int:
               launches_memory_options=mem_launches("stem_bwd_dx_bf16")),
         *(voxel_entry(name, dtype) for name, dtype in (("voxel_tap_bwd", "float32"),
                                                         ("voxel_tap_bwd_bf16", "bfloat16"))),
+        {"name": "rig_bev_epilogue", "route": "cuda",
+         "source": "vfa_tpu_torch/csrc/rig_bev_epilogue.cu",
+         "replaces": "vfa_tpu/ops/rig_pallas.py:873 (_bev_unpermute, an XLA gather; "
+                     "not a Pallas kernel) and the bias, ReLU and sums after it",
+         "launches": serve16_launches["rig_bev_epilogue"], "max_abs_err": 0.0,
+         "max_rel_err": 0.0, "dtype": "bfloat16", "library_ms": None,
+         "ms": epilogue["Wildtrack"]["ms"], "plain_ms": epilogue["Wildtrack"]["plain_ms"],
+         "bound_ms": epilogue["Wildtrack"]["bound_ms"], "bound_by": "bytes",
+         "batch": EPILOGUE_BATCH, "by_dataset": epilogue},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

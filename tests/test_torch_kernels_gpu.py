@@ -1312,3 +1312,183 @@ def test_voxel_tap_bwd_channels_and_scenes(cuda, dtype, C):
                                       dv.to(t.device))[0] for t in leaves)
     assert counter.launches == n0 + 1
     assert torch.equal(dx.cpu(), dx_cpu)
+
+
+def _bf16_ulps(a, b):
+    """Distance in bf16 ulps between two bf16 tensors, elementwise."""
+    def ordered(t):
+        u = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(u < 0, -(u & 0x7FFF), u)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+_FULL_SCALES = {}
+
+
+def _full_scales(name, layout, device):
+    """(inv_perm, rows) of each scale of the full-width bf16 serving rig of
+    `name` in `layout`, built once a module run (the rig itself is
+    dropped)."""
+    key = (name, layout)
+    if key not in _FULL_SCALES:
+        from vfa_tpu_torch.rig_cli import build_cli_rig
+
+        cfg = get_config(name)
+        rig = build_cli_rig(cfg, make_calibrations(cfg), device, layout=layout,
+                            dtype=torch.bfloat16)
+        _FULL_SCALES[key] = [(sr.inv_perm, sum(a.shape[1] for a in sr.A) * sr.tile_v)
+                             for sr in rig.scales]
+        del rig
+        torch.cuda.empty_cache()
+    return _FULL_SCALES[key]
+
+
+def _epilogue_inputs(scales, B, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    tiles, biases = [], []
+    for ip, rows in scales:
+        tiles.append(torch.randn((ip.shape[0], B, rows, 256), generator=gen).to(
+            device, torch.bfloat16))
+        biases.append((torch.randn((256,), generator=gen) * 0.5).to(device, torch.bfloat16))
+    return tiles, [ip for ip, _ in scales], biases
+
+
+@pytest.mark.parametrize("name,layout", [("MultiviewC", "window"), ("MultiviewC", "flat"),
+                                         ("Wildtrack", "window"), ("Wildtrack", "flat")],
+                         ids=["mvc-window", "mvc-flat", "wt-window", "wt-flat"])
+def test_bev_epilogue_full_width_equals_plain(cuda, name, layout):
+    """`csrc/rig_bev_epilogue.cu` on the inv_perms and tile rows of the
+    full-width bf16 serving rigs at batch 2, random tiles: one launch, bit
+    for bit `rig_bev_sum` (on the card) and the same bits twice; the
+    per-scale chain it replaces within one bf16 ulp (its fp32 camera sum
+    on the card may add in another order)."""
+    from vfa_tpu_torch.ops.rig_cuda import rig_bev_epilogue
+
+    tiles, inv_perms, biases = _epilogue_inputs(_full_scales(name, layout, cuda), 2, 5, cuda)
+    n0 = rig_bev_epilogue.launches
+    got = rig_bev_epilogue(tiles, inv_perms, biases)
+    assert rig_bev_epilogue.launches == n0 + 1
+    again = rig_bev_epilogue(tiles, inv_perms, biases)
+    want = trig.rig_bev_sum(tiles, inv_perms, biases)
+    torch.cuda.synchronize()
+    assert got.shape == (2, inv_perms[0].shape[1], 256) and got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert torch.equal(again.view(torch.int16), got.view(torch.int16))
+    chain = sum(trig.rig_epilogue(t, ip, b, torch.float32, True)
+                for t, ip, b in zip(tiles, inv_perms, biases)).to(torch.bfloat16)
+    assert int(_bf16_ulps(got, chain).max()) <= 1
+    assert 0 < int((got == 0).sum()) < got.numel()
+
+
+def test_bev_epilogue_past_2_31_elements_and_refusals(cuda):
+    """One Wildtrack-sized scale at batch 32 (7 x 32 x 43,200 x 256 tile
+    elements, past 2^31) and a random permutation: the last scene's rows
+    equal the plain version's. The wrapper refuses fp32 tiles, 16-bit
+    indices, more than 3 scales and another channel count."""
+    from vfa_tpu_torch.ops.rig_cuda import rig_bev_epilogue
+
+    N, B, V2d = 7, 32, 43200
+    assert N * B * V2d * 256 > 2 ** 31
+    gen = torch.Generator().manual_seed(3)
+    ip = torch.stack([torch.randperm(V2d, generator=gen) for _ in range(N)]).to(cuda)
+    t = torch.randn((N, B, V2d, 256), device=cuda, dtype=torch.bfloat16,
+                    generator=torch.Generator(device=cuda).manual_seed(4))
+    b = (torch.randn((256,), generator=gen) * 0.5).to(cuda, torch.bfloat16)
+    got = rig_bev_epilogue([t], [ip], [b])
+    want = trig.rig_bev_sum([t[:, -2:]], [ip], [b])
+    torch.cuda.synchronize()
+    assert torch.equal(got[-2:].view(torch.int16), want.view(torch.int16))
+    small = [t[:, :1, :64].contiguous()]
+    with pytest.raises(TypeError):
+        rig_bev_epilogue([small[0].float()], [ip[:, :64]], [b])
+    with pytest.raises(ValueError):
+        rig_bev_epilogue(small, [ip[:, :64].to(torch.int16)], [b])
+    with pytest.raises(ValueError):
+        rig_bev_epilogue(small * 4, [ip[:, :64]] * 4, [b] * 4)
+    with pytest.raises(ValueError):
+        rig_bev_epilogue([small[0][..., :128].contiguous()], [ip[:, :64]], [b[:128]])
+
+
+def test_serving_forward_bev_matches_the_per_scale_route(cuda, tmp_path):
+    """The full bf16 MultiviewC model on the 12-bucket serving rig at
+    batch 2: under no_grad `bev_features` takes the one-launch epilogue
+    (1 launch, K1-bf16 once a scale) and gives the per-scale route's BEV
+    (taken with gradients on) within one bf16 ulp."""
+    from vfa_tpu_torch.kernels import launch_counts
+    from vfa_tpu_torch.model.vfanet import VFANet, cast_model, init_weights
+    from vfa_tpu_torch.rig_cli import build_cli_rig
+
+    cfg = get_config("MultiviewC")
+    rig = build_cli_rig(cfg, make_calibrations(cfg), cuda, dtype=torch.bfloat16)
+    model = cast_model(init_weights(VFANet(cfg), torch.Generator().manual_seed(0)),
+                       torch.bfloat16).to(cuda).eval()
+    x = torch.rand((2, 7, *cfg.resize_size, 3), generator=torch.Generator().manual_seed(1))
+    x = x.to(cuda, torch.bfloat16)
+    n0 = launch_counts()
+    with torch.no_grad():
+        got = model.bev_features(x, rig)
+    n1 = launch_counts()
+    assert n1["rig_bev_epilogue"] - n0["rig_bev_epilogue"] == 1
+    assert n1["rig_window_fwd_bf16"] - n0["rig_window_fwd_bf16"] == 3
+    want = model.bev_features(x, rig)
+    assert want.requires_grad
+    assert launch_counts()["rig_bev_epilogue"] == n1["rig_bev_epilogue"]
+    want = want.detach()
+    torch.cuda.synchronize()
+    ulps = _bf16_ulps(got, want)
+    print(f"BEV elements one ulp apart: {int((ulps == 1).sum())} of {ulps.numel()}")
+    assert got.shape == (2, *rig.grid_shape, 256) and int(ulps.max()) <= 1
+
+
+def test_bev_epilogue_launches_once_a_serving_forward_never_in_training(cuda):
+    """`launch_counts()["rig_bev_epilogue"]` moves by 1 a bf16 serving
+    forward (eval, no_grad) and by 0 in a mixed-precision training step
+    (grad on: the per-scale route, which autograd differentiates), on the
+    tiny MultiviewC config's bf16 window rig; `rig_tiles_serving` gives
+    `rig_tiles_cuda`'s tiles."""
+    import copy
+
+    from vfa_tpu_torch.config import TrainConfig
+    from vfa_tpu_torch.data.synthetic_loader import SyntheticSceneLoader
+    from vfa_tpu_torch.kernels import launch_counts
+    from vfa_tpu_torch.model.vfanet import VFANet, cast_model, init_weights
+    from vfa_tpu_torch.train_lib import batch_to_device, make_optimizer, make_train_step
+
+    from vfa_tpu_torch.ops.rig_cuda import rig_tiles_serving
+
+    tc = tiny_config(get_config("MultiviewC"), factor=4)
+    rig = _bf16_rig("MultiviewC", 160, 3, "window", cuda)
+    # the serving tiles, every scale's forward on one shared vox scratch,
+    # are the autograd route's bits
+    lats, ks = zip(*(_bf16_inputs(sr, 2, 60 + si, cuda) for si, sr in enumerate(rig.scales)))
+    for got, sr, lat, k in zip(rig_tiles_serving(lats, rig.scales, ks), rig.scales, lats, ks):
+        assert torch.equal(got.view(torch.int16), rig_tiles_cuda(lat, sr, k).view(torch.int16))
+    loader = SyntheticSceneLoader(tc, num_frames=2, batch_size=2, max_objects=8, seed=3,
+                                  num_objects=3)
+    batch = batch_to_device(next(iter(loader)), cuda)
+    state = init_weights(VFANet(tc), torch.Generator().manual_seed(0)).state_dict()
+
+    serve = VFANet(tc)
+    serve.load_state_dict(state, strict=True)
+    serve = cast_model(serve, torch.bfloat16).to(cuda).eval()
+    n0 = launch_counts()["rig_bev_epilogue"]
+    with torch.no_grad():
+        serve(batch["images"].to(torch.bfloat16), rig)
+    assert launch_counts()["rig_bev_epilogue"] == n0 + 1
+
+    model = VFANet(tc)
+    model.load_state_dict(state, strict=True)
+    model = model.to(cuda)
+    tcfg = TrainConfig(pretrained=False, compute_dtype="bfloat16")
+    step = make_train_step(model, make_optimizer(model, tcfg, 1), tc, tcfg,
+                           dim_mean=loader.dim_mean)
+    b = copy.copy(batch)
+    b["images"] = b["images"].to(torch.bfloat16)
+    before = launch_counts()
+    losses = step(b, rig)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert all(torch.isfinite(v) for v in losses.values())
+    assert after["rig_bev_epilogue"] == before["rig_bev_epilogue"]
+    assert after["rig_window_fwd_bf16"] == before["rig_window_fwd_bf16"] + 3

@@ -55,6 +55,10 @@ SIGNATURES = {
         "stem_bwd_stats_bf16": [P] * 5 + [I] * 5 + [P],
         "stem_bwd_dx_bf16": [P] * 4 + [I] * 4 + [P],
     },
+    "rig_bev_epilogue": {
+        # per-scale host arrays (tiles, inv_perm, bias, rows), S, out, N, B, V2d
+        "rig_bev_epilogue_bf16": [P] * 4 + [I] + [P] + [I] * 3 + [P],
+    },
     "voxel_tap_bwd": {
         # g, the order index (ptr, rows, w), out; B, H * W, C
         "voxel_tap_bwd_f32": [P] * 5 + [I] * 3 + [P],
@@ -164,7 +168,7 @@ def launch_counts() -> Dict[str, int]:
 
     names = ("rig_window_fwd", "rig_window_bwd", "rig_flat_fwd", "rig_flat_bwd",
              "rig_window_fwd_bf16", "rig_flat_fwd_bf16", "rig_window_bwd_bf16",
-             "rig_flat_bwd_bf16")
+             "rig_flat_bwd_bf16", "rig_bev_epilogue")
     out = {n: getattr(rig_cuda, n).launches for n in names}
     for n in ("stem_bwd_stats", "stem_bwd_dx", "stem_bwd_stats_bf16", "stem_bwd_dx_bf16"):
         out[n] = getattr(stem, n).launches

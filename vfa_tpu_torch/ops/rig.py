@@ -23,7 +23,8 @@ directory it keeps each rig in an npz keyed by all of its inputs
 (`rig_cache_path`), so a repeated run loads instead of building.
 `rig_sample_scale` is the plain PyTorch version of the hand-written
 kernels (`ops/rig_cuda.py`) plus the shared epilogue; `window_tiles_bwd`
-and `flat_tiles_bwd` are the plain versions of the backward kernels.
+and `flat_tiles_bwd` are the plain versions of the backward kernels, and
+`rig_bev_sum` that of the serving epilogue over all scales.
 """
 
 from __future__ import annotations
@@ -1093,6 +1094,27 @@ def rig_epilogue(tiles: torch.Tensor, inv_perm: torch.Tensor,
     if camera_sum:
         return out.to(out_dtype).sum(0)
     return out.transpose(0, 1).to(out_dtype)
+
+
+def rig_bev_sum(tiles: Sequence[torch.Tensor], inv_perms: Sequence[torch.Tensor],
+                biases: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Every scale's tiles (N, B, rows_s, n_out) -> the BEV features (B,
+    V2d, n_out) in the tiles' dtype, with the roundings of `rig_epilogue`'s
+    fp32 camera sum and the fp32 sum over scales after it: per scale the
+    gather by inv_perm (N, V2d), + bias and ReLU in the tiles' dtype, the
+    fp32 sum over cameras in camera order; the scales' sums added in fp32
+    in scale order, from 0; one rounding at the end. The plain version of
+    `csrc/rig_bev_epilogue.cu` (`ops/rig_cuda.rig_bev_epilogue`)."""
+    N, B, _, n_out = tiles[0].shape
+    total = torch.zeros((B, inv_perms[0].shape[1], n_out), dtype=torch.float32,
+                        device=tiles[0].device)
+    for t, ip, bias in zip(tiles, inv_perms, biases):
+        acc = torch.zeros_like(total)
+        for n in range(N):
+            x = t[n][:, ip[n]]                                # (B, V2d, n_out)
+            acc = acc + torch.relu(x + bias.to(x.dtype)).float()
+        total = total + acc
+    return total.to(tiles[0].dtype)
 
 
 def rig_sample_scale(lat, rig: ScaleRig, collapse_kernel, collapse_bias,

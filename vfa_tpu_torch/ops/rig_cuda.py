@@ -30,9 +30,15 @@ once per layer, without atomics in the fixed order of
 when the rig is built), through an fp32 scratch of each band's gradient,
 so its dII has JAX's order and the same bits every run.
 
+Serving on bf16 does without that epilogue: `rig_bev_epilogue` wraps
+`csrc/rig_bev_epilogue.cu`, which takes every scale's tiles to the BEV
+features in one launch with the epilogue's roundings and saves nothing for
+a backward (`VFANet.sampling` takes it when no gradient is needed).
+
 On a CPU tensor a wrapper runs its kernel's plain version
 (`ops/rig.window_tiles`, `window_tiles_bwd`, `flat_tiles`,
-`flat_tiles_bwd`); on a CUDA tensor it launches the kernel or raises.
+`flat_tiles_bwd`, `rig_bev_sum`); on a CUDA tensor it launches the kernel
+or raises.
 """
 
 from __future__ import annotations
@@ -46,8 +52,8 @@ from vfa_tpu_torch import observability
 from vfa_tpu_torch.kernels import LaunchCount
 from vfa_tpu_torch.ops.rig import (
     ScaleRig, collapse_per_layer, flat_dii_index, flat_tiles, flat_tiles_bwd,
-    rig_epilogue, scale_features, window_bwd_serial, window_dii_index,
-    window_tiles, window_tiles_bwd,
+    rig_bev_sum, rig_epilogue, scale_features, window_bwd_serial,
+    window_dii_index, window_tiles, window_tiles_bwd,
 )
 
 
@@ -145,11 +151,12 @@ def _check_window_fwd(ii, A_b, starts_b, Kr, out, off_t, tile_v, window):
         f"{tuple(out.shape)}, off_t {off_t}, tile_v {tile_v}, window {window}")
 
 
-def _fwd_bf16(ii, buckets, Kr, out, tile_v):
+def _fwd_bf16(ii, buckets, Kr, out, tile_v, vox=None):
     """The bf16 forward over `buckets` ((A_b, starts_b, off_t, window or
     None) each, already checked; all window or all flat) in one call: one
-    launch of each pass for all of them, into one vox scratch. Counts one
-    launch of the layout's bf16 forward."""
+    launch of each pass for all of them, into one vox scratch (`vox`, a
+    bf16 buffer of at least the launch's elements on ii's device, or one
+    made here). Counts one launch of the layout's bf16 forward."""
     N, B, C = ii.shape[0], ii.shape[1], ii.shape[-1]
     nl = Kr.shape[0]
     nb = len(buckets)
@@ -162,8 +169,14 @@ def _fwd_bf16(ii, buckets, Kr, out, tile_v):
         raise ValueError(f"{what}: at most {MAX_BUCKETS} buckets a launch, "
                          f"got {nb}")
     Ts = [A_b.shape[1] for A_b, _, _, _ in buckets]
-    vox = torch.empty((N * B * sum(Ts) * nl * tile_v * C,), dtype=ii.dtype,
-                      device=ii.device)
+    need = N * B * sum(Ts) * nl * tile_v * C
+    if vox is None:
+        vox = torch.empty((need,), dtype=ii.dtype, device=ii.device)
+    elif (vox.dtype != ii.dtype or vox.device != ii.device or vox.numel() < need
+          or not vox.is_contiguous()):
+        raise ValueError(f"{what}: the vox scratch must be a contiguous "
+                         f"{ii.dtype} buffer of at least {need} elements on "
+                         f"{ii.device}, got {vox.dtype} {vox.numel()} on {vox.device}")
     ptrs = lambda xs: (ctypes.c_void_p * nb)(*xs)
     ints = lambda xs: (ctypes.c_int * nb)(*xs)
     per_bucket = [ptrs([A_b.data_ptr() for A_b, _, _, _ in buckets]),
@@ -218,12 +231,13 @@ def rig_window_fwd(ii: torch.Tensor, A_b: torch.Tensor, starts_b: torch.Tensor,
 
 
 def rig_fwd_scale(ii: torch.Tensor, rig: ScaleRig, Kr: torch.Tensor,
-                  out: torch.Tensor) -> torch.Tensor:
+                  out: torch.Tensor, vox: torch.Tensor = None) -> torch.Tensor:
     """Every bucket of one scale, either layout, into `out` (N, B,
     T_total*tile_v, n_out): on bf16 CUDA tensors one launch of each pass
     for the whole scale (one count in `rig_window_fwd_bf16.launches` or
-    `rig_flat_fwd_bf16.launches`), otherwise `rig_window_fwd` /
-    `rig_flat_fwd` bucket by bucket."""
+    `rig_flat_fwd_bf16.launches`; `vox` its scratch, or None for one of
+    its own), otherwise `rig_window_fwd` / `rig_flat_fwd` bucket by
+    bucket."""
     buckets = list(_buckets(rig))
     if ii.device.type == "cuda" and ii.dtype == torch.bfloat16:
         for A_b, s_b, off_t, win in buckets:
@@ -231,7 +245,7 @@ def rig_fwd_scale(ii: torch.Tensor, rig: ScaleRig, Kr: torch.Tensor,
                 _check_flat_fwd(ii, A_b, s_b, Kr, out, off_t, rig.tile_v)
             else:
                 _check_window_fwd(ii, A_b, s_b, Kr, out, off_t, rig.tile_v, win)
-        _fwd_bf16(ii, buckets, Kr, out, rig.tile_v)
+        _fwd_bf16(ii, buckets, Kr, out, rig.tile_v, vox)
         return out
     for A_b, s_b, off_t, win in buckets:
         if win is None:
@@ -524,6 +538,34 @@ def rig_tiles_cuda(lat: torch.Tensor, rig: ScaleRig,
     return RigScaleTiles.apply(ii, Kr, rig)
 
 
+def rig_tiles_serving(lats, scales, collapse_kernels):
+    """Each scale's tiles (N, B, T_total*tile_v, n_out) from its lat (B, N,
+    fh, fw, C), as `rig_tiles_cuda` computes them, without autograd: the
+    input of `rig_bev_epilogue`, which reads every scale's tiles at once.
+    On bf16 CUDA tensors the scales' forwards share one vox scratch (nl
+    times a scale's tiles; at Wildtrack batch 32, 37 GiB), allocated before
+    the tiles. Per-scale scratches, each freed while the scales' tiles stay
+    alive, leave the caching allocator to place the next scale's tiles in
+    the freed block and to find no room for the next scratch; one scratch
+    made first reuses its block every call."""
+    lat0 = lats[0]
+    rows = [sum(a.shape[1] for a in sr.A) * sr.tile_v for sr in scales]
+    vox = None
+    if lat0.device.type == "cuda" and lat0.dtype == torch.bfloat16:
+        N, B, C = lat0.shape[1], lat0.shape[0], lat0.shape[-1]
+        vox = torch.empty((max(N * B * r * sr.nl * C for r, sr in zip(rows, scales)),),
+                          dtype=lat0.dtype, device=lat0.device)
+    tiles = [torch.empty((lat.shape[1], lat.shape[0], r, k.shape[-1]), dtype=lat.dtype,
+                         device=lat.device)
+             for lat, r, k in zip(lats, rows, collapse_kernels)]
+    for lat, sr, k, out in zip(lats, scales, collapse_kernels, tiles):
+        ii = scale_features(lat, sr)
+        Kr = collapse_per_layer(k, lat.shape[-1], sr.nl, lat.dtype)
+        with observability.span("sampling.kernel"):
+            rig_fwd_scale(ii, sr, Kr, out, vox)
+    return tiles
+
+
 def rig_sample_scale_cuda(lat, rig: ScaleRig, collapse_kernel, collapse_bias,
                           out_dtype=None, camera_sum=False):
     """Same contract as `ops.rig.rig_sample_scale`, through the kernel."""
@@ -531,3 +573,55 @@ def rig_sample_scale_cuda(lat, rig: ScaleRig, collapse_kernel, collapse_bias,
     tiles = rig_tiles_cuda(lat, rig, collapse_kernel)
     return rig_epilogue(tiles, rig.inv_perm, collapse_bias, out_dtype,
                         camera_sum)
+
+
+def rig_bev_epilogue(tiles, inv_perms, biases) -> torch.Tensor:
+    """Every scale's tiles (N, B, rows_s, 256), as `rig_tiles_cuda` returns
+    them, with its inv_perm (N, V2d) int64 and collapse bias (256) -> the
+    BEV features (B, V2d, 256) in the tiles' dtype: `ops/rig.rig_bev_sum`.
+    On bf16 CUDA tensors one launch of `csrc/rig_bev_epilogue.cu` for all
+    scales (counted in `rig_bev_epilogue.launches`); on CPU tensors the
+    plain version; nothing else is taken. No autograd: serving only."""
+    t0 = tiles[0]
+    biases = [b.to(t0.dtype) for b in biases]
+    if t0.device.type == "cpu":
+        return rig_bev_sum(tiles, inv_perms, biases)
+    what = "rig_bev_epilogue"
+    if t0.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t0.device}")
+    if t0.dtype != torch.bfloat16:
+        raise TypeError(f"{what}: the kernel takes bfloat16 tiles, got {t0.dtype}")
+    N, B, _, n_out = t0.shape
+    V2d = inv_perms[0].shape[1]
+    S = len(tiles)
+    if not (1 <= S <= 3 and len(inv_perms) == S and len(biases) == S):
+        raise ValueError(f"{what}: 1 to 3 scales, each with its tiles, inv_perm "
+                         f"and bias, got {len(tiles)}, {len(inv_perms)}, {len(biases)}")
+    if n_out != 256 or not 1 <= N <= 32:
+        raise ValueError(f"{what}: the kernel takes 256 channels and 1 to 32 "
+                         f"cameras, got {n_out} and {N}")
+    for t, ip, b in zip(tiles, inv_perms, biases):
+        if (t.dtype != torch.bfloat16 or ip.dtype != torch.int64
+                or t.shape[:2] != (N, B) or t.shape[3] != 256 or t.shape[2] < 1
+                or tuple(ip.shape) != (N, V2d) or tuple(b.shape) != (256,)):
+            raise ValueError(f"{what}: inconsistent scale: tiles {t.dtype} "
+                             f"{tuple(t.shape)}, inv_perm {ip.dtype} "
+                             f"{tuple(ip.shape)}, bias {tuple(b.shape)}")
+        for name, x in (("tiles", t), ("inv_perm", ip), ("bias", b)):
+            if x.device != t0.device:
+                raise ValueError(f"{what}: {name} on {x.device}, tiles on {t0.device}")
+            if not x.is_contiguous() or x.data_ptr() % 16:
+                raise ValueError(f"{what}: {name} must be contiguous and "
+                                 "16-byte aligned")
+    out = torch.empty((B, V2d, 256), dtype=torch.bfloat16, device=t0.device)
+    ptrs = lambda xs: (ctypes.c_void_p * S)(*[x.data_ptr() for x in xs])
+    rows = (ctypes.c_longlong * S)(*[t.shape[2] for t in tiles])
+    from vfa_tpu_torch.kernels import launch
+
+    launch(what, "rig_bev_epilogue_bf16", t0.device, ptrs(tiles), ptrs(inv_perms),
+           ptrs(biases), rows, S, out.data_ptr(), N, B, V2d)
+    rig_bev_epilogue.launches += 1
+    return out
+
+
+rig_bev_epilogue.launches = 0
