@@ -37,14 +37,12 @@ def half_batch_fault(mode) -> dict:
 
     B = mode.traffic["batch"]
     n = mode.settings["checked_steps"]
-    args = (mode.calibs, mode.grid, mode.cfg["train"] | {"loss_weight": mode.ds["loss_weight"]},
-            mode.cfg["model"]["dim_mean"], mode.cfg["model"]["angle_bins"])
 
     def steps(keep):
         batches = [(mode.scenes.floats(slice(i * B, i * B + keep)),
                     {k: v[:keep] if v.dim() and v.shape[0] == B else v
                      for k, v in mode.batches[i].items()}) for i in range(n)]
-        out = mode.ref.train_steps(mode.reference(), batches, *args)
+        out = mode.ref.train_steps(mode.reference(), batches, mode.calibs, mode.grid, mode.cfg)
         return {"losses": out["losses"], "pred": out["pred"], "grads": norms(out["grads"]),
                 "change": norms(out["change"])}
 

@@ -29,11 +29,11 @@ class Cell:
         self.seed, self.device, self.cache_dir = seed, device, cache_dir
         self.ds = cfg["dataset"]
         self.dtype = getattr(torch, cfg["dtype"])
-        # the configuration's plain reference, `reference/<name>.py`
-        self.ref = importlib.import_module(f"reference.{cfg['reference']}")
+        # the plain reference of the configuration's architecture
+        self.ref = importlib.import_module(f"reference.{cfg['arch']}")
         self.twin = cfg["check_twin"]
         gen = torch.Generator(device=device).manual_seed(sub_seeds(seed, 3)[2])
-        self.state = self.ref.init_state(self.ref.ReferenceVFA(self.ds, cfg["model"]), gen, device)
+        self.state = self.ref.init_state(self.ref.Reference(self.ds, cfg["model"]), gen, device)
         self.calls = 0
 
     # -- the timed path ---------------------------------------------------
@@ -68,7 +68,7 @@ class Cell:
         """The reference in fp32 (or, with `low`, its operands rounded:
         'fp8', the control; the configuration's `check_twin`, the twin)
         with the cell's weights, on the cell's device."""
-        ref = self.ref.ReferenceVFA(self.ds, self.cfg["model"], low).to(self.device)
+        ref = self.ref.Reference(self.ds, self.cfg["model"], low).to(self.device)
         ref.load_state_dict(self.state)
         return ref
 
@@ -99,11 +99,8 @@ class Cell:
                 parts[low] += head_parts(m(*args), want, tw)
         out = {"pred_vs_bf16": vs_twin(parts["prog"])}
         out.update({f"{low}_pred_vs_bf16": vs_twin(parts[low]) for low in lows})
-        dec = self.cfg["decode"]
-        out["decode_mismatch"] = sum(
-            decode_mismatch(det, self.ref.decode(pred, self.ds, dec["cls_thresh"], dec["topk"],
-                                                 self.cfg["model"]["dim_mean"]))
-            for pred, det in outputs)
+        out["decode_mismatch"] = sum(decode_mismatch(det, self.ref.decode(pred, self.cfg))
+                                     for pred, det in outputs)
         if detail:
             out["pred_rel_l2"] = vs_twin([(h, r, e, r) for h, r, e, _ in parts["prog"]], 0.0)
             out["parts"] = parts

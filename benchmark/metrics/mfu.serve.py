@@ -1,6 +1,6 @@
 """The whole serving call's share (%) of the card's dense peak in the
-configuration's dtype: the model's forward FLOPs a scene (`work.py`) times
-the window's scenes a second."""
+configuration's dtype: the model's forward FLOPs a scene
+(`work/<arch>.py`) times the window's scenes a second."""
 
 
 def read(ctx):

@@ -1,6 +1,6 @@
 """The whole training step's share (%) of the card's dense peak in the
 configuration's dtype: three times the model's forward FLOPs a scene
-(`work.py`) times the window's scenes a second."""
+(`work/<arch>.py`) times the window's scenes a second."""
 
 
 def read(ctx):

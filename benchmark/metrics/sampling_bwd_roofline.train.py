@@ -1,8 +1,9 @@
 """Share (%) of its roofline that the sampling layer's backward reaches in
 a training step (the rig's backward kernels and their reductions): the
 least time for the collapse's two backward products or the layer's least
-bytes (`work.py`) over the layer clock's backward span (the gradient
-leaving `fuse`'s input to the first gradient at a lateral's output)."""
+bytes (`work/vfanet.py`) over the layer clock's backward span (the
+gradient leaving `fuse`'s input to the first gradient at a lateral's
+output)."""
 
 
 def read(ctx):

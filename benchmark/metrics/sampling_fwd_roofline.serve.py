@@ -1,8 +1,9 @@
 """Share (%) of its roofline that the sampling layer's forward reaches in
 serving (the port's rig sampling, `ops/rig_cuda.py`, from the last lateral
-to `fuse`): the least time the chip needs for the layer's work (`work.py`:
-the collapse over the visible pairs at the bf16 peak, or its least bytes at
-the memory bandwidth) over the layer clock's time of the span."""
+to `fuse`): the least time the chip needs for the layer's work
+(`work/vfanet.py`: the collapse over the visible pairs at the bf16 peak, or
+its least bytes at the memory bandwidth) over the layer clock's time of
+the span."""
 
 
 def read(ctx):

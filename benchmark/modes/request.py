@@ -31,8 +31,8 @@ class Mode(Cell):
         self.host = [self.scenes.images[i].cpu().numpy() for i in range(P)]
         self.calibs = torch.as_tensor(self.scenes.calibs, device=dev)
         self.grid = torch.as_tensor(self.scenes.grid, device=dev)
-        rig = program.build_rig(self.cfg, self.scenes.calibs, dev, False, self.cache_dir)
-        self.serve = program.server(self.cfg, self.state, rig, dev, self.calibs, self.grid)
+        prepared = program.prepare(self.cfg, self.scenes.calibs, dev, False, self.cache_dir)
+        self.serve = program.server(self.cfg, self.state, prepared, dev, self.calibs, self.grid)
         self.last = [None] * P
         self.latency = []
         self.h2d = None

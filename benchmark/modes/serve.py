@@ -24,8 +24,8 @@ class Mode(Cell):
         self.scenes = Scenes(self.ds, self.seed, B * D, dev)
         self.calibs = torch.as_tensor(self.scenes.calibs, device=dev)
         self.grid = torch.as_tensor(self.scenes.grid, device=dev)
-        rig = program.build_rig(self.cfg, self.scenes.calibs, dev, False, self.cache_dir)
-        self.serve = program.server(self.cfg, self.state, rig, dev, self.calibs, self.grid)
+        prepared = program.prepare(self.cfg, self.scenes.calibs, dev, False, self.cache_dir)
+        self.serve = program.server(self.cfg, self.state, prepared, dev, self.calibs, self.grid)
         self.inputs = [self.scenes.floats(slice(i * B, (i + 1) * B), self.dtype)
                        for i in range(D)]
         self.last = [None] * D

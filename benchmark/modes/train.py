@@ -35,7 +35,7 @@ class Mode(Cell):
         self.scenes = Scenes(self.ds, self.seed, B * D, dev)
         self.calibs = torch.as_tensor(self.scenes.calibs, device=dev)
         self.grid = torch.as_tensor(self.scenes.grid, device=dev)
-        self.rig = program.build_rig(self.cfg, self.scenes.calibs, dev, True, self.cache_dir)
+        self.prepared = program.prepare(self.cfg, self.scenes.calibs, dev, True, self.cache_dir)
         self.step, self.net, opt = program.trainer(self.cfg, self.state, dev)
         self.batches = []
         for i in range(D):
@@ -70,7 +70,7 @@ class Mode(Cell):
                 "change": change}
 
     def _step(self) -> dict:
-        out = self.step(self.batches[self.calls % len(self.batches)], self.rig)
+        out = self.step(self.batches[self.calls % len(self.batches)], self.prepared)
         self.calls += 1
         return out
 
@@ -85,7 +85,7 @@ class Mode(Cell):
         return {"train_scenes_per_s": scenes / seconds}
 
     def release(self) -> None:
-        del self.step, self.net, self.rig
+        del self.step, self.net, self.prepared
         self.sync()
 
     def numbers(self, lows=(), detail=False) -> dict:
@@ -98,12 +98,10 @@ class Mode(Cell):
         B, n = self.traffic["batch"], self.settings["checked_steps"]
         batches = [(self.scenes.floats(slice(i * B, (i + 1) * B)), self.batches[i])
                    for i in range(n)]
-        recipe = self.cfg["train"] | {"loss_weight": self.ds["loss_weight"]}
-        m = self.cfg["model"]
 
         def steps(low=None):
-            out = self.ref.train_steps(self.reference(low), batches, self.calibs, self.grid, recipe,
-                              m["dim_mean"], m["angle_bins"])
+            out = self.ref.train_steps(self.reference(low), batches, self.calibs, self.grid,
+                                       self.cfg)
             return {"losses": out["losses"], "pred": out["pred"], "grads": norms(out["grads"]),
                     "change": norms(out["change"])}
 

@@ -1,76 +1,51 @@
-"""The system under test, as the benchmark drives it: the only module of the
-benchmark that imports the port (`vfa_tpu_torch`). It builds the port's
-model from a state dict the benchmark made, the port's compiled rig through
-its own set-up (`rig_cli.build_cli_rig`) with the benchmark's cache
-directory, and returns the calls that a cell's traffic times.
+"""The system under test, as the benchmark drives it: with `programs/`, the
+only code of the benchmark that imports the port (`vfa_tpu_torch`). The
+modes call the functions here; each forwards to the adapter of the
+architecture the configuration names under "arch", `programs/<arch>.py`,
+which gives:
+
+- `prepare(cfg, calibs, device, train, cache_dir)`: what the model needs
+  besides its weights and the scene, made at set-up from the cameras (for
+  VFANet the compiled rig), opaque to the harness;
+- `server(cfg, state, prepared, device, calibs, grid)`: serve(images) ->
+  (predictions, detections) on the device, with `serve.model` the model;
+- `trainer(cfg, state, device)`: (step, model, optimizer), where
+  step(batch, prepared) runs one training step and returns its loss under
+  "loss";
+- `clock_points(model)`: the modules the layer clock stamps
+  (`devtrace.LayerClock`), or None.
+
+What is the port's whatever the architecture stays here: the request
+staging and the port's spans (`vfa_tpu_torch.observability`), each of the
+latter empty where the port lacks it.
 """
 
 from __future__ import annotations
 
-import contextlib
-import os
-import sys
+import importlib
 
 import torch
 
 
-def dataset_config(ds: dict):
-    """The port's DatasetConfig of a configuration's `dataset` group."""
-    from vfa_tpu_torch.config import DatasetConfig
-
-    return DatasetConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in ds.items()})
+def adapter(cfg: dict):
+    """The adapter module of the configuration's architecture."""
+    return importlib.import_module(f"programs.{cfg['arch']}")
 
 
-def _model(cfg: dict, state: dict, device):
-    """The port's VFANet at its defaults (no memory option, the stem
-    unfused), loaded strictly from `state`."""
-    from vfa_tpu_torch.model.vfanet import VFANet
-
-    m = cfg["model"]
-    # the port takes VFA_FUSED_STEM from the environment over its default
-    os.environ["VFA_FUSED_STEM"] = "0"
-    model = VFANet(dataset_config(cfg["dataset"]), base=m["base"],
-                   angle_range=m["angle_bins"], rig_impl="cuda")
-    model.load_state_dict(state, strict=True)
-    return model.to(device)
+def prepare(cfg: dict, calibs, device, train: bool, cache_dir: str):
+    return adapter(cfg).prepare(cfg, calibs, device, train, cache_dir)
 
 
-def build_rig(cfg: dict, calibs, device, train: bool, cache_dir: str):
-    """The port's rig for this configuration (train: the training bucket
-    policy), built on the host or loaded from `cache_dir`; its log line
-    goes to stderr."""
-    from vfa_tpu_torch.rig_cli import build_cli_rig
-
-    rig = cfg["rig"]
-    with contextlib.redirect_stdout(sys.stderr):
-        return build_cli_rig(dataset_config(cfg["dataset"]), calibs, device,
-                             buckets=rig["train_buckets" if train else "serve_buckets"],
-                             training=train, layout=rig["layout"], cache_dir=cache_dir,
-                             dtype=getattr(torch, cfg["dtype"]))
+def server(cfg: dict, state: dict, prepared, device, calibs, grid):
+    return adapter(cfg).server(cfg, state, prepared, device, calibs, grid)
 
 
-def server(cfg: dict, state: dict, rig, device, calibs, grid):
-    """serve(images) -> (predictions, detections), both on the device: the
-    port's model cast to the configuration's dtype (every floating
-    parameter and buffer, `cast_model`) in eval mode, then the port's
-    decode of the fp32 predictions."""
-    from vfa_tpu_torch.codec import decode_frame
-    from vfa_tpu_torch.model.vfanet import cast_model
+def trainer(cfg: dict, state: dict, device):
+    return adapter(cfg).trainer(cfg, state, device)
 
-    model = cast_model(_model(cfg, state, device), getattr(torch, cfg["dtype"])).eval()
-    dcfg = dataset_config(cfg["dataset"])
-    dec = cfg["decode"]
-    dim_mean = cfg["model"]["dim_mean"] if dcfg.mode == "3D" else None
 
-    @torch.no_grad()
-    def serve(images):
-        pred = model(images, rig, calibs, grid)
-        det = decode_frame({k: v.float() for k, v in pred.items()}, dcfg,
-                           cls_thresh=dec["cls_thresh"], topk=dec["topk"], dim_mean=dim_mean)
-        return pred, det
-
-    serve.model = model
-    return serve
+def clock_points(cfg: dict, model):
+    return adapter(cfg).clock_points(model)
 
 
 def stage(images_u8, device, dtype: str) -> torch.Tensor:
@@ -81,21 +56,37 @@ def stage(images_u8, device, dtype: str) -> torch.Tensor:
     return stage_images(images_u8, device, getattr(torch, dtype))
 
 
-def trainer(cfg: dict, state: dict, device):
-    """(step, model, optimizer): the port's training step
-    (`train_lib.make_train_step`) over a model with fp32 master parameters
-    and the port's SGD under OneCycle; the configuration's dtype is the
-    compute dtype (bfloat16: mixed precision)."""
-    from vfa_tpu_torch.config import TrainConfig
-    from vfa_tpu_torch.train_lib import make_optimizer, make_train_step
+def _observability(name: str):
+    """The port's `observability.<name>`, or None where the port lacks it."""
+    try:
+        from vfa_tpu_torch import observability
+    except ImportError:
+        return None
+    return getattr(observability, name, None)
 
-    model = _model(cfg, state, device)
-    dcfg = dataset_config(cfg["dataset"])
-    t = cfg["train"]
-    tcfg = TrainConfig(epochs=t["epochs"], lr=t["lr"], weight_decay=t["weight_decay"],
-                       angle_range=cfg["model"]["angle_bins"], pretrained=False,
-                       compute_dtype=cfg["dtype"])
-    opt = make_optimizer(model, tcfg, t["steps_per_epoch"])
-    dim_mean = cfg["model"]["dim_mean"] if dcfg.mode == "3D" else None
-    step = make_train_step(model, opt, dcfg, tcfg, dim_mean=dim_mean)
-    return step, model, opt
+
+def tracing(on: bool) -> None:
+    """Switch the port's spans on or off."""
+    fn = _observability("tracing")
+    if fn is not None:
+        fn(on)
+
+
+def span_totals() -> dict:
+    """Per span name since the last `clear_spans`: calls, host ms, device
+    ms (None without CUDA events) and the self times of both."""
+    fn = _observability("span_totals")
+    return fn() if fn is not None else {}
+
+
+def clear_spans() -> None:
+    fn = _observability("clear_spans")
+    if fn is not None:
+        fn()
+
+
+def setup_totals() -> dict:
+    """Per set-up span name (the rig's `rig.load` or `rig.build`): calls,
+    host ms and self host ms."""
+    fn = _observability("setup_totals")
+    return fn() if fn is not None else {}

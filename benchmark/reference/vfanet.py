@@ -351,13 +351,19 @@ class ReferenceVFA(nn.Module):
         return self.heads(self.bev(images, calibs, grid))
 
 
+# the name every architecture's reference gives its model (`cell.py`)
+Reference = ReferenceVFA
+
+
 # -- decode -------------------------------------------------------------------
 @torch.no_grad()
-def decode(pred: dict, ds: dict, cls_thresh: float, topk: int, dim_mean=None) -> dict:
-    """Detections (B, K) of predictions: sigmoid, 5x5 max-pool NMS, the k
-    highest scores (ties in index order), the threshold, the cell plus
-    sigmoid offset in world units, exp(dim offset) * class mean, the CSL
-    bin's angle in radians."""
+def decode(pred: dict, cfg: dict) -> dict:
+    """Detections (B, K) of predictions under the configuration's decode
+    settings: sigmoid, 5x5 max-pool NMS, the k highest scores (ties in
+    index order), the threshold, the cell plus sigmoid offset in world
+    units, exp(dim offset) * class mean, the CSL bin's angle in radians."""
+    ds, dim_mean = cfg["dataset"], cfg["model"]["dim_mean"]
+    cls_thresh, topk = cfg["decode"]["cls_thresh"], cfg["decode"]["topk"]
     hm = pred["heatmap"].float()
     B, _, L, W = hm.shape
     dev = hm.device
@@ -472,11 +478,11 @@ def loss(pred: dict, gt: dict, ds: dict, weights) -> torch.Tensor:
     return l_yx * pos_w + l_dim * dim_w + l_hm * hm_w + l_ang * ang_w
 
 
-def train_steps(model: ReferenceVFA, batches: list, calibs, grid, recipe: dict,
-                dim_mean=None, bins: int = 360) -> dict:
-    """len(batches) steps of SGD (momentum, weight decay) under torch's
-    OneCycleLR, stepped once an epoch as the upstream trainer does (so
-    every step here takes the schedule's step 1). Each batch is (images
+def train_steps(model: ReferenceVFA, batches: list, calibs, grid, cfg: dict) -> dict:
+    """len(batches) steps of SGD (momentum, weight decay; the
+    configuration's `train` group) under torch's OneCycleLR, stepped once
+    an epoch as the upstream trainer does (so every step here takes the
+    schedule's step 1). Each batch is (images
     (B, N, H, W, 3) fp32, ground truth). The BEV features of a batch are
     computed a scene at a time without a graph, the fuse block, heads and
     loss on the whole batch (the BatchNorms take its statistics), and each
@@ -485,6 +491,7 @@ def train_steps(model: ReferenceVFA, batches: list, calibs, grid, recipe: dict,
 
     Returns the loss of each step, the first step's predictions, its
     gradients and each parameter's change over all steps, by name."""
+    recipe, dim_mean, bins = cfg["train"], cfg["model"]["dim_mean"], cfg["model"]["angle_bins"]
     params = dict(model.named_parameters())
     start = {k: p.detach().clone() for k, p in params.items()}
     opt = torch.optim.SGD(model.parameters(), lr=recipe["lr"], momentum=0.9,
@@ -504,7 +511,7 @@ def train_steps(model: ReferenceVFA, batches: list, calibs, grid, recipe: dict,
         ortho.requires_grad_(True)
         pred = model.heads(ortho)
         total = loss(pred, targets(truth, model.ds, dim_mean, bins), model.ds,
-                     recipe["loss_weight"])
+                     model.ds["loss_weight"])
         total.backward()
         for b in range(S):
             model.bev(images[b:b + 1], calibs, grid).backward(ortho.grad[b:b + 1])

@@ -7,18 +7,22 @@ The cell is an entry of `workloads` in BENCHMARK.json (at the root of the
 checkout), which names its configuration (`configs/<config>.json`) and its
 traffic (`traffic/<traffic>.json`, whose "mode" names the loop in
 `modes/<mode>.py`); `workloads/<cell>.json` holds the cell's check settings
-and limits; each per-layer metric is read by `metrics/<metric>.py`. A new
-configuration, traffic, cell or metric is a new file and a new entry.
+and limits; each per-layer metric is read by `metrics/<metric>.py`. The
+configuration's "arch" names its architecture's adapter to the port
+(`programs/<arch>.py`), plain reference (`reference/<arch>.py`) and work
+counts (`work/<arch>.py`). A new architecture, configuration, traffic, cell
+or metric is a new file and a new entry.
 
 Set-up (weights and inputs from the seed, the port's rig from the cache
 under `benchmark/.cache/`, the kernels built at first use, every shape the
 traffic uses warmed) counts from the start of this script to the first
 timed call. Then the window: `--seconds` of traffic, ending in a wait for
-the device. `--trace 1` then traces a short steady sub-window
-(torch.profiler and CUDA events at the model's module boundaries) and
-prints the per-layer metrics instead of the end-to-end ones. Last, with the
-program freed, the check against the plain reference (`check.py`); its
-numbers and limits end standard error and the result line.
+the device. `--trace 1` then traces two short steady sub-windows
+(torch.profiler and CUDA events at the model's module boundaries; then
+the port's own spans) and prints the per-layer metrics instead of the
+end-to-end ones. Last, with the program freed, the check against the plain
+reference (`check.py`); its numbers and limits end standard error and the
+result line.
 
 Exits 2 without a result where no CUDA card (or too few) is found, and 3
 where a module of JAX or of the JAX package was loaded.
@@ -159,24 +163,11 @@ def run(argv=None, device=None, spec=None) -> dict:
         "kind": torch.cuda.get_device_name(device) if cuda else device.type,
         "count": 1, "memory_peak_bytes": torch.cuda.max_memory_allocated(device) if cuda else 0}}
     if args.trace:
-        import devtrace
-        import work
-
-        clock = devtrace.LayerClock(mode.model(), mode.train, cuda)
-        clock.install()
-        traced = {}
-        prof = devtrace.profile(lambda: traced.update(scenes=mode.traced(settings["trace_calls"])))
-        clock.remove()
-        log(f"traced: {prof['window_s']} s")
-        kind = result["device"]["kind"]
-        ctx = {"mode": traffic["mode"], "cfg": cfg, "batch": traffic.get("batch", 1),
-               "rate": scenes / seconds, "scenes": traced["scenes"], "layers_ms": clock.totals_ms(),
-               "busy_s": prof["busy_s"], "window_s": prof["window_s"],
-               "h2d_ms": mode.h2d_ms() if hasattr(mode, "h2d_ms") else [], "work": work,
-               "device": device, "peak": peak_of(kind, cfg["dtype"])}
+        ctx = traced_context(mode, spec, cuda)
+        ctx.update(rate=scenes / seconds, peak=peak_of(result["device"]["kind"], cfg["dtype"]))
         result["metrics"] = per_layer(spec, ctx)
-        result["device"].update(busy_s=prof["busy_s"], window_s=prof["window_s"])
-        result["breakdown"] = prof["breakdown"]
+        result["device"].update(busy_s=ctx["busy_s"], window_s=ctx["window_s"])
+        result["breakdown"] = ctx["breakdown"]
     else:
         result["metrics"] = {m["name"]: {"value": setup_s if m["name"] == "setup_s"
                                          else e2e[m["name"]], "unit": m["unit"]}
@@ -190,6 +181,44 @@ def run(argv=None, device=None, spec=None) -> dict:
     log(f"check: {time.perf_counter() - t} s; run {time.perf_counter() - T0} s")
     return {"correct": ok, "attempted": scenes, "failed": 0, **result,
             "checked": [[k, finite(v), lim] for k, v, lim in rows]}
+
+
+def traced_context(mode, spec: dict, cuda: bool) -> dict:
+    """What the per-layer metrics read (README), from two traced
+    sub-windows of the settings' `trace_calls` calls each. The first, the
+    port's spans off: the layer clock at the adapter's points and the
+    profiler's busy time and breakdown. The second, the spans on, after
+    one call that makes their CUDA events (which the window's spans record
+    again): the spans' totals and the device's idle gaps by span."""
+    import devtrace
+    import program
+
+    cfg, calls = spec["config"], spec["settings"]["trace_calls"]
+    clock = devtrace.LayerClock(program.clock_points(cfg, mode.model()), mode.train, cuda)
+    clock.install()
+    traced = {}
+    prof = devtrace.profile(lambda: traced.update(scenes=mode.traced(calls)), cuda)
+    clock.remove()
+    log(f"traced: {prof['window_s']} s")
+    ctx = {"mode": spec["traffic"]["mode"], "cfg": cfg, "batch": spec["traffic"].get("batch", 1),
+           "scenes": traced["scenes"], "layers_ms": clock.totals_ms(),
+           "busy_s": prof["busy_s"], "window_s": prof["window_s"],
+           "breakdown": prof["breakdown"],
+           "h2d_ms": mode.h2d_ms() if hasattr(mode, "h2d_ms") else [],
+           "work": importlib.import_module(f"work.{cfg['arch']}"),
+           "device": mode.device, "setup_spans": program.setup_totals()}
+    program.tracing(True)
+    try:
+        mode.traced(1)
+        program.clear_spans()
+        idle = devtrace.profile_spans(
+            lambda: traced.update(span_scenes=mode.traced(calls)), cuda)
+        ctx["spans"] = program.span_totals()
+    finally:
+        program.tracing(False)
+    log(f"traced with spans: {idle['window_s']} s; idle ms by span {idle['idle_by_span_ms']}")
+    ctx.update(span_scenes=traced["span_scenes"], span_idle=idle)
+    return ctx
 
 
 def check_verdict(mode, limits: dict) -> tuple:

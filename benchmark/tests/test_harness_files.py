@@ -50,12 +50,32 @@ def test_names_units_and_entry_keys():
         assert m["moves"] in e2e
 
 
+def reduced_faults(entry: dict, cfg: dict) -> list:
+    """What breaks the rule for a configuration's `reduced` (its
+    BENCHMARK.json entry, its file): each entry names a key of the file
+    whose published value the file states beside it, under "published",
+    and that differs from the value run; the file lists the same keys."""
+    faults = [] if cfg.get("reduced", []) == entry["reduced"] else ["the file's reduced differs"]
+    published = cfg.get("published", {})
+    for key in entry["reduced"]:
+        if key not in cfg:
+            faults.append(f"{key}: not a key of the file")
+        elif key not in published:
+            faults.append(f"{key}: no published value")
+        elif published[key] == cfg[key]:
+            faults.append(f"{key}: the published value is the one run")
+    return faults
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_found_by_name(cell):
     spec = run.cell_spec(cell)
     assert spec["config"]["name"] == spec["cell"]["config"]
     assert os.path.exists(os.path.join(run.HERE, "modes", f"{spec['traffic']['mode']}.py"))
-    assert spec["config"]["reduced"] == []
+    entry = {c["name"]: c for c in BENCH["configs"]}[spec["cell"]["config"]]
+    assert reduced_faults(entry, spec["config"]) == []
+    for folder in ("programs", "reference", "work"):
+        assert os.path.exists(os.path.join(run.HERE, folder, f"{spec['config']['arch']}.py"))
     names = {m["name"] for m in spec["end_to_end"]}
     assert "setup_s" in names and len(names) >= 2 and spec["per_layer"]
     for m in spec["per_layer"]:
@@ -66,7 +86,8 @@ def test_cell_found_by_name(cell):
 
 
 def test_every_file_is_used():
-    """Each configuration, traffic mix and workload file belongs to an entry."""
+    """Each configuration, traffic mix, workload, metric and architecture
+    file belongs to an entry."""
     configs = {c["file"] for c in BENCH["configs"]}
     for name in os.listdir(os.path.join(run.HERE, "configs")):
         assert f"benchmark/configs/{name}" in configs
@@ -76,18 +97,41 @@ def test_every_file_is_used():
     metrics = {m["name"] for m in BENCH["per_layer"]}
     assert {n[:-3] for n in os.listdir(os.path.join(run.HERE, "metrics"))
             if n.endswith(".py")} == metrics
+    archs = {run.load_json(ROOT, c["file"])["arch"] for c in BENCH["configs"]}
+    for folder in ("programs", "reference", "work"):
+        assert {n[:-3] for n in os.listdir(os.path.join(run.HERE, folder))
+                if n.endswith(".py") and n != "__init__.py"} == archs, folder
+
+
+@pytest.mark.parametrize("entry,cfg,faults", [
+    ({"reduced": []}, {"reduced": [], "model": {"layers": 8}}, 0),
+    ({"reduced": ["model"]}, {"reduced": ["model"], "model": {"layers": 2},
+                              "published": {"model": {"layers": 8}}}, 0),
+    ({"reduced": ["model"]}, {"reduced": ["model"], "model": {"layers": 2}}, 1),
+    ({"reduced": ["depth"]}, {"reduced": ["depth"], "model": {"layers": 2},
+                              "published": {"depth": 8}}, 1),
+    ({"reduced": ["model"]}, {"reduced": ["model"], "model": {"layers": 8},
+                              "published": {"model": {"layers": 8}}}, 1),
+    ({"reduced": ["model"]}, {"reduced": [], "model": {"layers": 2},
+                              "published": {"model": {"layers": 8}}}, 1),
+])
+def test_reduced_rule(entry, cfg, faults):
+    """A configuration cut to one chip passes where it states what it cut."""
+    assert len(reduced_faults(entry, cfg)) == faults
 
 
 @pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
 def test_reference_keys_are_the_programs(config):
     """The state dict the benchmark makes loads into the port strictly."""
+    import importlib
+
     import torch
 
-    from program import _model
-    from reference.vfanet import ReferenceVFA, init_state
+    import program
 
     cfg = run.load_json(ROOT, f"benchmark/configs/{config}.json")
-    state = init_state(ReferenceVFA(cfg["dataset"], cfg["model"]),
-                       torch.Generator().manual_seed(1), "cpu")
-    model = _model(cfg, state, "cpu")
+    ref = importlib.import_module(f"reference.{cfg['arch']}")
+    state = ref.init_state(ref.Reference(cfg["dataset"], cfg["model"]),
+                           torch.Generator().manual_seed(1), "cpu")
+    model = program.server(cfg, state, None, torch.device("cpu"), None, None).model
     assert set(model.state_dict()) == set(state)

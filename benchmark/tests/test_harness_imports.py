@@ -1,5 +1,6 @@
 """What the run command loads: no module of JAX or of the JAX package, and
-a reference that takes nothing from the program under test."""
+a reference that takes nothing from the program under test; only
+program.py and the adapters import the port."""
 
 import ast
 import glob
@@ -14,10 +15,12 @@ import sys
 sys.argv = ["run.py"]
 sys.path[:0] = [{here!r}]
 import run, calibrate, cell, check, devtrace, program, scene, work
-import reference.vfanet
+import glob, importlib, os
+for pkg in ("programs", "reference", "work"):
+    for path in glob.glob(f"{{run.HERE}}/{{pkg}}/*.py"):
+        importlib.import_module(f"{{pkg}}.{{os.path.basename(path)[:-3]}}")
 for mode in ("serve", "request", "train"):
     run.load_module(f"{{run.HERE}}/modes/{{mode}}.py", mode)
-import glob
 for path in glob.glob(f"{{run.HERE}}/metrics/*.py"):
     run.load_module(path, "metric")
 {extra}
@@ -56,8 +59,10 @@ def test_reference_imports_nothing_of_the_program():
 
 
 def test_only_program_imports_the_port():
+    """program.py and the architectures' adapters, programs/*.py."""
     for path in glob.glob(os.path.join(run.HERE, "**", "*.py"), recursive=True):
-        if os.path.basename(path) == "program.py" or "/tests/" in path:
+        rel = os.path.relpath(path, run.HERE)
+        if rel == "program.py" or rel.startswith(("programs/", "tests/")):
             continue
         assert "vfa_tpu_torch" not in open(path).read().replace('"vfa_tpu_torch"', ""), path
 

@@ -1,9 +1,10 @@
-"""The work counts of `work.py` against arithmetic by hand at small sizes."""
+"""The work counts of VFANet (`work/vfanet.py`) and the shared ones
+(`work/__init__.py`) against arithmetic by hand at small sizes."""
 
 import numpy as np
 import torch
 
-import work
+from work import vfanet as work
 from reference.vfanet import ReferenceVFA, tap_matrix, voxel_geometry
 from scene import make_calibrations, make_grid
 

@@ -1,7 +1,8 @@
-"""The work of a configuration, counted from its shapes: the model's own
-operations and the sampling layer's least bytes, as the per-layer metrics
-read them. Whatever implements a layer (padded rig products, a library
-call) does not change these counts.
+"""The work of a VFANet configuration, counted from its shapes: the model's
+own operations and the sampling layer's least bytes, as the per-layer
+metrics read them (`ctx["work"]` in a cell whose configuration names the
+architecture "vfanet"). Whatever implements a layer (padded rig products,
+a library call) does not change these counts.
 
 Operations are 2 FLOPs a multiply-add of the model's convolutions and
 linear layers: the backbone's, the laterals', fuse's and the heads'
@@ -19,13 +20,9 @@ import torch
 
 from reference.vfanet import feature_shapes, voxel_geometry
 from scene import grid_shape, make_calibrations, make_grid, num_layers
+from work import bound_s, conv_flops  # noqa: F401  (the metrics read both here)
 
 CH = 256          # lateral / BEV channels
-
-
-def conv_flops(cin: int, cout: int, k: int, h: int, w: int) -> int:
-    """FLOPs of a k x k convolution producing (cout, h, w)."""
-    return 2 * cin * cout * k * k * h * w
 
 
 def backbone_flops(resize_size, layers) -> int:
@@ -113,9 +110,3 @@ def sampling_flops(cfg: dict, batch: int, backward: bool, device="cpu") -> int:
     """The collapse's FLOPs in one call: the forward's, or the backward's
     two products (the input's and the weights' gradients)."""
     return batch * collapse_flops(cfg["dataset"], device) * (2 if backward else 1)
-
-
-def bound_s(flops: float, nbytes: float, peak: dict) -> float:
-    """The least time the chip could take: operations at the peak rate or
-    bytes at the memory bandwidth, whichever is longer."""
-    return max(flops / peak["flops"], nbytes / peak["bytes_per_s"])
