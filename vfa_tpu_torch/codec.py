@@ -17,6 +17,8 @@ its JAX twin does (the sparse rotation loss reads it).
 Decode: sigmoid -> 5x5 maxpool-equality NMS -> top-k -> threshold ->
 invert the offset / dimension / CSL encodings. Fixed-shape (B, K) outputs
 with a `valid` mask, batched over scenes, all on the model's device.
+MVDet's score map decodes by its own test loop instead (`decode_map`):
+raw scores, greedy suppression by distance on the ground plane.
 """
 
 from __future__ import annotations
@@ -217,6 +219,36 @@ def decode_frame(pred: Dict[str, torch.Tensor], cfg: DatasetConfig,
     else:
         location = torch.stack([cx, cy, zeros], dim=-1)
     return {"conf": conf, "location": location, "valid": valid}
+
+
+@torch.no_grad()
+@observability.traced("decode")
+def decode_map(scores: torch.Tensor, cells: torch.Tensor, cls_thresh: float,
+               nms_dist: float, topk: int = 100) -> Dict[str, torch.Tensor]:
+    """MVDet's post-processing of a batch of raw score maps (B, 1, L, W)
+    (no sigmoid) on their device, with no host sync: the `topk` highest
+    scores of each scene, equal scores in cell order; greedy suppression
+    among them, highest first, of every candidate at most `nms_dist` from
+    one kept before it, by the cells' ground positions `cells` (L, W, 2),
+    world-grid units; valid where kept and the score is above
+    `cls_thresh`. Upstream suppresses among the cells above the threshold
+    only, which suppress one another here alike (a cell under it ranks
+    after all of them). Returns conf (B, K), location (B, K, 2) and valid
+    (B, K)."""
+    B = scores.shape[0]
+    flat = scores.float().reshape(B, -1)
+    k = min(topk, flat.shape[1])
+    conf, idx = torch.sort(flat, dim=1, descending=True, stable=True)
+    conf, idx = conf[:, :k], idx[:, :k]
+    loc = cells.reshape(-1, 2).float()[idx]                                # (B, K, 2)
+    d2 = ((loc[:, :, None] - loc[:, None]) ** 2).sum(-1)
+    # close[b, j, i]: candidate j ranks before i and lies within the distance
+    close = (d2 <= nms_dist ** 2) & torch.ones(k, k, dtype=torch.bool,
+                                               device=flat.device).triu(1)
+    keep = torch.ones(B, k, dtype=torch.bool, device=flat.device)
+    for i in range(1, k):
+        keep[:, i] = ~(keep & close[:, :, i]).any(1)
+    return {"conf": conf, "location": loc, "valid": keep & (conf > cls_thresh)}
 
 
 class ObjectEncoder:

@@ -1,6 +1,7 @@
 """Geometry (port of `vfa_tpu/geometry.py`): the BEV grid on the host,
 world-grid -> world-coord conversion (numpy or torch), pinhole projection
-and a torch-`grid_sample`-compatible bilinear sampler on torch tensors.
+and a torch-`grid_sample`-compatible bilinear sampler on torch tensors;
+and MVDet's ground-plane sampling positions (`ground_positions`).
 
   - `vfa/utils.py:16-37`  make_grid (Wildtrack axis swap)
   - `vfa/utils.py:50-59`  project (3x4 calib, homogeneous divide)
@@ -59,6 +60,26 @@ def project(points: torch.Tensor, calib: torch.Tensor) -> torch.Tensor:
     with the length-3 contraction as a multiply and a sum, as in JAX."""
     h = (calib[..., :3] * points[..., None, :]).sum(-1) + calib[..., 3]
     return h[..., :2] / h[..., 2:3]
+
+
+def ground_positions(calibs, grid, dataset: str, image_size, map_size) -> torch.Tensor:
+    """MVDet's perspective transform as sampling positions: where each BEV
+    cell's ground point falls in each camera's feature map of `map_size`
+    (h, w), the camera's image of `image_size` (H, W) scaled by w / W and
+    h / H. calibs (N, 3, 4) = K @ [R|t] at `image_size`; grid (L, W, 3)
+    world-grid coordinates, of which the height is not read (the ground,
+    z = 0). Returns (N, L, W, 2) fp32 (x, y) pixel indices of the map,
+    worked out in fp64: the homography of `kornia.warp_perspective` as
+    upstream builds it (`persp_trans_detector.py`: the image zoom, the
+    world-grid transform, the map zoom), applied point by point."""
+    g = torch.as_tensor(np.asarray(grid), dtype=torch.float64)
+    g = torch.cat([g[..., :2], torch.zeros_like(g[..., :1])], -1)
+    pts = worldgrid_to_worldcoord(g, dataset)
+    c = torch.as_tensor(np.asarray(calibs), dtype=torch.float64)[:, None, None]
+    xy = project(pts, c)
+    scale = torch.tensor([map_size[1] / image_size[1], map_size[0] / image_size[0]],
+                         dtype=torch.float64)
+    return (xy * scale).float()
 
 
 def _unnormalize(coord: torch.Tensor, size: int) -> torch.Tensor:

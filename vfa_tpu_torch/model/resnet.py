@@ -1,16 +1,19 @@
 """ResNet-18/34 feature pyramid with GroupNorm(16) (port of
-`vfa_tpu/model/resnet.py`).
+`vfa_tpu/model/resnet.py`), and the ResNet stages MVDet's trunk shares.
 
 Reference: `vfa/model/resnet.py` — BasicBlock with GN(16), stem conv7x7/s2
 + GN + maxpool3x3/s2, returning the /8, /16, /32 pyramid. NCHW inside;
 module names follow the reference state-dict keys (`base.layerX.Y.*`).
+`resnet_stages` builds the four stages by torchvision's rule for either
+norm, and with stages whose stride turns into dilation (MVDet's trunk,
+`model/mvdet.py`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -20,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 from vfa_tpu_torch import observability
 
 GN_EPS = 1e-5
+BN_EPS = 1e-5
 
 
 def remat(module: nn.Module, fn, *args):
@@ -54,27 +58,61 @@ def group_norm(channels: int) -> nn.GroupNorm:
     return nn.GroupNorm(16, channels, eps=GN_EPS)
 
 
+def batch_norm(channels: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(channels, eps=BN_EPS)
+
+
 class BasicBlock(nn.Module):
-    """Two 3x3 convs with GN and a residual add (`vfa/model/resnet.py:26-57`)."""
+    """Two 3x3 convs with a norm and a residual add (`vfa/model/resnet.py:26-57`).
+    `norm` makes each norm layer (`group_norm`, VFANet's, or `batch_norm`);
+    `dilation` dilates both 3x3 convolutions, each padded by it (MVDet's
+    copy of torchvision's block, which lifts its limit of 1)."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, norm=group_norm, dilation: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
-        self.bn1 = group_norm(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = group_norm(planes)
+        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, dilation,
+                               dilation=dilation, bias=False)
+        self.bn1 = norm(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, dilation, dilation=dilation,
+                               bias=False)
+        self.bn2 = norm(planes)
         self.downsample = None
         if downsample:
             self.downsample = nn.Sequential(
                 nn.Conv2d(inplanes, planes, 1, stride, bias=False),
-                group_norm(planes))
+                norm(planes))
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
         out = torch.relu(self.bn1(self.conv1(x)))
         out = self.bn2(self.conv2(out))
         return torch.relu(out + identity)
+
+
+def resnet_stages(layers: Sequence[int], norm=group_norm,
+                  dilate: Sequence[bool] = (False, False, False)) -> List[nn.Sequential]:
+    """The four stages of a ResNet-18/34 (64, 128, 256, 512 channels,
+    `layers` blocks each) by torchvision's `_make_layer`: stage 1 at stride
+    1, each later one at stride 2 unless `dilate` names it
+    (`replace_stride_with_dilation`); then the stage's stride multiplies
+    the running dilation instead, its first block keeps the dilation before
+    it and its other blocks take the new one. A 1x1 downsample (with its
+    norm) where the stride or the channels change."""
+    stages, inplanes, dilation = [], 64, 1
+    for stage, (planes, blocks) in enumerate(zip((64, 128, 256, 512), layers)):
+        stride, previous = (1 if stage == 0 else 2), dilation
+        if stage > 0 and dilate[stage - 1]:
+            dilation, stride = dilation * stride, 1
+        mods = []
+        for b in range(blocks):
+            s = stride if b == 0 else 1
+            ds = b == 0 and (s != 1 or inplanes != planes)
+            mods.append(BasicBlock(inplanes, planes, s, ds, norm,
+                                   previous if b == 0 else dilation))
+            inplanes = planes
+        stages.append(nn.Sequential(*mods))
+    return stages
 
 
 class ResNetGN(nn.Module):
@@ -100,17 +138,8 @@ class ResNetGN(nn.Module):
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = group_norm(64)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
-        inplanes = 64
-        for stage, (planes, blocks) in enumerate(
-                zip((64, 128, 256, 512), layers), start=1):
-            stride = 1 if stage == 1 else 2
-            mods = []
-            for b in range(blocks):
-                s = stride if b == 0 else 1
-                ds = b == 0 and (s != 1 or inplanes != planes)
-                mods.append(BasicBlock(inplanes, planes, s, ds))
-                inplanes = planes
-            setattr(self, f"layer{stage}", nn.Sequential(*mods))
+        for stage, layer in enumerate(resnet_stages(layers), start=1):
+            setattr(self, f"layer{stage}", layer)
 
     def fused_stem_on(self) -> bool:
         env = os.environ.get("VFA_FUSED_STEM")

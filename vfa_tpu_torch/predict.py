@@ -12,24 +12,36 @@ host. Either way it builds the compiled camera rig once on the host, or
 loads it from the rig cache (window layout by default, `--rig_layout flat`
 for the flat one; 12 buckets or `--rig_buckets`, in the compute dtype),
 and runs VFANet through the hand-written rig kernel of that layout
-(`--no_rig`: through the reference voxel route instead).
+(`--no_rig`: through the reference voxel route instead). `--arch mvdet`
+serves MVDet (`model/mvdet.py`) on the synthetic path instead: seeded
+weights, the cameras' ground-plane sampling positions made once, and its
+own decode (`codec.decode_map`).
 
     python -m vfa_tpu_torch.predict --data MultiviewC --root data/MultiviewC --checkpoint <run>/checkpoints/epoch_0040 --out prediction.png
     python -m vfa_tpu_torch.predict --data MultiviewC --synthetic --scenes 4 --batch 2
     python -m vfa_tpu_torch.predict --data MultiviewC --synthetic --rig_layout flat
     python -m vfa_tpu_torch.predict --data Wildtrack --synthetic --dtype bfloat16
     python -m vfa_tpu_torch.predict --data MultiviewC --synthetic --tiny --device cpu
+    python -m vfa_tpu_torch.predict --data Wildtrack --synthetic --arch mvdet --dtype bfloat16 --batch 32 --scenes 64
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+from collections import namedtuple
 
 import numpy as np
 import torch
 
 from vfa_tpu_torch.rig_cli import add_rig_layout_arg
+
+# Each architecture's decode defaults: VFANet's threshold on its sigmoid
+# scores; MVDet's on its raw scores and upstream's suppression distance
+# (world-grid units: 0.5 m on Wildtrack).
+DECODE = {"vfanet": {"cls_thresh": 0.9}, "mvdet": {"cls_thresh": 0.4, "nms_dist": 20.0}}
+
+MapDetection = namedtuple("MapDetection", "conf location")
 
 
 def parse_args(argv=None):
@@ -55,7 +67,12 @@ def parse_args(argv=None):
     p.add_argument("--batch", type=int, default=2)
     p.add_argument("--seed", type=int, default=0,
                    help="scene i uses seed + i; weights use seed")
-    p.add_argument("--cls_thresh", type=float, default=0.9)
+    p.add_argument("--arch", default="vfanet", choices=["vfanet", "mvdet"],
+                   help="the model: VFANet, or MVDet (Wildtrack and "
+                        "MultiviewX, --synthetic only)")
+    p.add_argument("--cls_thresh", type=float, default=None,
+                   help="detection threshold (default: the architecture's, "
+                        "DECODE)")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                    help="compute dtype; bfloat16 serves as the root bench "
                         "does: model, images and rig in bf16, the "
@@ -112,6 +129,10 @@ def main(argv=None, rig=None) -> dict:
     already built CameraRig for this configuration (built here when
     None)."""
     args = parse_args(argv)
+    if args.cls_thresh is None:
+        args.cls_thresh = DECODE[args.arch]["cls_thresh"]
+    if args.arch == "mvdet" and not args.synthetic:
+        raise SystemExit("--arch mvdet serves synthetic scenes only (--synthetic)")
     if args.synthetic:
         return _synthetic(args, rig)
     return _on_disk(args, rig)
@@ -185,8 +206,8 @@ def _on_disk(args, rig) -> dict:
 
 
 def _synthetic(args, rig) -> dict:
-    """Requests of synthetic scenes, timed."""
-    from vfa_tpu_torch.codec import ObjectEncoder
+    """Requests of synthetic scenes through `--arch`'s model and decode,
+    timed."""
     from vfa_tpu_torch.config import get_config
     from vfa_tpu_torch.data.synthetic import make_scene, tiny_config
 
@@ -195,13 +216,10 @@ def _synthetic(args, rig) -> dict:
     dtype = getattr(torch, args.dtype)
     if args.tiny:
         cfg = tiny_config(cfg)
-    dim_mean = np.array([145.0, 120.0, 255.0], np.float32)
     scenes = [make_scene(cfg, seed=args.seed + i, num_objects=6)
               for i in range(args.scenes)]
-    rig = _rig(args, cfg, scenes[0].calibs, device, dtype, rig)
-    grid = torch.from_numpy(scenes[0].grid).to(device)
-    model = _model(cfg, args, device, dtype)
-    encoder = ObjectEncoder(cfg, dim_mean=dim_mean)
+    server = _serve_mvdet if args.arch == "mvdet" else _serve_vfanet
+    serve = server(args, cfg, scenes[0], device, dtype, rig)
 
     heatmaps, detections, times = [], [], []
     with torch.no_grad():
@@ -210,14 +228,12 @@ def _synthetic(args, rig) -> dict:
             images = np.stack([s.images for s in batch])
             calibs = np.stack([s.calibs for s in batch])
             t0 = time.perf_counter()
-            pred = model(torch.from_numpy(images).to(device).to(dtype), rig,
-                         torch.from_numpy(calibs).to(device), grid)
-            pred = {k: v.float() for k, v in pred.items()}
-            dets = encoder.batch_decode(pred, args.cls_thresh)
+            heatmap, dets = serve(torch.from_numpy(images).to(device).to(dtype),
+                                  torch.from_numpy(calibs).to(device))
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             times.append((time.perf_counter() - t0) * 1e3)
-            heatmaps.append(pred["heatmap"].cpu())
+            heatmaps.append(heatmap.cpu())
             detections.extend(dets)
             for j, objs in enumerate(dets):
                 print(f"scene {i + j}: {len(objs)} detections above conf "
@@ -227,6 +243,54 @@ def _synthetic(args, rig) -> dict:
           + " ".join(f"{t:.2f}" for t in times)
           + f"; p50 {float(np.median(times)):.2f} ms")
     return {"heatmaps": heatmaps, "detections": detections, "ms": times}
+
+
+def _serve_vfanet(args, cfg, scene, device, dtype, rig):
+    """serve(images, calibs) -> (the fp32 heatmap, the detections of each
+    scene): VFANet through the rig, then `ObjectEncoder`'s decode."""
+    from vfa_tpu_torch.codec import ObjectEncoder
+
+    rig = _rig(args, cfg, scene.calibs, device, dtype, rig)
+    grid = torch.from_numpy(scene.grid).to(device)
+    model = _model(cfg, args, device, dtype)
+    encoder = ObjectEncoder(cfg, dim_mean=np.array([145.0, 120.0, 255.0], np.float32))
+
+    def serve(images, calibs):
+        pred = {k: v.float() for k, v in model(images, rig, calibs, grid).items()}
+        return pred["heatmap"], encoder.batch_decode(pred, args.cls_thresh)
+
+    return serve
+
+
+def _serve_mvdet(args, cfg, scene, device, dtype, rig):
+    """serve(images, calibs) -> (the fp32 heatmap, the detections of each
+    scene): MVDet on seeded weights at the cameras' ground-plane sampling
+    positions, made once (the calibrations are the scenes' own), then
+    `codec.decode_map` at `DECODE["mvdet"]`'s distance."""
+    from vfa_tpu_torch.codec import decode_map
+    from vfa_tpu_torch.geometry import ground_positions
+    from vfa_tpu_torch.model.mvdet import MVDet, init_weights
+
+    if cfg.mode != "2D":
+        raise SystemExit("--arch mvdet: a 2D dataset (Wildtrack, MultiviewX)")
+    model = init_weights(MVDet(cfg), torch.Generator().manual_seed(args.seed))
+    model = model.to(device=device, dtype=dtype).eval()
+    print(f"WARNING: predicting with random weights (seed {args.seed})")
+    positions = ground_positions(scene.calibs, scene.grid, cfg.name, cfg.image_size,
+                                 model.upsample_shape).to(device)
+    cells = torch.from_numpy(np.ascontiguousarray(scene.grid[..., :2])).to(device)
+    dec = DECODE["mvdet"]
+
+    def serve(images, calibs):  # every scene shares the first's calibrations
+        heatmap = model(images, positions)["heatmap"]
+        det = {k: v.cpu() for k, v in decode_map(heatmap, cells, args.cls_thresh,
+                                                  dec["nms_dist"]).items()}
+        return heatmap.float(), [
+            [MapDetection(float(c), loc.tolist())
+             for c, loc in zip(det["conf"][j][keep], det["location"][j][keep])]
+            for j, keep in enumerate(det["valid"])]
+
+    return serve
 
 
 if __name__ == "__main__":
