@@ -7,8 +7,9 @@ result line):
   1. build every hand-written kernel from csrc/ with nvcc (one process per
      source, all started together) and print ptxas' registers and spills
      per kernel (fails if a tensor-core pass, `rig_*_mma` or a pass
-     `rig_ws*` of csrc/rig_ws.cuh, a stem kernel `stem_bwd_*` or
-     `voxel_tap_bwd_kernel` spills);
+     `rig_ws*` of csrc/rig_ws.cuh, a stem kernel `stem_bwd_*`,
+     `voxel_tap_bwd_kernel`, the serving epilogue or `mvdet_project_kernel`
+     spills);
   2. hold each kernel against its plain PyTorch version at B = 1 and B = 2
      on the full MultiviewC fp32 rigs (7 x 720x1280 cameras, 156x156 BEV,
      nl 5), all 3 scales, every bucket (the forwards bucket by bucket): the
@@ -57,8 +58,14 @@ result line):
      kernel;
      heatmap rel-L2 1e-2 against the plain route, the detections' overlap
      printed); the bench with `--dtype bfloat16`, auto batch, on all three
-     datasets. The three bf16 window rigs are built by one more host
-     process;
+     datasets; then, with no rig held, MVDet's projection kernel
+     (`csrc/mvdet_project.cu`) at the `mvdet_wt_serve_b32` cell's shapes
+     against its plain version, timed beside it and the library chain it
+     replaces (`phase_mvdet_project`), and MVDet's bf16 serving path at
+     that cell's batch (`predict --arch mvdet`, 32 Wildtrack scenes: one
+     `mvdet_project` launch a request and no other kernel,
+     `phase_mvdet_path`; the kernels line prints that count).
+     The three bf16 window rigs are built by one more host process;
   5c. bf16 training (mixed precision, `--dtype bfloat16`) through the bf16
      variants of the backward kernels (`rig_window_bwd_bf16`,
      `rig_flat_bwd_bf16`, both on csrc/rig_ws.cuh; `stem_bwd_stats_bf16`,
@@ -236,7 +243,7 @@ RUNS_DIR = None
 def counters():
     """name -> wrapper of every kernel of the port; each wrapper counts its
     launches in `.launches`."""
-    from vfa_tpu_torch.ops import rig_cuda, stem, voxel
+    from vfa_tpu_torch.ops import projection, rig_cuda, stem, voxel
 
     return {"rig_window_fwd": rig_cuda.rig_window_fwd,
             "rig_window_bwd": rig_cuda.rig_window_bwd,
@@ -252,7 +259,8 @@ def counters():
             "stem_bwd_dx_bf16": stem.stem_bwd_dx_bf16,
             "voxel_tap_bwd": voxel.voxel_tap_bwd,
             "voxel_tap_bwd_bf16": voxel.voxel_tap_bwd_bf16,
-            "rig_bev_epilogue": rig_cuda.rig_bev_epilogue}
+            "rig_bev_epilogue": rig_cuda.rig_bev_epilogue,
+            "mvdet_project": projection.project_world}
 
 
 def reset_launches() -> None:
@@ -288,7 +296,7 @@ def ptxas_kernels(text: str):
     for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
-            short = re.search(r"\d((?:rig|stem|voxel)_[a-z0-9_]+)", m.group(1))
+            short = re.search(r"\d((?:rig|stem|voxel|mvdet)_[a-z0-9_]+)", m.group(1))
             name = short.group(1) if short else m.group(1)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -312,8 +320,9 @@ def phase_build():
         for kernel, regs, spill in ptxas_kernels(LIBRARY.ptxas_log.get(name, "")):
             log(f"  ptxas[{name}]: {kernel}: {regs} registers, {spill} bytes "
                 "spilled")
-            if spill and re.match(r"rig_(\w+_mma|ws\w+|bev_epilogue)|stem_bwd_|voxel_tap_bwd",
-                                  kernel):
+            if spill and re.match(
+                    r"rig_(\w+_mma|ws\w+|bev_epilogue)|stem_bwd_|voxel_tap_bwd|mvdet_project",
+                    kernel):
                 raise AssertionError(f"{kernel} spills {spill} bytes")
     log(f"phase 1 build: {names} in {time.perf_counter() - t0:.1f} s")
 
@@ -1073,6 +1082,121 @@ def phase_bev_epilogue(rig, device, data: str, batch: int = EPILOGUE_BATCH) -> d
     del tiles, kernel, chain
     torch.cuda.empty_cache()
     return res
+
+
+MVDET_BATCH = 32       # the benchmark's MVDet serving batch
+MVDET_REPS = 10
+
+
+def phase_mvdet_project(device, batch: int = MVDET_BATCH) -> dict:
+    """MVDet's projection `csrc/mvdet_project.cu` at the benchmark cell's
+    shapes (`batch` scenes x 7 Wildtrack cameras of 512 x 90 x 160 random
+    bf16 features, channels-last, to the 120 x 360 grid on maps of 270 x
+    480, at the synthetic cameras' positions): against its plain version
+    (`project_world_plain`, by `kernel_vs_plain` within one bf16 ulp or
+    ATOL on at most ULP_SHARE of the elements, the card tests' limits), one
+    launch a call; its time (CUDA events, best of two interleaved rounds of
+    MVDET_REPS), its bound (the features read once and the world features
+    written once, at PEAK_BYTES_PER_S), the plain version's time, and the
+    library chain it replaces in `MVDet.project` (per camera: the fp32
+    upsample, its bf16 cast, `grid_sample`, the copy into the world
+    features) as `library_ms`."""
+    import torch.nn.functional as F
+
+    from vfa_tpu_torch.config import get_config
+    from vfa_tpu_torch.data.synthetic import make_calibrations
+    from vfa_tpu_torch.geometry import ground_positions, make_grid
+    from vfa_tpu_torch.ops.projection import (ULP_SHARE, kernel_vs_plain, project_world,
+                                              project_world_plain, sample_grid, warp)
+
+    cfg = get_config("Wildtrack")
+    size = tuple(int(s / 4) for s in cfg.image_size)
+    grid = make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name)
+    pos = ground_positions(make_calibrations(cfg), grid, cfg.name, cfg.image_size,
+                           size).to(device)
+    N, C, (L, W) = cfg.num_cam, 512, cfg.grid_shape
+    feats = torch.randn((batch * N, C, 90, 160), device=device,
+                        generator=torch.Generator(device=device).manual_seed(12))
+    feats = feats.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    feats = feats.unflatten(0, (batch, N))
+    world = torch.empty((batch, N * C + 2, L, W), device=device, dtype=torch.bfloat16)
+    reset_launches()
+    kernel = lambda: project_world(feats, pos, size, world)
+    kernel()
+    if read_launches()["mvdet_project"] != 1:
+        raise AssertionError("mvdet_project: not one launch a call")
+    plain = project_world_plain(feats, pos, size, torch.empty_like(world))
+    torch.cuda.synchronize()
+    worst, share = kernel_vs_plain(world, plain, feats)
+    err = (0.0, 0.0)
+    for n in range(N):
+        a, b = world[:, n * C:(n + 1) * C], plain[:, n * C:(n + 1) * C]
+        d = float((a.float() - b.float()).abs().max())
+        err = (max(err[0], d), max(err[1], d / float(b.abs().max())))
+    del plain
+    torch.cuda.empty_cache()
+    if worst > 1 or share > ULP_SHARE:
+        raise AssertionError(f"mvdet_project: {worst} bf16 ulps from its plain version on "
+                             f"{share:.2e} of the elements (limits 1 and {ULP_SHARE:.0e})")
+    g = sample_grid(pos, *size)
+
+    def chain():
+        for n in range(N):
+            up = F.interpolate(feats[:, n].float(), size, mode="bilinear", align_corners=False)
+            up.to(torch.bfloat16)
+            world[:, n * C:(n + 1) * C] = warp(up, g[n])
+
+    ms, plain_ms, library_ms = [], [], []
+    for _ in range(2):
+        ms.append(cuda_time_ms(kernel, MVDET_REPS))
+        plain_ms.append(cuda_time_ms(lambda: project_world_plain(feats, pos, size, world), 2))
+        library_ms.append(cuda_time_ms(chain, 2))
+    nbytes = 2 * (batch * N * C * 90 * 160 + batch * (N * C + 2) * L * W)
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    res = {"ms": min(ms), "plain_ms": min(plain_ms), "library_ms": min(library_ms),
+           "bound_ms": bound, "bytes": nbytes, "share_of_bound": bound / min(ms),
+           "gb_per_s": nbytes / min(ms) * 1e-6, "batch": batch, "err": err,
+           "one_ulp_share": share}
+    log(f"mvdet_project at B={batch}: {res['ms']:.3f} ms ({res['ms'] / batch:.4f} a scene); "
+        f"bound {bound:.3f} ms by bytes ({nbytes} B; {res['share_of_bound']:.1%} of the bound, "
+        f"{res['gb_per_s']:.0f} GB/s); plain {res['plain_ms']:.3f} ms; the library chain "
+        f"(upsample, cast, grid_sample, copy) {res['library_ms']:.3f} ms; max abs err "
+        f"{err[0]:.3e}, one bf16 ulp on {share:.2e} of the elements")
+    del feats, world
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_mvdet_path(device, batch: int = MVDET_BATCH) -> dict:
+    """MVDet's serving path as the benchmark's `mvdet_wt_serve_b32` cell
+    drives it: `predict --arch mvdet --dtype bfloat16` on `batch` synthetic
+    Wildtrack scenes (7 x 720 x 1280 cameras) in one request, counts set to
+    0 just before and read just after: `mvdet_project` once a request and
+    no other kernel of the port; the heatmaps finite, of the grid's
+    shape."""
+    from vfa_tpu_torch import predict
+
+    argv = ["--arch", "mvdet", "--data", "Wildtrack", "--synthetic", "--scenes", str(batch),
+            "--batch", str(batch), "--seed", "0", "--device", "cuda", "--dtype", "bfloat16"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = predict.main(argv)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"MVDet serving path (bf16, batch {batch}): launches {launches} "
+        f"({len(res['ms'])} requests, ms {res['ms']}); max_memory_allocated {peak} bytes")
+    if launches["mvdet_project"] != len(res["ms"]):
+        raise AssertionError(f"MVDet's serving path launched mvdet_project "
+                             f"{launches['mvdet_project']} times, expected one a request")
+    if any(n for name, n in launches.items() if name != "mvdet_project"):
+        raise AssertionError("MVDet's serving path launched another kernel")
+    for h in res["heatmaps"]:
+        if tuple(h.shape) != (batch, 1, 120, 360) or not torch.isfinite(h).all():
+            raise AssertionError(f"MVDet heatmap {tuple(h.shape)}, finite "
+                                 f"{bool(torch.isfinite(h).all())}")
+    torch.cuda.empty_cache()
+    return {"launches": launches["mvdet_project"] // len(res["ms"]),
+            "requests": len(res["ms"]), "ms": res["ms"], "peak": peak}
 
 
 def phase_rig_vs_reference(rig, device, data: str):
@@ -2871,6 +2995,9 @@ def run_phases(device, t_start, builds, rig_cache, disk) -> int:
              "--warmup", "1"], rig16, ["rig_window_fwd_bf16", "rig_bev_epilogue"])[0]
         del rig16
         torch.cuda.empty_cache()
+    # MVDet's projection kernel, then its serving path, with no rig held
+    mvdet = phase_mvdet_project(device)
+    mvdet_path = phase_mvdet_path(device)
 
     # K2-bf16 on MultiviewX (nl 8)
     mx16t = prebuilt_rig(builds, ("MultiviewX", 8, "bfloat16"), device, rig_cache)
@@ -3080,6 +3207,16 @@ def run_phases(device, t_start, builds, rig_cache, disk) -> int:
          "ms": epilogue["Wildtrack"]["ms"], "plain_ms": epilogue["Wildtrack"]["plain_ms"],
          "bound_ms": epilogue["Wildtrack"]["bound_ms"], "bound_by": "bytes",
          "batch": EPILOGUE_BATCH, "by_dataset": epilogue},
+        {"name": "mvdet_project", "route": "cuda",
+         "source": "vfa_tpu_torch/csrc/mvdet_project.cu",
+         "replaces": "no TPU kernel (the JAX package has no MVDet): the library chain of "
+                     "MVDet.project, upsample, cast, grid_sample and copy, per camera",
+         "launches": mvdet_path["launches"], "max_abs_err": mvdet["err"][0],
+         "max_rel_err": mvdet["err"][1],
+         "dtype": "bfloat16", "ms": mvdet["ms"], "plain_ms": mvdet["plain_ms"],
+         "library_ms": mvdet["library_ms"], "bound_ms": mvdet["bound_ms"],
+         "bound_by": "bytes", "batch": MVDET_BATCH,
+         "one_ulp_share": mvdet["one_ulp_share"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -123,9 +123,16 @@ def test_no_jax_or_vfa_tpu_import_in_package():
     assert not offenders, offenders
 
 
+# Kernels of the port with no Pallas counterpart: MVDet's projection (the
+# JAX package has no MVDet).
+NO_TPU_COUNTERPART = {"mvdet_project"}
+
+
 def test_every_cuda_source_is_known_to_the_loader():
-    """Each csrc/*.cu has its entry in `kernels.SIGNATURES`, and each
-    declared C function takes as many arguments as its argtypes say."""
+    """Each csrc/*.cu has its entry in `kernels.SIGNATURES`, a note of the
+    TPU kernel it replaces (or, for a source of NO_TPU_COUNTERPART alone,
+    that it replaces none) and of what bounds it, and each declared C
+    function takes as many arguments as its argtypes say."""
     from vfa_tpu_torch.kernels import CSRC, SIGNATURES
 
     sources = {os.path.basename(p)[:-3] for p in glob.glob(os.path.join(CSRC, "*.cu"))}
@@ -133,7 +140,10 @@ def test_every_cuda_source_is_known_to_the_loader():
     for name, fns in SIGNATURES.items():
         with open(os.path.join(CSRC, f"{name}.cu"), encoding="utf-8") as fh:
             text = fh.read()
-        assert "Replaces vfa_tpu/ops/" in text and "What bounds it" in text, name
+        replaces = ("Replaces no TPU kernel" if name in NO_TPU_COUNTERPART
+                    else "Replaces vfa_tpu/ops/")
+        assert replaces in text, name
+        assert "What bounds it" in text, name
         declared = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text))
         assert set(declared) == set(fns), name
         for fn, argtypes in fns.items():

@@ -18,6 +18,8 @@ from vfa_tpu_torch.data.synthetic import make_calibrations, tiny_config
 from vfa_tpu_torch.geometry import make_grid
 from vfa_tpu_torch.ops import rig as trig
 from vfa_tpu_torch.ops import stem as tstem
+from vfa_tpu_torch.ops.projection import (ATOL, ULP_SHARE, bf16_ulps, kernel_vs_plain,
+                                          project_world, project_world_plain)
 from vfa_tpu_torch.ops.rig_cuda import (
     rig_flat_bwd, rig_flat_fwd, rig_sample_scale_cuda, rig_scale_bwd,
     rig_tiles_cuda, rig_window_bwd, rig_window_fwd,
@@ -1314,15 +1316,6 @@ def test_voxel_tap_bwd_channels_and_scenes(cuda, dtype, C):
     assert torch.equal(dx.cpu(), dx_cpu)
 
 
-def _bf16_ulps(a, b):
-    """Distance in bf16 ulps between two bf16 tensors, elementwise."""
-    def ordered(t):
-        u = t.contiguous().view(torch.int16).to(torch.int32)
-        return torch.where(u < 0, -(u & 0x7FFF), u)
-
-    return (ordered(a) - ordered(b)).abs()
-
-
 _FULL_SCALES = {}
 
 
@@ -1377,7 +1370,7 @@ def test_bev_epilogue_full_width_equals_plain(cuda, name, layout):
     assert torch.equal(again.view(torch.int16), got.view(torch.int16))
     chain = sum(trig.rig_epilogue(t, ip, b, torch.float32, True)
                 for t, ip, b in zip(tiles, inv_perms, biases)).to(torch.bfloat16)
-    assert int(_bf16_ulps(got, chain).max()) <= 1
+    assert int(bf16_ulps(got, chain).max()) <= 1
     assert 0 < int((got == 0).sum()) < got.numel()
 
 
@@ -1436,7 +1429,7 @@ def test_serving_forward_bev_matches_the_per_scale_route(cuda, tmp_path):
     assert launch_counts()["rig_bev_epilogue"] == n1["rig_bev_epilogue"]
     want = want.detach()
     torch.cuda.synchronize()
-    ulps = _bf16_ulps(got, want)
+    ulps = bf16_ulps(got, want)
     print(f"BEV elements one ulp apart: {int((ulps == 1).sum())} of {ulps.numel()}")
     assert got.shape == (2, *rig.grid_shape, 256) and int(ulps.max()) <= 1
 
@@ -1492,3 +1485,131 @@ def test_bev_epilogue_launches_once_a_serving_forward_never_in_training(cuda):
     assert all(torch.isfinite(v) for v in losses.values())
     assert after["rig_bev_epilogue"] == before["rig_bev_epilogue"]
     assert after["rig_window_fwd_bf16"] == before["rig_window_fwd_bf16"] + 3
+
+
+# MVDet's projection, `csrc/mvdet_project.cu`, against `project_world_plain` on
+# the card: within one bf16 ulp or ATOL of the features' largest magnitude,
+# on at most ULP_SHARE of the elements (`ops/projection.py` says why).
+
+
+def _mvdet_case(B, N, C, fh, fw, h, w, L, W, device, seed):
+    """Channels-last bf16 features on the card and (N, L, W, 2) positions:
+    random ones around the map with its corners, edges, points past them
+    and positions that are not finite (`test_torch_projection.
+    edge_positions`)."""
+    from test_torch_projection import channels_last_feats, edge_positions
+
+    feats = channels_last_feats(B, N, C, fh, fw, seed, torch.bfloat16).to(device)
+    pos = torch.stack([edge_positions(h, w, L, W, seed + n) for n in range(N)]).to(device)
+    return feats, pos
+
+
+def _mvdet_compare(feats, pos, size):
+    """The kernel's and the plain version's world features, each into a
+    tensor with 2 more channels than the cameras fill (left as they were),
+    and `kernel_vs_plain` of the two: the largest distance in bf16 ulps
+    and the share of elements off."""
+    B, N, C = feats.shape[:3]
+    L, W = pos.shape[1:3]
+    out = torch.full((B, N * C + 2, L, W), 3.0, dtype=torch.bfloat16, device=feats.device)
+    n0 = project_world.launches
+    got = project_world(feats, pos, size, out.clone())
+    assert project_world.launches == n0 + 1
+    want = project_world_plain(feats, pos, size, out)
+    torch.cuda.synchronize()
+    assert (got[:, N * C:] == 3.0).all()
+    return (got, want, *kernel_vs_plain(got, want, feats))
+
+
+@pytest.mark.parametrize("C,fh,fw,h,w,L,W", [
+    (256, 4, 6, 12, 18, 5, 7),          # integer ratio; 35 cells, not a multiple of 8
+    (512, 5, 7, 13, 29, 16, 24),        # non-integer ratios; 384 cells, 6 whole blocks
+    (256, 9, 16, 27, 48, 9, 13),        # the cell's ratio 3, 2 blocks, the second partial
+], ids=["ratio3-tail", "ratio2.6x4.1-whole", "ratio3-partial"])
+def test_mvdet_project_tiny_matches_plain(cuda, C, fh, fw, h, w, L, W):
+    """The kernel against the library chain at tiny sizes, 2 scenes x 3
+    cameras, into a world tensor with 2 more channels that the kernel must
+    not touch: every element within one bf16 ulp or ATOL, at most
+    ULP_SHARE of them off; the cells whose taps all lie outside the
+    map and those whose position is not finite exactly 0 on both sides,
+    camera 2's all such (its blocks take the kernel's zero-fill path)."""
+    feats, pos = _mvdet_case(2, 3, C, fh, fw, h, w, L, W, cuda, seed=C + L)
+    pos[2, :, ::2] = float(w + 1)       # camera 2: every cell out of the map or not
+    pos[2, :, 1::2] = float("nan")      # finite, so its blocks write zeros only
+    got, want, worst, share = _mvdet_compare(feats, pos, (h, w))
+    assert worst <= 1 and share <= ULP_SHARE, (worst, share)
+    for i in (12, 13, 14, 15):          # (w + 5, h + 5), then not finite
+        assert not got[:, :3 * C, i // W, i % W].any(), i
+        assert not want[:, :3 * C, i // W, i % W].any(), i
+    assert not got[:, 2 * C:3 * C].any()        # every cell written, as 0
+
+
+def test_mvdet_project_cell_shapes_match_plain(cuda):
+    """The benchmark cell's shapes: 32 scenes x 7 cameras of 512 x 90 x 160
+    features to 120 x 360 cells on maps of 270 x 480, at the positions of
+    Wildtrack's synthetic cameras, with the first row of camera 0 replaced
+    by edge and non-finite positions: within one bf16 ulp or ATOL, at
+    most ULP_SHARE off; camera 0's cells out of view 0 on both
+    sides."""
+    from test_torch_projection import edge_positions
+    from vfa_tpu_torch.geometry import ground_positions
+
+    cfg = get_config("Wildtrack")
+    size = tuple(int(s / 4) for s in cfg.image_size)
+    grid = make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name)
+    pos = ground_positions(make_calibrations(cfg), grid, cfg.name, cfg.image_size, size)
+    pos[0, 0] = edge_positions(*size, 1, 360, seed=9)[0]
+    feats = torch.randn(32 * 7, 512, 90, 160, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(7))
+    feats = feats.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    got, want, worst, share = _mvdet_compare(feats.unflatten(0, (32, 7)), pos.to(cuda), size)
+    assert worst <= 1 and share <= ULP_SHARE, (worst, share)
+    outside = (want[:, :512] == 0).all(0).all(0)        # camera 0's cells out of view
+    assert 0 < int(outside.sum()) < 120 * 360
+    assert not got[:, :512, outside].any()
+
+
+def test_mvdet_forward_launches_once_and_refusals(cuda):
+    """A tiny MVDet on the card: a bf16 forward with no gradient needed
+    launches the kernel once and gives the plain route's world features
+    within one bf16 ulp or ATOL; fp32 and a bf16 forward with
+    gradients launch nothing. The wrapper refuses fp32 features and
+    features whose channels are not contiguous, the kernel 128 channels."""
+    import dataclasses
+
+    from vfa_tpu_torch.geometry import ground_positions
+    from vfa_tpu_torch.kernels import launch_counts
+    from vfa_tpu_torch.model.mvdet import MVDet, init_weights
+
+    cfg = dataclasses.replace(get_config("Wildtrack"), world_size=(32, 96),
+                              image_size=(128, 192), resize_size=(64, 96), num_cam=2)
+    model = init_weights(MVDet(cfg), torch.Generator().manual_seed(23)).to(cuda).eval()
+    grid = make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name)
+    pos = ground_positions(make_calibrations(cfg), grid, cfg.name, cfg.image_size,
+                           model.upsample_shape).to(cuda)
+    images = torch.rand(2, 2, 64, 96, 3, generator=torch.Generator().manual_seed(8)).to(cuda)
+    for name, dtype, grad in (("bf16", torch.bfloat16, False), ("fp32", torch.float32, False),
+                              ("bf16_grad", torch.bfloat16, True)):
+        net = MVDet(cfg).to(cuda)
+        net.load_state_dict(model.state_dict())
+        net = net.to(dtype).eval()
+        n0 = launch_counts()["mvdet_project"]
+        with torch.set_grad_enabled(grad):
+            net(images.to(dtype), pos)
+        torch.cuda.synchronize()
+        assert launch_counts()["mvdet_project"] - n0 == (name == "bf16"), name
+    with torch.no_grad():
+        feats = net.trunk(images.to(torch.bfloat16).flatten(0, 1)).unflatten(0, (2, 2))
+        kernel = net.project(feats, pos)[0]
+    plain = net.project(feats.clone().requires_grad_(), pos)[0].detach()
+    assert kernel_vs_plain(kernel, plain, feats)[0] <= 1
+    feats = torch.randn(1, 1, 256, 4, 6, device=cuda).to(torch.bfloat16)
+    pos = torch.zeros(1, 3, 5, 2, device=cuda)
+    out = torch.empty(1, 258, 3, 5, device=cuda, dtype=torch.bfloat16)
+    last = feats.flatten(0, 1).contiguous(memory_format=torch.channels_last).unflatten(0, (1, 1))
+    with pytest.raises(TypeError):
+        project_world(last.float(), pos, (8, 12), out.float())
+    with pytest.raises(ValueError):
+        project_world(feats, pos, (8, 12), out)
+    with pytest.raises(RuntimeError):          # the kernel refuses 128 channels
+        project_world(last[:, :, :128], pos, (8, 12), out)

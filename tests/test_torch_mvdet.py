@@ -23,8 +23,9 @@ from vfa_tpu_torch.codec import decode_map
 from vfa_tpu_torch.config import get_config
 from vfa_tpu_torch.data.synthetic import make_calibrations
 from vfa_tpu_torch.geometry import ground_positions, make_grid
-from vfa_tpu_torch.model.mvdet import MVDet, init_weights, sample_grid, warp
+from vfa_tpu_torch.model.mvdet import MVDet, init_weights
 from vfa_tpu_torch.model.resnet import ResNetGN
+from vfa_tpu_torch.ops.projection import sample_grid, warp
 
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -271,8 +272,9 @@ def test_spans_of_a_serve_forward(case):
     finally:
         observability.tracing(was)
         observability.clear_spans()
+    # heads: the image head once for every camera (inside projection), the map head once
     assert {k: v["calls"] for k, v in totals.items()} == {
-        "forward": 1, "backbone": 1, "projection": 1, "heads": 3, "decode": 1}
+        "forward": 1, "backbone": 1, "projection": 1, "heads": 2, "decode": 1}
 
 
 def test_predict_cli_serves_mvdet(capsys):

@@ -26,6 +26,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 NVCC_LIBS = ["-lcuda"]
 
 P, I = ctypes.c_void_p, ctypes.c_int
+LL, D = ctypes.c_longlong, ctypes.c_double
 # argtypes per exported C function: pointers and the stream as c_void_p
 SIGNATURES = {
     "rig_window_fwd": {
@@ -58,6 +59,11 @@ SIGNATURES = {
     "rig_bev_epilogue": {
         # per-scale host arrays (tiles, inv_perm, bias, rows), S, out, N, B, V2d
         "rig_bev_epilogue_bf16": [P] * 4 + [I] + [P] + [I] * 3 + [P],
+    },
+    "mvdet_project": {
+        # feats, positions, out; feats' strides (b, n, h, w); B, N, C, h8, w8,
+        # h, w, L, W, K; 2 / (w - 1), 2 / (h - 1)
+        "mvdet_project_bf16": [P] * 3 + [LL] * 4 + [I] * 10 + [D] * 2 + [P],
     },
     "voxel_tap_bwd": {
         # g, the order index (ptr, rows, w), out; B, H * W, C
@@ -164,7 +170,7 @@ def launch(name: str, fn: str, device, *args) -> None:
 def launch_counts() -> Dict[str, int]:
     """name -> launches so far in this process, of every kernel variant of
     the port (each wrapper counts where it launches its kernel)."""
-    from vfa_tpu_torch.ops import rig_cuda, stem, voxel
+    from vfa_tpu_torch.ops import projection, rig_cuda, stem, voxel
 
     names = ("rig_window_fwd", "rig_window_bwd", "rig_flat_fwd", "rig_flat_bwd",
              "rig_window_fwd_bf16", "rig_flat_fwd_bf16", "rig_window_bwd_bf16",
@@ -174,4 +180,5 @@ def launch_counts() -> Dict[str, int]:
         out[n] = getattr(stem, n).launches
     for n in ("voxel_tap_bwd", "voxel_tap_bwd_bf16"):
         out[n] = getattr(voxel, n).launches
+    out["mvdet_project"] = projection.project_world.launches
     return out
