@@ -2442,7 +2442,7 @@ def voxel_step_twice(cfg, device, dtype: str) -> dict:
     want = {name: cfg.num_cam * 3} if device.type == "cuda" else {}
     # fp32: cuDNN's default convolution backward algorithms add with atomics
     # (83 of 98 gradients differ run to run without this flag; bf16 gets
-    # deterministic ones; tools/voxel_step_twice.py)
+    # deterministic ones; CHANGES.md, the voxel-route gradient's entry)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = dtype == "float32"
     try:

@@ -2,9 +2,10 @@
 `ops/rig.rig_bev_sum`, the plain version of `csrc/rig_bev_epilogue.cu`,
 against the per-scale chain it replaces on the serving path (three
 `rig_epilogue(..., float32, camera_sum=True)`, the fp32 adds over scales,
-the final bf16 cast), and `VFANet.sampling`'s choice between the two: the
-one-launch route only for bf16 CUDA laterals with no gradient needed, the
-per-scale route for every other call, the same values from both.
+the final bf16 cast), and `ops/rig_cuda.rig_bev`'s choice between the
+two: the one-launch route for bf16 laterals with no gradient needed, on
+the CPU as on the card, the per-scale route for every other call, the
+same values from both.
 
 What held here: `rig_bev_sum` equals the chain bit for bit on every case
 (the CPU's fp32 camera sum adds in camera order, as the kernel does), so
@@ -55,7 +56,7 @@ def _tiles(rig, B, seed):
 
 
 def _chain(tiles, inv_perms, biases):
-    """The per-scale route's epilogue as `VFANet.sampling` runs it."""
+    """The per-scale route's epilogue as `ops.rig.rig_bev` runs it."""
     ortho = 0.0
     for t, ip, b in zip(tiles, inv_perms, biases):
         ortho = ortho + trig.rig_epilogue(t, ip, b, torch.float32, camera_sum=True)
@@ -127,69 +128,94 @@ def _model(tiny_models, dtype=torch.bfloat16, rig_impl="cuda"):
     return cast_model(model, dtype).eval()
 
 
-def _lats(device_type="cuda", dtype=torch.bfloat16, requires_grad=False):
-    """Stand-ins for the laterals: `_serving_epilogue` reads only their
-    device type, dtype and requires_grad."""
-    return [types.SimpleNamespace(device=types.SimpleNamespace(type=device_type),
-                                  dtype=dtype, requires_grad=requires_grad)] * 3
+def _count_epilogue(monkeypatch):
+    """Record each call of `rig_cuda.rig_bev_epilogue`, which still runs."""
+    calls = []
+    real = rig_cuda.rig_bev_epilogue
+    monkeypatch.setattr(rig_cuda, "rig_bev_epilogue",
+                        lambda *a: calls.append(1) or real(*a))
+    return calls
+
+
+def _bf16_lat(sr, B, seed):
+    """A bf16 lat (B, N, fh, fw, 256) and collapse kernel of one scale."""
+    gen = torch.Generator().manual_seed(seed)
+    lat = torch.rand((B, sr.inv_perm.shape[0], *sr.feat_hw, 256), generator=gen)
+    k = torch.randn((256 * sr.nl, 256), generator=gen) * 0.05
+    return lat.to(torch.bfloat16), k.to(torch.bfloat16)
 
 
 @pytest.mark.parametrize("case,want", [
     ("no_grad", True), ("grad_on", False), ("grad_on_frozen", True),
     ("grad_on_frozen_lats_grad", False), ("plain", False), ("mesh", False),
-    ("fp32", False), ("cpu", False),
+    ("fp32", False), ("cpu", True),
 ])
-def test_serving_epilogue_is_chosen_on_dtype_device_grad_and_mesh(tiny_models, case, want):
-    """The one-launch route only for bf16 CUDA laterals, the kernel route,
-    no mesh, and no gradient needed (grad mode off, or neither the
-    laterals nor the collapses' parameters need one)."""
-    model = _model(tiny_models, rig_impl="plain" if case == "plain" else "cuda")
+def test_serving_epilogue_is_chosen_on_dtype_device_grad_and_mesh(tiny_models, monkeypatch,
+                                                                  case, want):
+    """`rig_cuda.rig_bev` takes the one-launch route for bf16 laterals and a
+    bf16 output with no gradient needed (grad mode off, or neither the
+    laterals nor the collapses' parameters need one), on CPU tensors too:
+    the `cpu` case calls it directly on CPU tensors with grad mode on and
+    nothing that needs a gradient. At model level VFANet with
+    rig_impl='plain', or with a mesh (fp32 out, all-reduced before the
+    rounding), never reaches the epilogue."""
+    _, rigs, _, images = tiny_models
+    calls = _count_epilogue(monkeypatch)
+    if case == "cpu":
+        lats, ks = zip(*(_bf16_lat(sr, 2, 40 + si) for si, sr in enumerate(rigs["window"].scales)))
+        bev = rig_cuda.rig_bev(list(lats), rigs["window"].scales, list(ks),
+                               [torch.zeros(256, dtype=torch.bfloat16)] * 3, torch.bfloat16)
+        assert bev.dtype == torch.bfloat16 and not bev.requires_grad
+        assert bool(calls) is want
+        return
+    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    model = _model(tiny_models, dtype, rig_impl="plain" if case == "plain" else "cuda")
     if case == "mesh":
         model.mesh = types.SimpleNamespace(group=lambda axis: None)
     if "frozen" in case:
         model.requires_grad_(False)
-    lats = _lats(device_type="cpu" if case == "cpu" else "cuda",
-                 dtype=torch.float32 if case == "fp32" else torch.bfloat16,
-                 requires_grad=case.endswith("lats_grad"))
+    rig = rigs["window"] if dtype == torch.bfloat16 else _rig("MultiviewC", "window",
+                                                               torch.float32)[1]
+    x = images.to(dtype).requires_grad_(case.endswith("lats_grad"))
     with torch.set_grad_enabled(case != "no_grad"):
-        assert model._serving_epilogue(lats) is want
-
-
-def _refuse(*args, **kwargs):
-    raise AssertionError("the one-launch epilogue ran")
+        model.bev_features(x, rig)
+    assert bool(calls) is want
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 @pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "grad"])
 def test_sampling_keeps_the_per_scale_route_on_the_cpu(tiny_models, monkeypatch,
                                                       dtype, grad):
-    """On CPU tensors `VFANet.sampling` takes the per-scale route in every
-    grad mode and dtype: the one-launch epilogue is never called."""
+    """On CPU tensors, as on the card, the route of `VFANet.sampling` is
+    decided by dtype and grad alone: the one-launch epilogue for bf16 with
+    no gradient, the per-scale chain (`rig_sample_scale_cuda` once a scale)
+    in every other grad mode and dtype."""
     _, rigs, _, images = tiny_models
-    monkeypatch.setattr(rig_cuda, "rig_bev_epilogue", _refuse)
-    monkeypatch.setattr(VFANet, "_sample_serving", _refuse)
+    calls = _count_epilogue(monkeypatch)
+    chain = []
+    real = rig_cuda.rig_sample_scale_cuda
+    monkeypatch.setattr(rig_cuda, "rig_sample_scale_cuda",
+                        lambda *a, **k: chain.append(1) or real(*a, **k))
     model = _model(tiny_models, dtype)
     rig = rigs["window"] if dtype == torch.bfloat16 else _rig("MultiviewC", "window",
                                                                torch.float32)[1]
     with torch.set_grad_enabled(grad):
         out = model(images.to(dtype), rig)
     assert torch.isfinite(out["heatmap"].float()).all()
+    serving = dtype == torch.bfloat16 and not grad
+    assert (len(calls), len(chain)) == ((1, 0) if serving else (0, 3))
 
 
 @pytest.mark.parametrize("layout", ["window", "flat"])
 def test_serving_route_equals_the_per_scale_route(tiny_models, monkeypatch, layout):
-    """The one-launch route forced on the CPU (tiles from the forward
-    kernels' plain versions, then `rig_bev_sum`) gives the per-scale
-    route's BEV features and outputs bit for bit, and records its
-    `sampling.epilogue` span inside `sampling`."""
+    """The one-launch route on the CPU (tiles from the forward kernels'
+    plain versions, then `rig_bev_sum`) gives the BEV features and outputs
+    of the per-scale chain, forced through `ops.rig.rig_bev`, bit for bit,
+    and records its `sampling.epilogue` span inside `sampling`."""
     _, rigs, _, images = tiny_models
     rig = rigs[layout]
     model = _model(tiny_models)
     x = images.to(torch.bfloat16)
-    with torch.no_grad():
-        want = model(x, rig)
-        want_bev = model.bev_features(x, rig)
-    monkeypatch.setattr(VFANet, "_serving_epilogue", lambda self, lats: True)
     observability.tracing(True)
     observability.clear_spans()
     try:
@@ -200,6 +226,12 @@ def test_serving_route_equals_the_per_scale_route(tiny_models, monkeypatch, layo
     finally:
         observability.tracing(False)
         observability.clear_spans()
+    with monkeypatch.context() as m:
+        m.setattr(rig_cuda, "rig_bev", lambda *a: trig.rig_bev(
+            *a, sample=rig_cuda.rig_sample_scale_cuda))
+        with torch.no_grad():
+            want = model(x, rig)
+            want_bev = model.bev_features(x, rig)
     assert got_bev.dtype == torch.bfloat16 and got_bev.shape == want_bev.shape
     assert torch.equal(got_bev.view(torch.int16), want_bev.view(torch.int16))
     assert want.keys() == got.keys()

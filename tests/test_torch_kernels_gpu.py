@@ -1434,28 +1434,35 @@ def test_serving_forward_bev_matches_the_per_scale_route(cuda, tmp_path):
     assert got.shape == (2, *rig.grid_shape, 256) and int(ulps.max()) <= 1
 
 
-def test_bev_epilogue_launches_once_a_serving_forward_never_in_training(cuda):
+def test_bev_epilogue_launches_once_a_serving_forward_never_in_training(cuda, monkeypatch):
     """`launch_counts()["rig_bev_epilogue"]` moves by 1 a bf16 serving
     forward (eval, no_grad) and by 0 in a mixed-precision training step
     (grad on: the per-scale route, which autograd differentiates), on the
-    tiny MultiviewC config's bf16 window rig; `rig_tiles_serving` gives
-    `rig_tiles_cuda`'s tiles."""
+    tiny MultiviewC config's bf16 window rig; the tiles that `rig_bev`'s
+    serving route hands the epilogue (`scale_tiles_cuda`) are
+    `rig_tiles_cuda`'s."""
     import copy
 
     from vfa_tpu_torch.config import TrainConfig
     from vfa_tpu_torch.data.synthetic_loader import SyntheticSceneLoader
     from vfa_tpu_torch.kernels import launch_counts
     from vfa_tpu_torch.model.vfanet import VFANet, cast_model, init_weights
+    from vfa_tpu_torch.ops import rig_cuda
     from vfa_tpu_torch.train_lib import batch_to_device, make_optimizer, make_train_step
-
-    from vfa_tpu_torch.ops.rig_cuda import rig_tiles_serving
 
     tc = tiny_config(get_config("MultiviewC"), factor=4)
     rig = _bf16_rig("MultiviewC", 160, 3, "window", cuda)
     # the serving tiles, every scale's forward on one shared vox scratch,
     # are the autograd route's bits
     lats, ks = zip(*(_bf16_inputs(sr, 2, 60 + si, cuda) for si, sr in enumerate(rig.scales)))
-    for got, sr, lat, k in zip(rig_tiles_serving(lats, rig.scales, ks), rig.scales, lats, ks):
+    seen = []
+    with monkeypatch.context() as m, torch.no_grad():
+        m.setattr(rig_cuda, "rig_bev_epilogue", lambda tiles, *a: seen.append(tiles))
+        rig_cuda.rig_bev(list(lats), rig.scales, list(ks),
+                         [torch.zeros(256, dtype=torch.bfloat16, device=cuda)] * 3,
+                         torch.bfloat16)
+    assert len(seen) == 1
+    for got, sr, lat, k in zip(seen[0], rig.scales, lats, ks):
         assert torch.equal(got.view(torch.int16), rig_tiles_cuda(lat, sr, k).view(torch.int16))
     loader = SyntheticSceneLoader(tc, num_frames=2, batch_size=2, max_objects=8, seed=3,
                                   num_objects=3)

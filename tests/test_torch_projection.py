@@ -5,12 +5,11 @@ version against the kernel's arithmetic written out in fp64 (the
 upsample's taps folded into the warp's) at positions inside, on the
 edges, outside the map and not finite; the image head's first 1x1
 convolution moved before its upsample against the unmoved chain; and
-which route `MVDet.project` takes. The kernel itself is held against the
+which route `ops.projection.project` takes. The kernel itself is held against the
 plain version on the card (`test_torch_kernels_gpu.py`)."""
 
 import dataclasses
 import math
-import types
 
 import numpy as np
 import pytest
@@ -23,8 +22,9 @@ from vfa_tpu_torch.data.synthetic import make_calibrations
 from vfa_tpu_torch.geometry import ground_positions, make_grid
 from vfa_tpu_torch.model import mvdet
 from vfa_tpu_torch.model.mvdet import MVDet, init_weights
-from vfa_tpu_torch.ops.projection import (OUTSIDE, project_world, project_world_plain,
-                                          sample_grid)
+from vfa_tpu_torch.ops import projection
+from vfa_tpu_torch.ops.projection import (OUTSIDE, project, project_world,
+                                          project_world_plain, sample_grid)
 
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -182,23 +182,29 @@ def test_image_head_before_the_upsample_equals_the_chain(fh, fw, h, w):
         assert float(border.abs().max()) < tol
 
 
-def _feats(device_type="cuda", dtype=torch.bfloat16, requires_grad=False):
-    """A stand-in for the features: `_one_launch` reads only their dtype and
-    requires_grad."""
-    return types.SimpleNamespace(device=types.SimpleNamespace(type=device_type), dtype=dtype,
-                                 requires_grad=requires_grad)
-
-
 @pytest.mark.parametrize("case,want", [
-    (("cuda", torch.bfloat16, False), True), (("cuda", torch.bfloat16, True), False),
-    (("cuda", torch.float32, False), False), (("cuda", torch.float16, False), False),
-    (("cpu", torch.bfloat16, False), True), (("cpu", torch.float32, False), False),
+    (("meta", torch.bfloat16, False), True), (("meta", torch.bfloat16, True), False),
+    (("meta", torch.float32, False), False), (("meta", torch.float16, False), False),
+    (("cpu", torch.bfloat16, None), True), (("cpu", torch.float32, False), False),
 ], ids=["bf16_cuda", "bf16_cuda_grad", "fp32_cuda", "fp16_cuda", "bf16_cpu", "fp32_cpu"])
-def test_kernel_route_only_for_bf16_without_gradient(case, want):
-    """`MVDet.project` calls the wrapper for bf16 features that need no
-    gradient, whatever their device: the wrapper alone splits CUDA (the
-    kernel) from the CPU (the plain version)."""
-    assert MVDet._one_launch(_feats(*case)) is want
+def test_kernel_route_only_for_bf16_without_gradient(monkeypatch, case, want):
+    """`ops.projection.project` calls the wrapper for bf16 features that
+    need no gradient, and the library composition otherwise, whatever the
+    device: the same choice on CPU tensors and on another device's (meta
+    tensors stand for the card's), where the wrapper alone splits CUDA (the
+    kernel) from the CPU (the plain version). `bf16_cpu`'s features require
+    a gradient under grad mode off, so none is needed."""
+    device, dtype, requires_grad = case
+    calls = []
+    for name in ("project_world", "project_world_plain"):
+        monkeypatch.setattr(projection, name,
+                            lambda *a, name=name: calls.append(name) or a[-1])
+    feats = torch.zeros(1, 2, 4, 4, 5, dtype=dtype, device=device)
+    feats.requires_grad_(requires_grad is not False)
+    with torch.set_grad_enabled(requires_grad is not None):
+        project(feats, torch.zeros(2, 3, 5, 2, device=device), (10, 14),
+                torch.zeros(1, 10, 3, 5, dtype=dtype, device=device))
+    assert calls == ["project_world" if want else "project_world_plain"]
 
 
 @pytest.fixture(scope="module")
@@ -220,13 +226,13 @@ def test_forward_on_the_cpu_launches_nothing(scene, monkeypatch, dtype, grad):
     grad mode."""
     model, images, pos = scene
     calls = []
-    monkeypatch.setattr(mvdet, "project_world",
-                        lambda *a: calls.append(1) or project_world(*a))
     n0 = kernels.launch_counts()["mvdet_project"]
     net = MVDet(CFG)
     net.load_state_dict(model.state_dict())
     net = net.to(dtype).eval()
-    with torch.set_grad_enabled(grad):
+    with monkeypatch.context() as m, torch.set_grad_enabled(grad):
+        m.setattr(projection, "project_world",
+                  lambda *a: calls.append(1) or project_world(*a))
         out = net(images.to(dtype), pos)
     assert out["heatmap"].requires_grad is grad
     assert len(calls) == (dtype == torch.bfloat16 and not grad)
@@ -243,11 +249,11 @@ def test_wrapper_route_on_the_cpu_gives_the_plain_routes_outputs(scene, monkeypa
     net = net.to(torch.bfloat16).eval()
     x = images.to(torch.bfloat16)
     calls = []
-    monkeypatch.setattr(mvdet, "project_world",
+    monkeypatch.setattr(projection, "project_world",
                         lambda *a: calls.append(1) or project_world(*a))
     got = net(x, pos)
     assert calls == [1]
-    monkeypatch.setattr(MVDet, "_one_launch", staticmethod(lambda feats: False))
+    monkeypatch.setattr(mvdet, "project", projection.project_world_plain)
     want = net(x, pos)
     assert calls == [1]
     for k in want:

@@ -31,7 +31,7 @@ from vfa_tpu_torch.train_lib import (
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SERVE_SPANS = {"stage", "forward", "backbone", "laterals", "sampling", "sampling.kernel",
-               "heads", "decode"}
+               "sampling.epilogue", "heads", "decode"}
 TRAIN_SPANS = {"train_step", "cast", "forward", "backbone", "laterals", "sampling",
                "sampling.kernel", "heads", "targets", "loss", "optimizer", "backward",
                "sampling.bwd", "backbone.bwd"}
@@ -211,8 +211,8 @@ def test_every_span_in_a_serve_call_and_a_train_step(tiny):
     parent = lambda r: recs[r.parent].name if r.parent is not None else None
     assert {r.name: parent(r) for r in recs} == {
         "stage": None, "forward": None, "backbone": "forward", "laterals": "forward",
-        "sampling": "forward", "sampling.kernel": "sampling", "heads": "forward",
-        "decode": None}
+        "sampling": "forward", "sampling.kernel": "sampling",
+        "sampling.epilogue": "sampling", "heads": "forward", "decode": None}
     assert len({r.call for r in recs}) == 3            # stage, forward, decode
     observability.clear_spans()
     _train(tiny)
@@ -235,7 +235,7 @@ def test_spans_reach_the_profiler(tiny):
 
     observability.tracing(True)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        _serve(tiny)
+        _serve(tiny, torch.bfloat16)
     names = {e.name for e in prof.events()}
     assert {f"vfa.{s}" for s in SERVE_SPANS} <= names
 

@@ -45,7 +45,7 @@ from vfa_tpu_torch import observability
 from vfa_tpu_torch.config import DatasetConfig
 from vfa_tpu_torch.model.resnet import batch_norm, resnet_stages
 from vfa_tpu_torch.model.vfanet import IMAGENET_MEAN, IMAGENET_STD, RESNET_LAYERS
-from vfa_tpu_torch.ops.projection import project_world, project_world_plain
+from vfa_tpu_torch.ops.projection import project
 
 BASE = "resnet18"             # upstream's trunk
 DILATE = (False, True, True)  # stages 2-4: dilate instead of striding
@@ -100,27 +100,17 @@ class MVDet(nn.Module):
         """feats (B, N, C, h8, w8), positions (N, L, W, 2) -> the world
         features (B, N*C + 2, L, W) in the features' dtype and the image
         head's maps (B, N, 2, h, w). The image head on every camera at
-        once, then every camera's warped features (`ops/projection.py`: one
-        kernel launch when `_one_launch`, else the library composition),
+        once, then every camera's warped features (`ops/projection.project`:
+        one kernel launch for bf16 serving, else the library composition),
         then the coordinate map."""
         B, N, C = feats.shape[:3]
         L, W = positions.shape[1:3]
         with observability.span("heads"):
             img = self.image_head(feats.flatten(0, 1)).unflatten(0, (B, N))
         world = feats.new_empty((B, N * C + 2, L, W))
-        project = project_world if self._one_launch(feats) else project_world_plain
         project(feats, positions, self.upsample_shape, world)
         world[:, N * C:] = self.coord_map.to(feats.dtype)
         return world, img
-
-    @staticmethod
-    def _one_launch(feats: torch.Tensor) -> bool:
-        """Whether the warp goes through `project_world`: bf16 features that
-        need no gradient (the wrapper launches the kernel on a card and runs
-        the plain version on the CPU). The kernel saves nothing for a
-        backward, so every call that needs one, and every other dtype, takes
-        the library composition, which autograd differentiates."""
-        return feats.dtype == torch.bfloat16 and not feats.requires_grad
 
     @observability.traced("forward")
     def forward(self, images: torch.Tensor, positions: torch.Tensor) -> Dict[str, torch.Tensor]:

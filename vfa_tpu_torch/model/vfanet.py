@@ -27,6 +27,8 @@ from torch import nn
 from vfa_tpu_torch import observability
 from vfa_tpu_torch.config import DatasetConfig
 from vfa_tpu_torch.model.resnet import ResNetGN, group_norm, remat
+from vfa_tpu_torch.ops import rig_cuda
+from vfa_tpu_torch.ops.rig import rig_bev
 from vfa_tpu_torch.ops.voxel import sample_voxels, voxel_boxes
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -292,71 +294,28 @@ class VFANet(nn.Module):
                  grid) -> torch.Tensor:
         """The sampling layer of `bev_features`: the laterals' maps of B
         scenes of N cameras each -> the BEV features."""
-        if rig is not None and hasattr(rig, "slab_rows"):
-            from vfa_tpu_torch.parallel_bev import sample_bev_sharded
-
-            if self.mesh is None:
-                raise ValueError("a BEV slab rig needs VFANet.mesh, the "
-                                 "mesh whose bev axis the slabs shard over")
-            lat5 = [lat.permute(0, 2, 3, 1).reshape(B, N, *lat.shape[2:], -1)
-                    for lat in lats]
-            return sample_bev_sharded(
-                lat5, rig, [lin.weight.t() for lin in self.collapses()],
-                [lin.bias for lin in self.collapses()], out_dtype=lats[0].dtype,
-                impl=self.rig_impl)
         if rig is None:
             if calibs is None or grid is None:
                 raise ValueError("the voxel route (rig=None) needs calibs "
                                  "(B, N, 3, 4) and grid (L, W, 3)")
             return self._camera_sum(self.voxel_bev(lats, calibs, grid)).to(lats[0].dtype)
-        if self._serving_epilogue(lats):
-            return self._sample_serving(lats, B, N, rig)
-        if self.rig_impl == "cuda":
-            from vfa_tpu_torch.ops.rig_cuda import rig_sample_scale_cuda as sample
-        else:
-            from vfa_tpu_torch.ops.rig import rig_sample_scale as sample
+        lat5 = [lat.permute(0, 2, 3, 1).reshape(B, N, *lat.shape[2:], -1) for lat in lats]
+        kernels = [lin.weight.t() for lin in self.collapses()]
+        biases = [lin.bias for lin in self.collapses()]
+        if hasattr(rig, "slab_rows"):
+            from vfa_tpu_torch.parallel_bev import sample_bev_sharded
+
+            if self.mesh is None:
+                raise ValueError("a BEV slab rig needs VFANet.mesh, the "
+                                 "mesh whose bev axis the slabs shard over")
+            return sample_bev_sharded(lat5, rig, kernels, biases, out_dtype=lats[0].dtype,
+                                      impl=self.rig_impl)
+        # on a mesh the fp32 camera sums are all-reduced before the one rounding
+        bev = (rig_cuda.rig_bev if self.rig_impl == "cuda" else rig_bev)(
+            lat5, rig.scales, kernels, biases,
+            torch.float32 if self.mesh is not None else lats[0].dtype)
         L, W = rig.grid_shape
-        ortho = torch.zeros((B, L * W, 256), dtype=torch.float32,
-                            device=lats[0].device)
-        for sr, lat, lin in zip(rig.scales, lats, self.collapses()):
-            lat5 = lat.permute(0, 2, 3, 1).reshape(B, N, *lat.shape[2:], -1)
-            ortho = ortho + sample(lat5, sr, lin.weight.t(), lin.bias,
-                                   out_dtype=torch.float32, camera_sum=True)
-        ortho = self._camera_sum(ortho)
-        return ortho.reshape(B, L, W, 256).to(lats[0].dtype)
-
-    def _serving_epilogue(self, lats: List[torch.Tensor]) -> bool:
-        """Whether the compiled rig's sampling (neither a mesh nor a BEV
-        slab) goes through `_sample_serving`: the kernel route on bf16 CUDA
-        laterals, with no gradient needed. Its kernel saves nothing for a
-        backward, so training and every grad-enabled call take the
-        per-scale epilogue, which autograd differentiates."""
-        lat = lats[0]
-        if (self.rig_impl != "cuda" or self.mesh is not None
-                or lat.device.type != "cuda" or lat.dtype != torch.bfloat16):
-            return False
-        if not torch.is_grad_enabled():
-            return True
-        return not any(t.requires_grad for t in (
-            *lats, *(p for lin in self.collapses() for p in (lin.weight, lin.bias))))
-
-    def _sample_serving(self, lats: List[torch.Tensor], B: int, N: int,
-                        rig) -> torch.Tensor:
-        """The sampling of `sampling` with one epilogue launch for all
-        scales (`ops/rig_cuda.rig_bev_epilogue`): each scale's tiles from
-        its forward kernel (`rig_tiles_serving`), then the BEV features in
-        the laterals' dtype straight from them, the same values as the
-        per-scale route."""
-        from vfa_tpu_torch.ops.rig_cuda import rig_bev_epilogue, rig_tiles_serving
-
-        tiles = rig_tiles_serving(
-            [lat.permute(0, 2, 3, 1).reshape(B, N, *lat.shape[2:], -1) for lat in lats],
-            rig.scales, [lin.weight.t() for lin in self.collapses()])
-        with observability.span("sampling.epilogue"):
-            bev = rig_bev_epilogue(tiles, [sr.inv_perm for sr in rig.scales],
-                                   [lin.bias for lin in self.collapses()])
-        L, W = rig.grid_shape
-        return bev.reshape(B, L, W, 256)
+        return self._camera_sum(bev).reshape(B, L, W, 256).to(lats[0].dtype)
 
     def _camera_sum(self, ortho: torch.Tensor) -> torch.Tensor:
         """The fp32 sum of this rank's cameras, summed over the mesh's

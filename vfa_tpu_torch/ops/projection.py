@@ -13,7 +13,8 @@ features' size), summed in fp32 and rounded once. It replaces no TPU
 kernel (the JAX package has no MVDet).
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises. No autograd: serving only.
+launches the kernel or raises. No autograd: serving only. `project`
+chooses between the wrapper and the library composition.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from vfa_tpu_torch.ops import needs_grad
 
 # Where a cell whose position is not finite samples, in grid_sample's
 # coordinates: every tap lies outside any map of 2 pixels or more.
@@ -153,3 +156,13 @@ def project_world(feats: torch.Tensor, positions: torch.Tensor, size,
 
 
 project_world.launches = 0
+
+
+def project(feats: torch.Tensor, positions: torch.Tensor, size,
+            out: torch.Tensor) -> torch.Tensor:
+    """`project_world_plain`'s contract: `project_world` for bf16 features
+    that need no gradient, else the library composition, which autograd
+    differentiates."""
+    if feats.dtype == torch.bfloat16 and not needs_grad(feats):
+        return project_world(feats, positions, size, out)
+    return project_world_plain(feats, positions, size, out)

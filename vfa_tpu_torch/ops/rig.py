@@ -22,9 +22,10 @@ The host builder below is numpy and reproduces the JAX build byte for byte
 directory it keeps each rig in an npz keyed by all of its inputs
 (`rig_cache_path`), so a repeated run loads instead of building.
 `rig_sample_scale` is the plain PyTorch version of the hand-written
-kernels (`ops/rig_cuda.py`) plus the shared epilogue; `window_tiles_bwd`
-and `flat_tiles_bwd` are the plain versions of the backward kernels, and
-`rig_bev_sum` that of the serving epilogue over all scales.
+kernels (`ops/rig_cuda.py`) plus the shared epilogue, `rig_bev` its chain
+over every scale; `window_tiles_bwd` and `flat_tiles_bwd` are the plain
+versions of the backward kernels, and `rig_bev_sum` that of the serving
+epilogue over all scales.
 """
 
 from __future__ import annotations
@@ -1130,3 +1131,17 @@ def rig_sample_scale(lat, rig: ScaleRig, collapse_kernel, collapse_bias,
     Kr = collapse_per_layer(collapse_kernel, C, rig.nl, lat.dtype)
     return rig_epilogue(scale_tiles(ii, rig, Kr), rig.inv_perm, collapse_bias,
                         out_dtype, camera_sum)
+
+
+def rig_bev(lats, scales: Sequence[ScaleRig], kernels, biases, out_dtype,
+            sample=rig_sample_scale):
+    """Per scale lat (B, N, fh, fw, C), kernel and bias as `sample` takes
+    them (`rig_sample_scale`, or `ops/rig_cuda.rig_sample_scale_cuda`) ->
+    the BEV features (B, V2d, n_out) in `out_dtype`: each scale's fp32
+    camera sum, added in fp32 in scale order from 0, rounded once."""
+    B = lats[0].shape[0]
+    out = torch.zeros((B, scales[0].inv_perm.shape[1], kernels[0].shape[-1]),
+                      dtype=torch.float32, device=lats[0].device)
+    for lat, sr, k, b in zip(lats, scales, kernels, biases):
+        out = out + sample(lat, sr, k, b, out_dtype=torch.float32, camera_sum=True)
+    return out.to(out_dtype)

@@ -33,7 +33,7 @@ so its dII has JAX's order and the same bits every run.
 Serving on bf16 does without that epilogue: `rig_bev_epilogue` wraps
 `csrc/rig_bev_epilogue.cu`, which takes every scale's tiles to the BEV
 features in one launch with the epilogue's roundings and saves nothing for
-a backward (`VFANet.sampling` takes it when no gradient is needed).
+a backward. `rig_bev` chooses between the two routes for a whole rig.
 
 On a CPU tensor a wrapper runs its kernel's plain version
 (`ops/rig.window_tiles`, `window_tiles_bwd`, `flat_tiles`,
@@ -50,6 +50,7 @@ from torch.autograd.function import once_differentiable
 
 from vfa_tpu_torch import observability
 from vfa_tpu_torch.kernels import LaunchCount
+from vfa_tpu_torch.ops import needs_grad, rig as trig
 from vfa_tpu_torch.ops.rig import (
     ScaleRig, collapse_per_layer, flat_dii_index, flat_tiles, flat_tiles_bwd,
     rig_bev_sum, rig_epilogue, scale_features, window_bwd_serial,
@@ -501,6 +502,20 @@ def rig_scale_bwd(ii: torch.Tensor, rig: ScaleRig, Kr: torch.Tensor,
     return dII, dKr.to(Kr.dtype)
 
 
+def _rows(rig: ScaleRig) -> int:
+    return sum(a.shape[1] for a in rig.A) * rig.tile_v
+
+
+def scale_tiles_cuda(ii: torch.Tensor, rig: ScaleRig, Kr: torch.Tensor,
+                     vox: torch.Tensor = None) -> torch.Tensor:
+    """`ops.rig.scale_tiles` by `rig_fwd_scale` (vox: its bf16 scratch, or
+    None), in the `sampling.kernel` span; no autograd."""
+    out = torch.empty((*ii.shape[:2], _rows(rig), Kr.shape[-1]), dtype=ii.dtype,
+                      device=ii.device)
+    with observability.span("sampling.kernel"):
+        return rig_fwd_scale(ii, rig, Kr, out, vox)
+
+
 class RigScaleTiles(torch.autograd.Function):
     """(ii, Kr) -> the scale's (N, B, T_total*tile_v, n_out) tiles, every
     bucket written in place into one buffer; the backward runs the backward
@@ -510,12 +525,7 @@ class RigScaleTiles(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, ii, Kr, rig: ScaleRig):
-        N, B = ii.shape[:2]
-        T_total = sum(a.shape[1] for a in rig.A)
-        out = torch.empty((N, B, T_total * rig.tile_v, Kr.shape[-1]),
-                          dtype=ii.dtype, device=ii.device)
-        with observability.span("sampling.kernel"):
-            rig_fwd_scale(ii, rig, Kr, out)
+        out = scale_tiles_cuda(ii, rig, Kr)
         ctx.save_for_backward(ii, Kr)
         ctx.rig = rig
         return out
@@ -538,34 +548,6 @@ def rig_tiles_cuda(lat: torch.Tensor, rig: ScaleRig,
     return RigScaleTiles.apply(ii, Kr, rig)
 
 
-def rig_tiles_serving(lats, scales, collapse_kernels):
-    """Each scale's tiles (N, B, T_total*tile_v, n_out) from its lat (B, N,
-    fh, fw, C), as `rig_tiles_cuda` computes them, without autograd: the
-    input of `rig_bev_epilogue`, which reads every scale's tiles at once.
-    On bf16 CUDA tensors the scales' forwards share one vox scratch (nl
-    times a scale's tiles; at Wildtrack batch 32, 37 GiB), allocated before
-    the tiles. Per-scale scratches, each freed while the scales' tiles stay
-    alive, leave the caching allocator to place the next scale's tiles in
-    the freed block and to find no room for the next scratch; one scratch
-    made first reuses its block every call."""
-    lat0 = lats[0]
-    rows = [sum(a.shape[1] for a in sr.A) * sr.tile_v for sr in scales]
-    vox = None
-    if lat0.device.type == "cuda" and lat0.dtype == torch.bfloat16:
-        N, B, C = lat0.shape[1], lat0.shape[0], lat0.shape[-1]
-        vox = torch.empty((max(N * B * r * sr.nl * C for r, sr in zip(rows, scales)),),
-                          dtype=lat0.dtype, device=lat0.device)
-    tiles = [torch.empty((lat.shape[1], lat.shape[0], r, k.shape[-1]), dtype=lat.dtype,
-                         device=lat.device)
-             for lat, r, k in zip(lats, rows, collapse_kernels)]
-    for lat, sr, k, out in zip(lats, scales, collapse_kernels, tiles):
-        ii = scale_features(lat, sr)
-        Kr = collapse_per_layer(k, lat.shape[-1], sr.nl, lat.dtype)
-        with observability.span("sampling.kernel"):
-            rig_fwd_scale(ii, sr, Kr, out, vox)
-    return tiles
-
-
 def rig_sample_scale_cuda(lat, rig: ScaleRig, collapse_kernel, collapse_bias,
                           out_dtype=None, camera_sum=False):
     """Same contract as `ops.rig.rig_sample_scale`, through the kernel."""
@@ -573,6 +555,31 @@ def rig_sample_scale_cuda(lat, rig: ScaleRig, collapse_kernel, collapse_bias,
     tiles = rig_tiles_cuda(lat, rig, collapse_kernel)
     return rig_epilogue(tiles, rig.inv_perm, collapse_bias, out_dtype,
                         camera_sum)
+
+
+def rig_bev(lats, scales, kernels, biases, out_dtype) -> torch.Tensor:
+    """`ops.rig.rig_bev` through the kernels: for bf16 lats and out with no
+    gradient needed, every scale's tiles, then one `rig_bev_epilogue` (the
+    chain's bits); otherwise the chain of `rig_sample_scale_cuda`."""
+    lat0 = lats[0]
+    if (lat0.dtype != torch.bfloat16 or out_dtype != torch.bfloat16
+            or needs_grad(*lats, *kernels, *biases)):
+        return trig.rig_bev(lats, scales, kernels, biases, out_dtype,
+                            sample=rig_sample_scale_cuda)
+    B, N, C = lat0.shape[0], lat0.shape[1], lat0.shape[-1]
+    vox = None
+    if lat0.device.type == "cuda":
+        # One vox scratch for every scale (at Wildtrack batch 32, 37 GiB),
+        # made before the tiles: per-scale scratches, each freed while the
+        # tiles stay alive, let the caching allocator place the next tiles
+        # in the freed block and find no room for the next scratch.
+        vox = torch.empty((max(N * B * _rows(sr) * sr.nl * C for sr in scales),),
+                          dtype=lat0.dtype, device=lat0.device)
+    tiles = [scale_tiles_cuda(scale_features(lat, sr), sr,
+                              collapse_per_layer(k, C, sr.nl, lat.dtype), vox)
+             for lat, sr, k in zip(lats, scales, kernels)]
+    with observability.span("sampling.epilogue"):
+        return rig_bev_epilogue(tiles, [sr.inv_perm for sr in scales], biases)
 
 
 def rig_bev_epilogue(tiles, inv_perms, biases) -> torch.Tensor:

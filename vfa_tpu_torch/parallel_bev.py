@@ -48,7 +48,8 @@ import torch.nn.functional as F
 
 from vfa_tpu_torch import parallel
 from vfa_tpu_torch.config import DatasetConfig
-from vfa_tpu_torch.ops.rig import ScaleRig, _dii_orders, _round_up, build_rig
+from vfa_tpu_torch.ops import rig_cuda
+from vfa_tpu_torch.ops.rig import ScaleRig, _dii_orders, _round_up, build_rig, rig_bev
 
 @dataclasses.dataclass
 class BevShardedRig:
@@ -348,27 +349,19 @@ def sample_bev_sharded(lats, srig: BevSlab, kernels, biases, out_dtype=None,
 
     lats: per-scale (B, N, fh, fw, C) feature pyramids, the same on every
     rank of the bev group; kernels / biases: per-scale collapse Linears
-    ((C*nl, n_out), c-major, and (n_out,)). Each scale goes through
-    `ops.rig_cuda.rig_sample_scale_cuda` (`impl` 'cuda': the kernels on
-    CUDA tensors, their plain versions on CPU tensors) or the plain
-    `ops.rig.rig_sample_scale` ('plain'), with camera_sum. Returns
-    (B, slab_rows, W, n_out) in `out_dtype` (default the features'), its
-    padding rows masked; the features' gradient is summed over the
-    slabs."""
-    if impl == "cuda":
-        from vfa_tpu_torch.ops.rig_cuda import rig_sample_scale_cuda as sample
-    else:
-        from vfa_tpu_torch.ops.rig import rig_sample_scale as sample
-    L, W = srig.grid_shape
+    ((C*nl, n_out), c-major, and (n_out,)). The slab's scales go through
+    `ops.rig_cuda.rig_bev` (`impl` 'cuda': the kernels on CUDA tensors,
+    their plain versions on CPU tensors) or the plain `ops.rig.rig_bev`
+    ('plain') with fp32 out: the per-scale chain. Returns (B, slab_rows,
+    W, n_out) in `out_dtype` (default the features'), its padding rows
+    masked; the features' gradient is summed over the slabs."""
+    W = srig.grid_shape[1]
     B = lats[0].shape[0]
     n_out = kernels[0].shape[-1]
     out_dtype = out_dtype or lats[0].dtype
-    ortho = torch.zeros((B, srig.slab_rows * W, n_out), dtype=torch.float32,
-                        device=lats[0].device)
-    for sr, lat, k, b in zip(srig.scales, lats, kernels, biases):
-        lat = parallel.copy_to_partial(lat, srig.rows.group)
-        ortho = ortho + sample(lat, sr, k, b, out_dtype=torch.float32,
-                               camera_sum=True)
+    lats = [parallel.copy_to_partial(lat, srig.rows.group) for lat in lats]
+    ortho = (rig_cuda.rig_bev if impl == "cuda" else rig_bev)(
+        lats, srig.scales, kernels, biases, torch.float32)
     ortho = ortho.reshape(B, srig.slab_rows, W, n_out)
     return srig.rows.mask(ortho.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).to(out_dtype)
 

@@ -134,7 +134,7 @@ def stage_images(images: np.ndarray, device, dtype=None,
     camera image, `data.augment.sample_jitter_params`), the train-split
     ColorJitter run on the device. The copy is from pageable memory: one
     through pinned memory without waiting did not measure faster from
-    disk (`tools/exp_disk_staging.py`, PERF.md §5)."""
+    disk (CHANGES.md, the on-disk path's entry)."""
     x = torch.from_numpy(np.ascontiguousarray(images)).to(device)
     f = x.to(torch.float32) * (1.0 / 255.0)
     if jitter is not None:
