@@ -64,7 +64,15 @@ result line):
      replaces (`phase_mvdet_project`), and MVDet's bf16 serving path at
      that cell's batch (`predict --arch mvdet`, 32 Wildtrack scenes: one
      `mvdet_project` launch a request and no other kernel,
-     `phase_mvdet_path`; the kernels line prints that count).
+     `phase_mvdet_path`; the kernels line prints that count); then
+     VFANet's backbone norms (`csrc/gn_nhwc.cu`) at each of their shapes
+     at batch 32 through the model's wrapper: the statistics against
+     ATen's, the output against the library chain bit for bit (fed ATen's
+     statistics, and fed the kernel's where a bf16 statistic rounds
+     apart), timed beside it (`phase_gn_nhwc`). Phase 3's bf16 serving
+     path also runs 32 MultiviewC scenes in one request
+     (`phase_backbone_path`: 20 statistics and 20 apply launches, K1-bf16
+     once a scale, the epilogue once, no other kernel).
      The three bf16 window rigs are built by one more host process;
   5c. bf16 training (mixed precision, `--dtype bfloat16`) through the bf16
      variants of the backward kernels (`rig_window_bwd_bf16`,
@@ -243,7 +251,7 @@ RUNS_DIR = None
 def counters():
     """name -> wrapper of every kernel of the port; each wrapper counts its
     launches in `.launches`."""
-    from vfa_tpu_torch.ops import projection, rig_cuda, stem, voxel
+    from vfa_tpu_torch.ops import group_norm, projection, rig_cuda, stem, voxel
 
     return {"rig_window_fwd": rig_cuda.rig_window_fwd,
             "rig_window_bwd": rig_cuda.rig_window_bwd,
@@ -260,7 +268,21 @@ def counters():
             "voxel_tap_bwd": voxel.voxel_tap_bwd,
             "voxel_tap_bwd_bf16": voxel.voxel_tap_bwd_bf16,
             "rig_bev_epilogue": rig_cuda.rig_bev_epilogue,
-            "mvdet_project": projection.project_world}
+            "mvdet_project": projection.project_world,
+            "gn_nhwc_stats": group_norm.gn_nhwc_stats,
+            "gn_nhwc_apply": group_norm.gn_nhwc_apply}
+
+
+# VFANet's backbone norms (`ops/group_norm.py`, `csrc/gn_nhwc.cu`): a
+# statistics and an apply launch a GroupNorm, BACKBONE_NORMS of each a bf16
+# forward of ResNet18-GN that needs no gradient, none where one is needed
+BACKBONE_KERNELS = ("gn_nhwc_stats", "gn_nhwc_apply")
+BACKBONE_NORMS = 20
+
+
+def without_backbone(launches: dict) -> dict:
+    """launches less the backbone norms' kernels."""
+    return {k: n for k, n in launches.items() if k not in BACKBONE_KERNELS}
 
 
 def reset_launches() -> None:
@@ -296,7 +318,7 @@ def ptxas_kernels(text: str):
     for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
-            short = re.search(r"\d((?:rig|stem|voxel|mvdet)_[a-z0-9_]+)", m.group(1))
+            short = re.search(r"\d((?:rig|stem|voxel|mvdet|gn)_[a-z0-9_]+)", m.group(1))
             name = short.group(1) if short else m.group(1)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -321,7 +343,8 @@ def phase_build():
             log(f"  ptxas[{name}]: {kernel}: {regs} registers, {spill} bytes "
                 "spilled")
             if spill and re.match(
-                    r"rig_(\w+_mma|ws\w+|bev_epilogue)|stem_bwd_|voxel_tap_bwd|mvdet_project",
+                    r"rig_(\w+_mma|ws\w+|bev_epilogue)|stem_bwd_|voxel_tap_bwd|mvdet_project"
+                    r"|gn_(stats|apply)",
                     kernel):
                 raise AssertionError(f"{kernel} spills {spill} bytes")
     log(f"phase 1 build: {names} in {time.perf_counter() - t0:.1f} s")
@@ -766,14 +789,15 @@ def phase_train_path_bf16(rig, rig32, device, fused_stem: bool):
         raise AssertionError(f"the bf16 training path never launched {fwd}")
     # the validation forward (no gradient) takes the one-launch epilogue
     want = {fwd: None, bwd: buckets, "stem_bwd_stats_bf16": stem_n,
-            "stem_bwd_dx_bf16": stem_n, "rig_bev_epilogue": None}
+            "stem_bwd_dx_bf16": stem_n, "rig_bev_epilogue": None,
+            **{k: None for k in BACKBONE_KERNELS}}
     for name, n in launches.items():
         if want.get(name, 0) is not None and n != want.get(name, 0):
             raise AssertionError(f"{name} launched {n} times on the {tag} "
                                  f"training path, expected {want.get(name, 0)}")
     os.environ["VFA_FUSED_STEM"] = "0"
     ref = train.main(argv + ["--rig_impl", "plain"], rig=rig)
-    if launches != read_launches():
+    if without_backbone(launches) != without_backbone(read_launches()):
         raise AssertionError("the plain route launched a kernel")
     os.environ["VFA_FUSED_STEM"] = "1" if fused_stem else "0"
     fp32 = train.main(argv[:argv.index("--dtype")] + argv[argv.index("--dtype") + 2:],
@@ -950,7 +974,14 @@ def phase_main_path(rig, device, scenes: int):
     if launches["rig_bev_epilogue"] != epilogue:
         raise AssertionError(f"the serving path launched rig_bev_epilogue "
                              f"{launches['rig_bev_epilogue']} times, expected {epilogue}")
-    if any(n for name, n in launches.items() if name not in (fwd, "rig_bev_epilogue")):
+    # bf16: the backbone's norms, a statistics and an apply launch each
+    norms = BACKBONE_NORMS * len(res["ms"]) if bf16 else 0
+    if any(launches[k] != norms for k in BACKBONE_KERNELS):
+        raise AssertionError(f"the serving path launched the backbone's kernels "
+                             f"{[launches[k] for k in BACKBONE_KERNELS]} times, expected "
+                             f"{norms} each")
+    if any(n for name, n in launches.items()
+           if name not in (fwd, "rig_bev_epilogue") + BACKBONE_KERNELS):
         raise AssertionError("the serving path launched another kernel")
     ref = predict.main(argv + ["--rig_impl", "plain"], rig=rig)
 
@@ -1197,6 +1228,157 @@ def phase_mvdet_path(device, batch: int = MVDET_BATCH) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches["mvdet_project"] // len(res["ms"]),
             "requests": len(res["ms"]), "ms": res["ms"], "peak": peak}
+
+
+GN_BATCH = 32          # the serving cells' batch: 224 images of 720 x 1280
+GN_REPS = 5
+# each norm of a ResNet18-GN forward at the serving size: (C, H, W,
+# epilogue) and how many of it a forward has
+GN_NORMS = (((64, 360, 640, "relu_pool"), 1), ((64, 180, 320, "relu"), 2),
+            ((64, 180, 320, "add_relu"), 2), ((128, 90, 160, "none"), 1),
+            ((128, 90, 160, "relu"), 2), ((128, 90, 160, "add_relu"), 2),
+            ((256, 45, 80, "none"), 1), ((256, 45, 80, "relu"), 2),
+            ((256, 45, 80, "add_relu"), 2), ((512, 23, 40, "none"), 1),
+            ((512, 23, 40, "relu"), 2), ((512, 23, 40, "add_relu"), 2))
+
+
+def phase_gn_nhwc(device, batch: int = GN_BATCH) -> dict:
+    """The backbone's norms (`csrc/gn_nhwc.cu`) at the serving cells' sizes
+    (`batch` scenes x 7 cameras; random channels-last bf16 x, scale, bias
+    and identity), each (C, H, W, epilogue) of GN_NORMS, through the
+    model's wrapper (`group_norm_nhwc`) against the library chain
+    (`group_norm_act_plain`): the statistics pass (`gn_nhwc_stats`, the
+    wrapper's own) within STATS_TOL of ATen's fp32 statistics, a bf16
+    statistic apart only as the rounding of a value that close
+    (`stats_vs_aten`); fed
+    ATen's bf16 statistics the apply pass gives the chain's bits; the
+    wrapper's output the chain's bits in every image whose bf16 statistics
+    are ATen's, and in the others those of `apply_plain` fed the kernel's
+    statistics; its largest difference from the chain printed. Times (CUDA
+    events, best of two interleaved rounds of GN_REPS) of the wrapper, of
+    each pass alone and of the chain, and two bounds at PEAK_BYTES_PER_S:
+    the bytes the two passes move (x read by each, the identity read and
+    the output written once) and the least a norm moves (x read once).
+    Totals over a forward weighted by GN_NORMS' counts."""
+    from vfa_tpu_torch.ops import group_norm as gn
+
+    M = batch * 7
+    bits = lambda t: t.view(torch.int16)
+    rows = []
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "one_read_bound_ms": 0.0}
+    worst = {"max_abs_err": 0.0, "max_rel_err": 0.0, "stats_mean_err": 0.0,
+             "stats_rstd_err": 0.0, "groups_apart": 0}
+    for (C, H, W, act), count in GN_NORMS:
+        where = f"gn_nhwc {(M, C, H, W)} {act}"
+        g = torch.Generator(device=device).manual_seed(C + H)
+        x = torch.randn((M, C, H, W), device=device, generator=g, dtype=torch.bfloat16)
+        x = x.contiguous(memory_format=torch.channels_last)
+        w, b = (torch.randn(C, device=device, generator=g, dtype=torch.bfloat16)
+                for _ in range(2))
+        ident = torch.randn_like(x) if act == "add_relu" else None
+        aten, ref = gn.aten_stats(x, 16)
+        stats = gn.gn_nhwc_stats(x, 16, 1e-5)
+        d_mean, d_rstd, off, sound = gn.stats_vs_aten(stats, ref, aten)
+        if not sound or max(d_mean, d_rstd) > gn.STATS_TOL:
+            raise AssertionError(f"{where}: statistics {d_mean:.3e} / {d_rstd:.3e} from ATen's "
+                                 f"(limit {gn.STATS_TOL:.3e}), sound {sound}")
+        want = gn.group_norm_act_plain(x, w, b, 16, 1e-5, act, ident)
+        fed = gn.gn_nhwc_apply(x, aten, w, b, act, ident)
+        if not torch.equal(bits(fed), bits(want)):
+            raise AssertionError(f"{where}: fed ATen's statistics, not the library chain's bits")
+        del fed
+        got = gn.group_norm_nhwc(x, w, b, 16, 1e-5, act, ident)
+        apart = off.any(-1).nonzero().flatten().tolist()
+        same = [m for m in range(M) if m not in set(apart)]
+        if not torch.equal(bits(got[same]), bits(want[same])):
+            raise AssertionError(f"{where}: not the library chain's bits where the bf16 "
+                                 "statistics are ATen's")
+        for m in apart:
+            one = gn.apply_plain(x[m:m + 1], stats[m:m + 1], w, b, act,
+                                 ident[m:m + 1] if ident is not None else None)
+            if not torch.equal(bits(got[m:m + 1]), bits(one)):
+                raise AssertionError(f"{where}: image {m} not apply_plain's bits")
+        abs_err = float((got.float() - want.float()).abs().max())
+        rel_err = abs_err / float(want.float().abs().max())
+        del got, want, aten, ref
+        t_one, t_stats, t_apply, t_plain = [], [], [], []
+        for _ in range(2):
+            t_one.append(cuda_time_ms(
+                lambda: gn.group_norm_nhwc(x, w, b, 16, 1e-5, act, ident), GN_REPS))
+            t_stats.append(cuda_time_ms(lambda: gn.gn_nhwc_stats(x, 16, 1e-5), GN_REPS))
+            t_apply.append(cuda_time_ms(lambda: gn.gn_nhwc_apply(x, stats, w, b, act, ident),
+                                        GN_REPS))
+            t_plain.append(cuda_time_ms(
+                lambda: gn.group_norm_act_plain(x, w, b, 16, 1e-5, act, ident), 2))
+        n = x.numel()
+        out_n = ((H - 1) // 2 + 1) * ((W - 1) // 2 + 1) * M * C if act == "relu_pool" else n
+        once = 2 * n + 2 * out_n + (2 * n if ident is not None else 0)
+        row = {"shape": [M, C, H, W], "epilogue": act, "count": count,
+               "ms": min(t_one), "stats_ms": min(t_stats), "apply_ms": min(t_apply),
+               "plain_ms": min(t_plain),
+               "bound_ms": (2 * n + once) / PEAK_BYTES_PER_S * 1e3,
+               "one_read_bound_ms": once / PEAK_BYTES_PER_S * 1e3,
+               "stats_gb_per_s": 2 * n / min(t_stats) * 1e-6,
+               "apply_gb_per_s": once / min(t_apply) * 1e-6,
+               "max_abs_err": abs_err, "max_rel_err": rel_err,
+               "stats_mean_err": d_mean, "stats_rstd_err": d_rstd,
+               "groups_apart": int(off.sum()), "images_apart": len(apart)}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["share_of_one_read_bound"] = row["one_read_bound_ms"] / row["ms"]
+        rows.append(row)
+        for k in tot:
+            tot[k] += count * row[k]
+        for k in worst:
+            worst[k] = max(worst[k], row[k]) if k != "groups_apart" else worst[k] + row[k]
+        log(f"{where}: {row['ms']:.3f} ms (statistics {row['stats_ms']:.3f} ms, "
+            f"{row['stats_gb_per_s']:.0f} GB/s; apply {row['apply_ms']:.3f} ms, "
+            f"{row['apply_gb_per_s']:.0f} GB/s), {row['share_of_bound']:.1%} of the two-pass "
+            f"bound {row['bound_ms']:.3f} ms, {row['share_of_one_read_bound']:.1%} of the "
+            f"one-read bound {row['one_read_bound_ms']:.3f} ms; the library chain "
+            f"{row['plain_ms']:.3f} ms; statistics {d_mean:.2e} / {d_rstd:.2e} of ATen's, "
+            f"{row['groups_apart']} (image, group)s round apart; output against the chain "
+            f"max abs {abs_err:.3e}, rel {rel_err:.3e}")
+        del x, ident, stats
+        torch.cuda.empty_cache()
+    log(f"gn_nhwc over a forward at batch {batch}: {tot['ms']:.2f} ms ({tot['ms'] / batch:.3f} "
+        f"a scene), two-pass bound {tot['bound_ms']:.2f} ({tot['bound_ms'] / tot['ms']:.1%}), "
+        f"one-read bound {tot['one_read_bound_ms']:.2f} "
+        f"({tot['one_read_bound_ms'] / tot['ms']:.1%}); the library chain "
+        f"{tot['plain_ms']:.2f} ms; {worst}")
+    return {"rows": rows, **tot, **worst, "batch": batch}
+
+
+def phase_backbone_path(rig, device, batch: int = GN_BATCH) -> dict:
+    """VFANet's bf16 serving path as the `mvc_serve_b32` cell drives it:
+    `predict --dtype bfloat16` on `batch` synthetic MultiviewC scenes in one
+    request on the 12-bucket bf16 serving rig, counts set to 0 just before
+    and read just after: BACKBONE_NORMS statistics and apply launches of
+    the backbone's norms, K1-bf16 once a scale and the serving epilogue
+    once, a request; no other kernel; the heatmaps finite."""
+    from vfa_tpu_torch import predict
+
+    argv = ["--data", "MultiviewC", "--synthetic", "--scenes", str(batch), "--batch",
+            str(batch), "--seed", "0", "--device", "cuda", "--dtype", "bfloat16"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = predict.main(argv, rig=rig)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n = len(res["ms"])
+    log(f"VFANet serving path (bf16, batch {batch}): launches {launches} ({n} requests, ms "
+        f"{res['ms']}); max_memory_allocated {peak} bytes")
+    want = {"rig_window_fwd_bf16": 3 * n, "rig_bev_epilogue": n,
+            **{k: BACKBONE_NORMS * n for k in BACKBONE_KERNELS}}
+    bad = {k: v for k, v in launches.items() if v != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"VFANet's serving path launched {bad}, expected {want}")
+    for h in res["heatmaps"]:
+        if tuple(h.shape) != (batch, 1, 156, 156) or not torch.isfinite(h).all():
+            raise AssertionError(f"VFANet heatmap {tuple(h.shape)}, finite "
+                                 f"{bool(torch.isfinite(h).all())}")
+    torch.cuda.empty_cache()
+    return {"launches": {k: launches[k] // n for k in BACKBONE_KERNELS}, "requests": n,
+            "ms": res["ms"], "peak": peak}
 
 
 def phase_rig_vs_reference(rig, device, data: str):
@@ -1678,10 +1860,10 @@ def phase_disk_path(proc, base, rig_cache, device, serve_rig, staged):
         log(f"  train on disk ({tag}): launches {launches}; steps "
             f"{len(res['ms'])}, p50 {np.median(res['ms']):.2f} ms a step, loader "
             f"wait p50 {np.median(res['wait_ms']):.2f} ms")
-        # + the one-launch epilogue in the validation forward
-        if any(launches[k] <= 0 for k in kernels + ("rig_bev_epilogue",)) or any(
-                n for k, n in launches.items()
-                if k not in kernels + ("rig_bev_epilogue",)):
+        # + the one-launch epilogue and the backbone's norms in the validation forward
+        served = ("rig_bev_epilogue",) + BACKBONE_KERNELS
+        if any(launches[k] <= 0 for k in kernels + served) or any(
+                n for k, n in launches.items() if k not in kernels + served):
             raise AssertionError(f"train on disk ({tag}) launched {launches}")
         if not all(np.isfinite(d["loss"]) for d in res["losses"]):
             raise AssertionError(f"train on disk ({tag}): a non-finite loss")
@@ -2140,7 +2322,8 @@ def phase_multihost(rig16, home, base, device, tiny=False) -> dict:
             launches = json.loads(re.search(r"kernel launches \(this process\): (\{.*\})",
                                             text).group(1))
             if (launches["rig_window_fwd_bf16"] <= 0 or launches["rig_window_bwd_bf16"] <= 0
-                    or any(n for k, n in launches.items() if not k.endswith("_bf16"))):
+                    or any(n for k, n in without_backbone(launches).items()
+                           if not k.endswith("_bf16"))):
                 raise AssertionError(f"--multihost rank {r} launched {launches}")
     one16 = train.main(argv + ["--dtype", "bfloat16", "-b", "2", "--savedir",
                                os.path.join(base, "one16")], rig=rig16)
@@ -2199,7 +2382,8 @@ def phase_bev_bench(rig16, home, device, tiny=False) -> dict:
     err = buf.getvalue()
     per_rank = [json.loads(m) for m in re.findall(r"# rank \d kernel launches: (\{.*\})", err)]
     if len(per_rank) != BEV_SHARDS or (device.type == "cuda" and any(
-            r["rig_window_fwd_bf16"] <= 0 or any(n for k, n in r.items() if not k.endswith("_bf16"))
+            r["rig_window_fwd_bf16"] <= 0
+            or any(n for k, n in without_backbone(r).items() if not k.endswith("_bf16"))
             for r in per_rank)):
         raise AssertionError(f"bench --bev_shards: launches {per_rank}\n{err[-3000:]}")
     plain = bench.main(argv, rig=rig16)
@@ -2214,7 +2398,7 @@ def phase_predict_on_disk(root, ckpt, rig, device, base, tiny=False) -> dict:
     """Phase 5e (1): the predict CLI on disk (a val scene of the written
     set, the resumed run's checkpoint, bf16, the 8-bucket rig), counts set
     to 0 before and read after (K1-bf16 once a scale, the serving epilogue
-    once, no other kernel),
+    once, the backbone's norms BACKBONE_NORMS times each, no other kernel),
     its heatmap against the plain route's (rel-L2 BF16_PATH_L2)."""
     from vfa_tpu_torch import predict
 
@@ -2233,7 +2417,8 @@ def phase_predict_on_disk(root, ckpt, rig, device, base, tiny=False) -> dict:
         f"{BF16_PATH_L2:.0e}); {res['ms'][0]:.1f} ms; figure "
         + (f"written to {res['figure']}" if res["figure"] else "not written "
            "(matplotlib is not installed)"))
-    want_launches = ({"rig_window_fwd_bf16": 3, "rig_bev_epilogue": 1}
+    want_launches = ({"rig_window_fwd_bf16": 3, "rig_bev_epilogue": 1,
+                      **{k: BACKBONE_NORMS for k in BACKBONE_KERNELS}}
                      if device.type == "cuda" else {})
     check_bev_launches("predict on disk", launches, want_launches)
     if not l2 <= BF16_PATH_L2:
@@ -2502,7 +2687,10 @@ def phase_voxel_bf16(device, tiny=False) -> dict:
         serve_ms = (time.perf_counter() - t0) * 1e3
         launches = read_launches()
         bad = [k for k, v in pred.items() if not bool(torch.isfinite(v.float()).all())]
-        if bad or pred["heatmap"].shape != (1, 1, L, W) or any(launches.values()):
+        norms = BACKBONE_NORMS if device.type == "cuda" else 0
+        if (bad or pred["heatmap"].shape != (1, 1, L, W)
+                or any(without_backbone(launches).values())
+                or any(launches[k] != norms for k in BACKBONE_KERNELS)):
             raise AssertionError(f"5f bf16 voxel route serving: non-finite {bad}, "
                                  f"heatmap {tuple(pred['heatmap'].shape)}, launches {launches}")
         lats = model.laterals(images)
@@ -2782,7 +2970,7 @@ def phase_grid2x_and_voxel_bench(proc, rig_cache, device, tiny=False) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"phase 5f bench {' '.join(argv)}: {vox}; launches {launches_vox}")
-    if any(launches_vox.values()) or not vox["value"] > 0:
+    if any(without_backbone(launches_vox).values()) or not vox["value"] > 0:
         raise AssertionError(f"bench --no-rig: {vox}, launches {launches_vox}")
     return {"grid2x": res, "batch": int(reached.group(1)), "chunks": int(reached.group(3)),
             "attempts": attempts, "held": held, "launches": launches, "no_rig": vox}
@@ -2946,13 +3134,15 @@ def run_phases(device, t_start, builds, rig_cache, disk) -> int:
     mc16 = prebuilt_rig(builds, ("MultiviewC", 12, "bfloat16"), device, rig_cache)
     err["rig_window_fwd_bf16"] = phase_kernel_vs_plain(mc16, device)
     serve16_launches, serve16_res, serve16_peak = phase_main_path(mc16, device, scenes=6)
+    backbone_path = phase_backbone_path(mc16, device)
     num["rig_window_fwd_bf16"] = phase_numbers(mc16, device, backward=False)
     torch.cuda.empty_cache()
     epilogue = {"MultiviewC": phase_bev_epilogue(mc16, device, "MultiviewC")}
     passes16 = phase_bf16_passes(rig_cache, "window")
     bench16 = {"MultiviewC": phase_bench(
         ["--data", "MultiviewC", "--dtype", "bfloat16", "--batch", "0", "--iters",
-         "5", "--warmup", "1"], mc16, ["rig_window_fwd_bf16", "rig_bev_epilogue"])[0]}
+         "5", "--warmup", "1"], mc16,
+        ["rig_window_fwd_bf16", "rig_bev_epilogue", *BACKBONE_KERNELS])[0]}
     # the on-disk path: its rig comes from the last host process
     disk_launches = phase_disk_path(
         builds[len(PREBUILT)], disk, rig_cache, device, mc16,
@@ -2992,12 +3182,14 @@ def run_phases(device, t_start, builds, rig_cache, disk) -> int:
             epilogue[data] = phase_bev_epilogue(rig16, device, data)
         bench16[data] = phase_bench(
             ["--data", data, "--dtype", "bfloat16", "--batch", "0", "--iters", "5",
-             "--warmup", "1"], rig16, ["rig_window_fwd_bf16", "rig_bev_epilogue"])[0]
+             "--warmup", "1"], rig16,
+            ["rig_window_fwd_bf16", "rig_bev_epilogue", *BACKBONE_KERNELS])[0]
         del rig16
         torch.cuda.empty_cache()
     # MVDet's projection kernel, then its serving path, with no rig held
     mvdet = phase_mvdet_project(device)
     mvdet_path = phase_mvdet_path(device)
+    gn_norms = phase_gn_nhwc(device)
 
     # K2-bf16 on MultiviewX (nl 8)
     mx16t = prebuilt_rig(builds, ("MultiviewX", 8, "bfloat16"), device, rig_cache)
@@ -3217,6 +3409,16 @@ def run_phases(device, t_start, builds, rig_cache, disk) -> int:
          "library_ms": mvdet["library_ms"], "bound_ms": mvdet["bound_ms"],
          "bound_by": "bytes", "batch": MVDET_BATCH,
          "one_ulp_share": mvdet["one_ulp_share"]},
+        {"name": "gn_nhwc", "route": "cuda", "source": "vfa_tpu_torch/csrc/gn_nhwc.cu",
+         "replaces": "no TPU kernel (the JAX package leaves the backbone's norms to XLA): "
+                     "the library chain of a GroupNorm and its ReLU, add or max-pool",
+         "launches": backbone_path["launches"], "dtype": "bfloat16",
+         "ms": gn_norms["ms"], "plain_ms": gn_norms["plain_ms"], "library_ms": None,
+         "bound_ms": gn_norms["bound_ms"], "one_read_bound_ms": gn_norms["one_read_bound_ms"],
+         "bound_by": "bytes", "batch": GN_BATCH,
+         **{k: gn_norms[k] for k in ("max_abs_err", "max_rel_err", "stats_mean_err",
+                                     "stats_rstd_err", "groups_apart")},
+         "by_norm": gn_norms["rows"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -124,8 +124,9 @@ def test_no_jax_or_vfa_tpu_import_in_package():
 
 
 # Kernels of the port with no Pallas counterpart: MVDet's projection (the
-# JAX package has no MVDet).
-NO_TPU_COUNTERPART = {"mvdet_project"}
+# JAX package has no MVDet) and the backbone's norms (the JAX package leaves
+# them to XLA).
+NO_TPU_COUNTERPART = {"mvdet_project", "gn_nhwc"}
 
 
 def test_every_cuda_source_is_known_to_the_loader():

@@ -1403,14 +1403,19 @@ def test_bev_epilogue_past_2_31_elements_and_refusals(cuda):
         rig_bev_epilogue([small[0][..., :128].contiguous()], [ip[:, :64]], [b[:128]])
 
 
-def test_serving_forward_bev_matches_the_per_scale_route(cuda, tmp_path):
+def test_serving_forward_bev_matches_the_per_scale_route(cuda, tmp_path, monkeypatch):
     """The full bf16 MultiviewC model on the 12-bucket serving rig at
     batch 2: under no_grad `bev_features` takes the one-launch epilogue
     (1 launch, K1-bf16 once a scale) and gives the per-scale route's BEV
-    (taken with gradients on) within one bf16 ulp."""
+    (taken with gradients on) within one bf16 ulp. Both through the
+    backbone's library route (`ops/group_norm.takes_kernel` off), so that
+    only the sampling's route differs."""
     from vfa_tpu_torch.kernels import launch_counts
     from vfa_tpu_torch.model.vfanet import VFANet, cast_model, init_weights
+    from vfa_tpu_torch.ops import group_norm as gn
     from vfa_tpu_torch.rig_cli import build_cli_rig
+
+    monkeypatch.setattr(gn, "takes_kernel", lambda *a: False)
 
     cfg = get_config("MultiviewC")
     rig = build_cli_rig(cfg, make_calibrations(cfg), cuda, dtype=torch.bfloat16)
@@ -1620,3 +1625,344 @@ def test_mvdet_forward_launches_once_and_refusals(cuda):
         project_world(feats, pos, (8, 12), out)
     with pytest.raises(RuntimeError):          # the kernel refuses 128 channels
         project_world(last[:, :, :128], pos, (8, 12), out)
+
+
+# VFANet's backbone norms, `csrc/gn_nhwc.cu`, against the library chain
+# (`ops/group_norm.py::group_norm_act_plain`) on the card: fed ATen's bf16
+# statistics the apply pass gives the chain's bits; with its own, whose fp32
+# sums run in another order, the chain's bits except in the (image, group)s
+# whose bf16 statistic differs from ATen's, and there the bits of the
+# apply pass's plain version (`apply_plain`) fed the kernel's statistics.
+
+GN_SHAPES = [  # (M, C, H, W, epilogue, special)
+    (2, 64, 360, 640, "relu_pool", None),       # the stem: 4 channels a group
+    (3, 64, 25, 33, "relu_pool", "zeros"),      # odd sizes; z = -0 where x < 0
+    (2, 64, 180, 320, "relu", None),            # layer1
+    (2, 64, 180, 320, "add_relu", "zeros"),
+    (2, 128, 90, 160, "none", None),            # layer2: 8 channels a group
+    (2, 128, 90, 160, "add_relu", None),
+    (2, 256, 45, 80, "relu", "zeros"),          # layer3: 16
+    (2, 256, 45, 80, "add_relu", None),
+    (2, 512, 23, 40, "none", None),             # layer4: 32, at 23 x 40
+    (2, 512, 23, 40, "relu", None),
+    (2, 512, 23, 40, "add_relu", "zeros"),
+    (2, 64, 30, 40, "relu_pool", "nan"),        # NaN through the norm, ReLU, add and pool
+    (2, 128, 30, 40, "add_relu", "nan"),
+    (3, 512, 23, 40, "relu", "nan"),
+]
+GN_IDS = [f"{m}x{c}x{h}x{w}-{a}" + (f"-{s}" if s else "") for m, c, h, w, a, s in GN_SHAPES]
+
+
+def _gn_case(M, C, H, W, act, special, device, seed=0):
+    """Channels-last bf16 x with a mean per channel, bf16 scale and bias
+    (with `zeros`, every fifth channel's scale 0 and bias -0, so that z is
+    -0 where x < 0), an identity for add_relu, and with `nan` a NaN in the
+    first and last image's first and last pixel."""
+    g = torch.Generator(device=device).manual_seed(seed + C + H)
+    x = torch.empty((M, C, H, W), device=device, dtype=torch.bfloat16,
+                    memory_format=torch.channels_last)
+    off = torch.randn((1, C, 1, 1), device=device, generator=g) * 3
+    for m in range(M):
+        x[m] = torch.randn((C, H, W), device=device, generator=g) * 2 + off[0]
+    w = torch.randn(C, device=device, generator=g).to(torch.bfloat16)
+    b = (torch.randn(C, device=device, generator=g) * 0.5).to(torch.bfloat16)
+    if special == "zeros":
+        w[::5], b[::5] = 0.0, -0.0
+    ident = None
+    if act == "add_relu":
+        ident = torch.randn((M, C, H, W), device=device, generator=g).to(torch.bfloat16)
+        ident = ident.contiguous(memory_format=torch.channels_last)
+    if special == "nan":
+        x[0, 0, 0, 0] = float("nan")
+        x[M - 1, C - 1, H - 1, W - 1] = float("nan")
+    return x, w, b, ident
+
+
+def _aten_stats(x, G):
+    """ATen's bf16 mean and rstd of x as (M, G, 2) fp32, and the fp32 ones
+    of its fp32 path (`ops/group_norm.py::aten_stats`)."""
+    from vfa_tpu_torch.ops.group_norm import aten_stats
+
+    return aten_stats(x, G)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int16)
+
+
+@pytest.mark.parametrize("M,C,H,W,act,special", GN_SHAPES, ids=GN_IDS)
+def test_gn_nhwc_apply_fed_atens_statistics_gives_the_chains_bits(cuda, M, C, H, W, act,
+                                                                  special):
+    """The apply pass fed ATen's own bf16 statistics: the library chain's
+    output bit for bit (NaN, -0 and the pool's first maximum included),
+    channels-last; one launch."""
+    from vfa_tpu_torch.ops import group_norm as gn
+
+    x, w, b, ident = _gn_case(M, C, H, W, act, special, cuda)
+    aten, _ = _aten_stats(x, 16)
+    n0 = gn.gn_nhwc_apply.launches
+    got = gn.gn_nhwc_apply(x, aten, w, b, act, ident)
+    assert gn.gn_nhwc_apply.launches == n0 + 1
+    want = gn.group_norm_act_plain(x, w, b, 16, 1e-5, act, ident)
+    torch.cuda.synchronize()
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert got.shape == want.shape and torch.equal(_bits(got), _bits(want))
+    if special == "nan":
+        assert torch.isnan(got[0].float()).any() and torch.isnan(got[M - 1].float()).any()
+
+
+def _check_stats(got, ref, aten):
+    """The kernel's fp32 statistics within `STATS_TOL` of ATen's fp32 ones
+    (NaN where ATen's are); where the kernel's and ATen's bf16 statistics
+    differ, they are neighbours and ATen's fp32 value lies within
+    `STATS_TOL` of the boundary between them (`ops/group_norm.py::
+    stats_vs_aten`).
+    Returns the (image, group)s whose bf16 statistics differ, and the
+    largest scaled distances."""
+    from vfa_tpu_torch.ops.group_norm import STATS_TOL, stats_vs_aten
+
+    d_mean, d_rstd, off, sound = stats_vs_aten(got, ref, aten)
+    assert d_mean <= STATS_TOL and d_rstd <= STATS_TOL, (d_mean, d_rstd)
+    assert sound
+    return off, d_mean, d_rstd
+
+
+@pytest.mark.parametrize("M,C,H,W,act,special", GN_SHAPES, ids=GN_IDS)
+def test_gn_nhwc_statistics_and_route_against_the_chain(cuda, M, C, H, W, act, special):
+    """The kernel pair (`group_norm_nhwc`): its statistics against ATen's
+    (`_check_stats`); its output the chain's bits in every (image, group)
+    whose bf16 statistics are ATen's, and everywhere the bits of
+    `apply_plain` fed the kernel's statistics; one statistics and one
+    apply launch."""
+    from vfa_tpu_torch.ops import group_norm as gn
+
+    x, w, b, ident = _gn_case(M, C, H, W, act, special, cuda)
+    aten, ref = _aten_stats(x, 16)
+    stats = gn.gn_nhwc_stats(x, 16, 1e-5)
+    n0 = (gn.gn_nhwc_stats.launches, gn.gn_nhwc_apply.launches)
+    got = gn.group_norm_nhwc(x, w, b, 16, 1e-5, act, ident)
+    assert (gn.gn_nhwc_stats.launches, gn.gn_nhwc_apply.launches) == (n0[0] + 1, n0[1] + 1)
+    again = gn.gn_nhwc_stats(x, 16, 1e-5)                          # the same bits twice
+    assert torch.equal(again.view(torch.int32), stats.view(torch.int32))
+    groups_off, d_mean, d_rstd = _check_stats(stats, ref, aten)
+    want = gn.group_norm_act_plain(x, w, b, 16, 1e-5, act, ident)
+    plain = gn.apply_plain(x, stats, w, b, act, ident)
+    torch.cuda.synchronize()
+    print(f"statistics: mean {d_mean:.2e}, rstd {d_rstd:.2e} of STATS_TOL's scale; "
+          f"{int(groups_off.sum())} of {groups_off.numel()} (image, group)s round apart")
+    assert torch.equal(_bits(got), _bits(plain))
+    cpg = C // 16
+    same_groups = ~groups_off.repeat_interleave(cpg, 1)[:, :, None, None].expand_as(got)
+    assert torch.equal(_bits(got)[same_groups], _bits(want)[same_groups])
+
+
+def test_gn_nhwc_past_2_31_elements(cuda):
+    """The stem at batch 32 x 7 cameras: conv1's output (224, 64, 360,
+    640), 3.3e9 elements, past int32 offsets. Fed ATen's statistics the
+    apply pass gives the chain's bits; the kernel's statistics against
+    ATen's as above, and where an image's bf16 statistics differ, that
+    image against `apply_plain` fed them."""
+    from vfa_tpu_torch.ops import group_norm as gn
+
+    M, C, H, W = 224, 64, 360, 640
+    x, w, b, _ = _gn_case(M, C, H, W, "relu_pool", None, cuda)
+    assert x.numel() > 2 ** 31
+    aten, ref = _aten_stats(x, 16)
+    want = gn.group_norm_act_plain(x, w, b, 16, 1e-5, "relu_pool")
+    fed = gn.gn_nhwc_apply(x, aten, w, b, "relu_pool")
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(fed), _bits(want))
+    del fed
+    stats = gn.gn_nhwc_stats(x, 16, 1e-5)
+    groups_off, _, _ = _check_stats(stats, ref, aten)
+    got = gn.gn_nhwc_apply(x, stats, w, b, "relu_pool")
+    torch.cuda.synchronize()
+    for m in range(M):
+        if groups_off[m].any():
+            plain = gn.apply_plain(x[m:m + 1], stats[m:m + 1], w, b, "relu_pool")
+            assert torch.equal(_bits(got[m:m + 1]), _bits(plain)), m
+        else:
+            assert torch.equal(_bits(got[m]), _bits(want[m])), m
+
+
+def test_gn_nhwc_refusals(cuda):
+    """The wrapper refuses fp32 (TypeError), an identity without add_relu
+    and none with it, and the apply pass an x that is not channels-last
+    (ValueError); the kernel a channel count it does not take
+    (RuntimeError)."""
+    from vfa_tpu_torch.ops import group_norm as gn
+
+    x, w, b, ident = _gn_case(2, 64, 8, 10, "add_relu", None, cuda)
+    with pytest.raises(TypeError):
+        gn.group_norm_nhwc(x.float(), w.float(), b.float(), 16, 1e-5, "relu")
+    with pytest.raises(RuntimeError):          # 48 / 8 does not divide 256
+        gn.group_norm_nhwc(x[:, :48], w[:48], b[:48], 16, 1e-5, "relu")
+    with pytest.raises(ValueError):
+        gn.group_norm_nhwc(x, w, b, 16, 1e-5, "relu", ident)
+    with pytest.raises(ValueError):
+        gn.group_norm_nhwc(x, w, b, 16, 1e-5, "add_relu")
+    stats = gn.gn_nhwc_stats(x, 16, 1e-5)
+    with pytest.raises(ValueError):
+        gn.gn_nhwc_apply(x.contiguous(), stats, w, b, "relu")
+
+
+@pytest.mark.parametrize("groups", [512, 256, 64])
+def test_gn_nhwc_2048_channels(cuda, groups):
+    """The widest channel count the kernels take, 2048 (one thread a pixel),
+    in 4, 8 and 32 channels a group: with 4 (512 groups) a block of the
+    statistics' first kernel leaves more groups than it has threads. The
+    statistics against ATen's; the output `apply_plain`'s fed them."""
+    from vfa_tpu_torch.ops import group_norm as gn
+
+    M, C, H, W = 2, 2048, 9, 11
+    g = torch.Generator(device=cuda).manual_seed(groups)
+    x = torch.randn((M, C, H, W), device=cuda, generator=g) * 2 + 1
+    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w = torch.randn(C, device=cuda, generator=g).to(torch.bfloat16)
+    b = torch.randn(C, device=cuda, generator=g).to(torch.bfloat16)
+    aten, ref = _aten_stats(x, groups)
+    stats = gn.gn_nhwc_stats(x, groups, 1e-5)
+    _check_stats(stats, ref, aten)
+    got = gn.group_norm_nhwc(x, w, b, groups, 1e-5, "relu")
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(gn.apply_plain(x, stats, w, b, "relu")))
+
+
+# What the caching allocator may count above the same requests: it hands a
+# cached block out whole where the rest would be at most 1 MiB (kSmallSize
+# of c10's CUDACachingAllocator), so each block live at the peak may carry
+# up to that much, by the order blocks were freed before. Measured on an
+# H100, the kernels' route's allocated peak above the library route's, the
+# requested peaks equal: 0.69 MB in the forward below; 1.86 and 2.10 MB in
+# the serving cells at batch 32.
+ALLOC_SLACK = 2 * 2 ** 20
+
+
+def _serving_vfanet(cfg, device, seed=0):
+    from vfa_tpu_torch.model.vfanet import VFANet, cast_model, init_weights
+
+    net = init_weights(VFANet(cfg), torch.Generator().manual_seed(seed))
+    return cast_model(net, torch.bfloat16).to(device).eval()
+
+
+def test_serving_forward_through_the_gn_kernels_against_the_library_route(cuda, monkeypatch):
+    """The full bf16 MultiviewC model on the 12-bucket serving rig at
+    batch 2 (14 images of 720 x 1280): 20 statistics and 20 apply launches
+    a forward. Fed ATen's statistics, the kernels give every output of the
+    library chain run through the same channels-last convolutions bit for
+    bit. Against the library route (`takes_kernel` off: the parent's path,
+    NCHW), every output within one bf16 ulp on at least FORWARD_ULP_SHARE
+    of its elements; the kernel route's peak no higher in the bytes the
+    tensors request, and in allocated bytes within ALLOC_SLACK."""
+    from vfa_tpu_torch.kernels import launch_counts
+    from vfa_tpu_torch.ops import group_norm as gn
+    from vfa_tpu_torch.rig_cli import build_cli_rig
+
+    cfg = get_config("MultiviewC")
+    rig = build_cli_rig(cfg, make_calibrations(cfg), cuda, dtype=torch.bfloat16)
+    model = _serving_vfanet(cfg, cuda)
+    x = torch.rand((2, 7, *cfg.resize_size, 3), generator=torch.Generator().manual_seed(1))
+    x = x.to(cuda, torch.bfloat16)
+
+    def forward():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_stats()
+        with torch.no_grad():
+            out = model(x, rig)
+        torch.cuda.synchronize()
+        now = torch.cuda.memory_stats()
+        return out, {k: now[f"{k}_bytes.all.peak"] - base[f"{k}_bytes.all.current"]
+                     for k in ("requested", "allocated")}
+
+    def fed_aten_stats(x, w, b, G, eps, act="none", identity=None):
+        M, C, H, W = x.shape
+        _, mu, rs = torch.native_group_norm(x.contiguous(), w, b, M, C, H * W, G, eps)
+        stats = torch.stack([mu.float(), rs.float()], -1).view(M, G, 2)
+        last = lambda t: t.contiguous(memory_format=torch.channels_last)
+        return gn.gn_nhwc_apply(last(x), stats, w, b, act,
+                                last(identity) if identity is not None else None)
+
+    def chain_channels_last(x, w, b, G, eps, act="none", identity=None):
+        out = gn.group_norm_act_plain(x, w, b, G, eps, act, identity)
+        return out.contiguous(memory_format=torch.channels_last)
+
+    n0 = launch_counts()
+    got, peak = forward()
+    n1 = launch_counts()
+    assert n1["gn_nhwc_apply"] - n0["gn_nhwc_apply"] == 20
+    assert n1["gn_nhwc_stats"] - n0["gn_nhwc_stats"] == 20
+    with monkeypatch.context() as m:
+        m.setattr(gn, "group_norm_nhwc", fed_aten_stats)
+        fed, _ = forward()
+    with monkeypatch.context() as m:
+        m.setattr(gn, "group_norm_nhwc", chain_channels_last)
+        chain, _ = forward()
+    for k in chain:
+        assert torch.equal(_bits(fed[k]), _bits(chain[k])), k
+    with monkeypatch.context() as m:
+        m.setattr(gn, "takes_kernel", lambda *a: False)
+        want, want_peak = forward()
+    assert launch_counts()["gn_nhwc_apply"] == n1["gn_nhwc_apply"] + 20
+    print(f"serving forward peak above its inputs: kernels {peak}, library {want_peak}")
+    assert peak["requested"] <= want_peak["requested"]
+    assert peak["allocated"] <= want_peak["allocated"] + ALLOC_SLACK
+    for k in want:
+        ulps = bf16_ulps(got[k].to(torch.bfloat16), want[k].to(torch.bfloat16))
+        share = float((ulps <= 1).float().mean())
+        print(f"{k}: {share:.5f} of {ulps.numel()} within one bf16 ulp, max {int(ulps.max())}")
+        assert share >= gn.FORWARD_ULP_SHARE, (k, share)
+
+
+def test_gn_launches_serving_20_training_0_mvdet_0(cuda):
+    """`launch_counts()`: 20 statistics and 20 apply launches a bf16 serving
+    forward of the tiny MultiviewC VFANet (eval, no_grad), none in fp32,
+    none in a mixed-precision training step, none in a bf16 MVDet
+    forward."""
+    import dataclasses
+
+    from vfa_tpu_torch.config import TrainConfig
+    from vfa_tpu_torch.data.synthetic_loader import SyntheticSceneLoader
+    from vfa_tpu_torch.geometry import ground_positions
+    from vfa_tpu_torch.kernels import launch_counts
+    from vfa_tpu_torch.model.mvdet import MVDet, init_weights as mvdet_init
+    from vfa_tpu_torch.model.vfanet import VFANet, init_weights
+    from vfa_tpu_torch.train_lib import batch_to_device, make_optimizer, make_train_step
+
+    names = ("gn_nhwc_stats", "gn_nhwc_apply")
+
+    def delta(fn):
+        n0 = launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        n1 = launch_counts()
+        return tuple(n1[n] - n0[n] for n in names)
+
+    tc = tiny_config(get_config("MultiviewC"), factor=4)
+    rig = _bf16_rig("MultiviewC", 160, 3, "window", cuda)
+    loader = SyntheticSceneLoader(tc, num_frames=2, batch_size=2, max_objects=8, seed=3,
+                                  num_objects=3)
+    batch = batch_to_device(next(iter(loader)), cuda)
+    serve = _serving_vfanet(tc, cuda)
+    with torch.no_grad():
+        assert delta(lambda: serve(batch["images"].to(torch.bfloat16), rig)) == (20, 20)
+    fp32 = init_weights(VFANet(tc), torch.Generator().manual_seed(0)).to(cuda).eval()
+    with torch.no_grad():      # the backbone and the laterals: no rig in fp32 here
+        assert delta(lambda: fp32.laterals(batch["images"])) == (0, 0)
+    model = init_weights(VFANet(tc), torch.Generator().manual_seed(0)).to(cuda)
+    tcfg = TrainConfig(pretrained=False, compute_dtype="bfloat16")
+    step = make_train_step(model, make_optimizer(model, tcfg, 1), tc, tcfg,
+                           dim_mean=loader.dim_mean)
+    b16 = dict(batch)
+    b16["images"] = batch["images"].to(torch.bfloat16)
+    assert delta(lambda: step(b16, rig)) == (0, 0)
+    cfg = dataclasses.replace(get_config("Wildtrack"), world_size=(32, 96),
+                              image_size=(128, 192), resize_size=(64, 96), num_cam=2)
+    mv = mvdet_init(MVDet(cfg), torch.Generator().manual_seed(23)).to(cuda)
+    mv = mv.to(torch.bfloat16).eval()
+    grid = make_grid(cfg.world_size, cfg.cube_size[:2], cfg.name)
+    pos = ground_positions(make_calibrations(cfg), grid, cfg.name, cfg.image_size,
+                           mv.upsample_shape).to(cuda)
+    images = torch.rand(2, 2, 64, 96, 3, device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        assert delta(lambda: mv(images, pos)) == (0, 0)

@@ -65,6 +65,10 @@ SIGNATURES = {
         # h, w, L, W, K; 2 / (w - 1), 2 / (h - 1)
         "mvdet_project_bf16": [P] * 3 + [LL] * 4 + [I] * 10 + [D] * 2 + [P],
     },
+    "gn_nhwc": {
+        # x, identity, out, part, stats, gamma, beta; M, H, W, C, G, P, mode, eps
+        "gn_nhwc_bf16": [P] * 7 + [I] * 7 + [D, P],
+    },
     "voxel_tap_bwd": {
         # g, the order index (ptr, rows, w), out; B, H * W, C
         "voxel_tap_bwd_f32": [P] * 5 + [I] * 3 + [P],
@@ -170,7 +174,7 @@ def launch(name: str, fn: str, device, *args) -> None:
 def launch_counts() -> Dict[str, int]:
     """name -> launches so far in this process, of every kernel variant of
     the port (each wrapper counts where it launches its kernel)."""
-    from vfa_tpu_torch.ops import projection, rig_cuda, stem, voxel
+    from vfa_tpu_torch.ops import group_norm, projection, rig_cuda, stem, voxel
 
     names = ("rig_window_fwd", "rig_window_bwd", "rig_flat_fwd", "rig_flat_bwd",
              "rig_window_fwd_bf16", "rig_flat_fwd_bf16", "rig_window_bwd_bf16",
@@ -181,4 +185,6 @@ def launch_counts() -> Dict[str, int]:
     for n in ("voxel_tap_bwd", "voxel_tap_bwd_bf16"):
         out[n] = getattr(voxel, n).launches
     out["mvdet_project"] = projection.project_world.launches
+    for n in ("gn_nhwc_stats", "gn_nhwc_apply"):
+        out[n] = getattr(group_norm, n).launches
     return out

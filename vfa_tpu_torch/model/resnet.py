@@ -2,8 +2,11 @@
 `vfa_tpu/model/resnet.py`), and the ResNet stages MVDet's trunk shares.
 
 Reference: `vfa/model/resnet.py` — BasicBlock with GN(16), stem conv7x7/s2
-+ GN + maxpool3x3/s2, returning the /8, /16, /32 pyramid. NCHW inside;
-module names follow the reference state-dict keys (`base.layerX.Y.*`).
++ GN + maxpool3x3/s2, returning the /8, /16, /32 pyramid. NCHW inside,
+except where each norm and what follows it go through `ops/group_norm.py`'s
+kernels (bf16 serving on the card): there the activations are
+channels-last, and the pyramid is made NCHW for the laterals. Module names
+follow the reference state-dict keys (`base.layerX.Y.*`).
 `resnet_stages` builds the four stages by torchvision's rule for either
 norm, and with stages whose stride turns into dilation (MVDet's trunk,
 `model/mvdet.py`).
@@ -21,6 +24,7 @@ from torch.nn.utils.stateless import _reparametrize_module
 from torch.utils.checkpoint import checkpoint
 
 from vfa_tpu_torch import observability
+from vfa_tpu_torch.ops.group_norm import norm_act, norm_relu_pool
 
 GN_EPS = 1e-5
 BN_EPS = 1e-5
@@ -66,7 +70,8 @@ class BasicBlock(nn.Module):
     """Two 3x3 convs with a norm and a residual add (`vfa/model/resnet.py:26-57`).
     `norm` makes each norm layer (`group_norm`, VFANet's, or `batch_norm`);
     `dilation` dilates both 3x3 convolutions, each padded by it (MVDet's
-    copy of torchvision's block, which lifts its limit of 1)."""
+    copy of torchvision's block, which lifts its limit of 1). Each norm
+    runs with what follows it through `ops/group_norm.norm_act`."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, norm=group_norm, dilation: int = 1):
@@ -84,10 +89,14 @@ class BasicBlock(nn.Module):
                 norm(planes))
 
     def forward(self, x):
-        identity = x if self.downsample is None else self.downsample(x)
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        return torch.relu(out + identity)
+        identity = x
+        if self.downsample is not None:
+            conv, norm = self.downsample
+            identity = norm_act(norm, conv(x))
+        # each intermediate is handed on, never named, so that it is freed
+        # once the next op has read it (a serving peak may be set in a block)
+        return norm_act(self.bn2, self.conv2(norm_act(self.bn1, self.conv1(x), "relu")),
+                        "add_relu", identity)
 
 
 def resnet_stages(layers: Sequence[int], norm=group_norm,
@@ -116,9 +125,14 @@ def resnet_stages(layers: Sequence[int], norm=group_norm,
 
 
 class ResNetGN(nn.Module):
-    """ResNet trunk returning (feats8, feats16, feats32), NCHW.
+    """ResNet trunk returning (feats8, feats16, feats32), NCHW (on the
+    kernels' route, `ops/group_norm.py`, each copied from the channels-last
+    activations: the laterals take NCHW faster than channels-last, whose
+    norms would copy their 256-channel outputs to NCHW).
     `layers` is (2, 2, 2, 2) for resnet18, (3, 4, 6, 3) for resnet34.
-    `fused_stem` runs the stem's GN + ReLU + max-pool through
+    The stem's GN + ReLU + max-pool go through `ops/group_norm.
+    norm_relu_pool`: bf16 serving on the card takes its kernel whatever
+    `fused_stem` says. Elsewhere `fused_stem` runs them through
     `ops.stem.gn_relu_pool` (same forward, the hand-written backward that
     keeps only conv1's output); the parameters stay under `bn1`, so the
     state dict is the same. VFA_FUSED_STEM=1/0 overrides the attribute, as
@@ -137,7 +151,6 @@ class ResNetGN(nn.Module):
         self.stem_remat = stem_remat
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = group_norm(64)
-        self.maxpool = nn.MaxPool2d(3, 2, 1)
         for stage, layer in enumerate(resnet_stages(layers), start=1):
             setattr(self, f"layer{stage}", layer)
 
@@ -146,13 +159,7 @@ class ResNetGN(nn.Module):
         return env != "0" if env is not None else self.fused_stem
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv1(x)
-        if self.fused_stem_on():
-            from vfa_tpu_torch.ops.stem import gn_relu_pool
-
-            return gn_relu_pool(x, self.bn1.weight, self.bn1.bias,
-                                self.bn1.num_groups, self.bn1.eps)
-        return self.maxpool(torch.relu(self.bn1(x)))
+        return norm_relu_pool(self.bn1, self.conv1(x), self.fused_stem_on())
 
     def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         x = remat(self, self.stem, x) if self.stem_remat else self.stem(x)
@@ -161,4 +168,4 @@ class ResNetGN(nn.Module):
             for block in layer:
                 x = remat(block, block, x) if self.remat else block(x)
             feats.append(x)
-        return feats[1], feats[2], feats[3]
+        return tuple(f.contiguous() for f in feats[1:])
